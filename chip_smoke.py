@@ -6,10 +6,14 @@ Phases, in order; each prints one JSON line and any failure ends the run
 with a non-zero exit code:
 
   device   the card's name, and its name and power limit from nvidia-smi
-  build    build the CUDA kernels from ``src/repro_torch/csrc``
+  build    build the CUDA kernels from ``src/repro_torch/csrc`` into one
+           library (one nvcc per source, started together, then a link)
   kernels  each CUDA kernel against its plain torch version on the card,
            bit for bit, over lengths, modes, counter offsets near 2^32
-           and vote copies with and without a majority
+           and vote copies with and without a majority; the Montgomery
+           multiply at L in {8, 32, 128, 256} limbs and 1..1024 rows with
+           edge operands (some also against Python ints), and
+           ``modexp_ints`` against ``pow`` at L = 128
   main     the secure allreduce at full width -- n = 64 nodes, clusters
            of 4, ring schedule, r = 3, global masking, T = 2^22 float32
            per node -- through ``SecureAggregator.allreduce`` on the card:
@@ -17,8 +21,16 @@ with a non-zero exit code:
            executed wire bytes equal to ``cost``, kernel launch counts;
            then the digest transport and a flip adversary
   batched  ``allreduce_batched`` with S = 64 sessions of n = 16, T = 2^16
+  paillier threshold Paillier at full width (1024-bit n, fixed committed
+           safe primes): 512 encrypted votes summed, partial decryption
+           of c_t = 69 shares' first 58 on the card equal to Python
+           ``pow`` and combined to the sum, 2 nbits + 1 launches; then the
+           paper's DA protocol over a 512-node overlay with Step 4 on the
+           card, exact and equal in every account to the ``pow`` run
   timing   CUDA-event medians of each kernel and its plain version at
-           the main path's shapes, and the end-to-end allreduce time
+           the main path's shapes (the Montgomery multiply at the
+           decryption's rows x 128 limbs and at 1056 x 128), and the
+           end-to-end allreduce time
 
 The last lines are the card's name and power limit, one JSON object
 describing every kernel, and ``{"ok": true, "device": {...}}``.  Without
@@ -28,6 +40,7 @@ nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import pathlib
 import statistics
@@ -40,7 +53,8 @@ import torch
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
 
-PHASES = ("device", "build", "kernels", "main", "batched", "timing")
+PHASES = ("device", "build", "kernels", "main", "batched", "paillier",
+          "timing")
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 # 32-bit lane operations issued per second: 132 SMs x 128 lanes x
 # 1.98 GHz, half the 67 TFLOP/s float32 FMA rate (an FMA counts two FLOPs)
@@ -51,6 +65,18 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 N_MAIN, C_MAIN, T_MAIN = 64, 4, 1 << 22
 SPLITMIX_OPS = 9              # add, 3 shifts, 3 xors, 2 multiplies
 PAD_OPS = SPLITMIX_OPS + 2    # ctr ^ k1, then + k2
+# Two 512-bit safe primes, drawn once with the port's gen_safe_prime and
+# checked with _is_probable_prime (p, q and (p-1)/2, (q-1)/2), so the
+# full-width key's shapes are the same in every run
+P_FULL = int("111531299176384119993107029701011476323755920436567491832802"
+             "959801994646988251383599881439615493711226029845013473845590"
+             "00205001755194658642705468360451339")
+Q_FULL = int("878186117668736310300858909383076763157932463076984285209715"
+             "629955658355845996269498822573048365775560191735401017213724"
+             "2788396693560907591948552415465603")
+N_OVERLAY, TAU_OVERLAY, KEY_BITS = 512, 0.3, 1024
+C_THRESHOLD = 69              # threshold cluster of build_overlay(512, 0.3, 0)
+N_DECRYPT = 58                # decryptors of a threshold decryption
 
 
 def emit(obj) -> None:
@@ -114,12 +140,13 @@ def phase_device() -> dict:
 
 
 def phase_build() -> dict:
-    from repro_torch.kernels.secure_agg import build
+    from repro_torch.kernels import build
     t0 = time.perf_counter()
     build.lib()
     return {"phase": "build", "seconds": time.perf_counter() - t0,
             "compiled": build.build_seconds is not None,
             "library": build.library_path().name,
+            "sources": [src.name for src in build.SOURCES],
             "ptxas": build.build_log.strip().splitlines()}
 
 
@@ -177,9 +204,60 @@ def phase_kernels(rng, dev, errs: dict) -> dict:
                 check(torch.equal(got, want),
                       f"vote_combine T={T} r={r} majority={majority}")
                 checks += 1
+    checks += _check_mont_mul(rng, dev, errs)
     torch.cuda.synchronize()
     return {"phase": "kernels", "checks": checks, "equal": True,
             "max_abs_err": errs}
+
+
+def _rand_below(rng, n: int) -> int:
+    return int.from_bytes(rng.bytes((n.bit_length() + 7) // 8 + 8),
+                          "little") % n
+
+
+def _check_mont_mul(rng, dev, errs: dict) -> int:
+    """``mont_mul`` against its plain version on the card, limb for limb,
+    and ``modexp_ints`` against Python ``pow``."""
+    from repro_torch.crypto.limb import (batch_to_limbs, limbs_needed,
+                                         montgomery_params)
+    from repro_torch.kernels.modmul import ops as mm
+    from repro_torch.kernels.modmul.ref import mont_mul_int
+    checks = 0
+    for L in (8, 32, 128, 256):
+        n = _rand_below(rng, 1 << (16 * L - 3)) | (1 << (16 * L - 4)) | 1
+        check(limbs_needed(n) == L, f"modulus of {L} limbs")
+        mp = montgomery_params(n, L)
+        nl = torch.from_numpy(mp["n_limbs"].astype(np.int32)).to(dev)
+        edges = [0, 1, n - 1, mp["R"] % n]
+        for batch in (1, 7, 58, 1024):
+            k = min(batch, len(edges))
+            av = edges[:k] + [_rand_below(rng, n) for _ in range(batch - k)]
+            bv = [_rand_below(rng, n) for _ in range(batch - k)] + edges[:k]
+            limbs = batch_to_limbs(av + bv, L)
+            a = torch.from_numpy(limbs[:batch].astype(np.int32)).to(dev)
+            b = torch.from_numpy(limbs[batch:].astype(np.int32)).to(dev)
+            got = mm.mont_mul_op(a, b, nl, mp["n0inv"])
+            want = mm.mont_mul_op(a, b, nl, mp["n0inv"], impl="torch")
+            errs["mont_mul"] = max(errs["mont_mul"], max_abs_err(got, want))
+            check(torch.equal(got, want), f"mont_mul L={L} batch={batch}")
+            checks += 1
+            if batch <= N_DECRYPT:
+                truth = mont_mul_int(limbs[:batch], limbs[batch:], n, L)
+                check(np.array_equal(got.cpu().numpy(),
+                                     truth.astype(np.int32)),
+                      f"mont_mul L={L} batch={batch} against Python ints")
+                checks += 1
+    # modexp at the decryption's width: n^2 of 2048 bits, L = 128
+    n = _rand_below(rng, 1 << 2047) | (1 << 2047) | 1
+    L = limbs_needed(n)
+    check(L == 128, "2048-bit modulus has 128 limbs")
+    exps = [0, 1, _rand_below(rng, 1 << 64) | (1 << 63),
+            _rand_below(rng, 1 << 2374) | (1 << 2373)]
+    bases = [_rand_below(rng, n) for _ in exps]
+    got = mm.modexp_ints(bases, exps, n, L, device=dev)
+    check(got == [pow(x, e, n) for x, e in zip(bases, exps)],
+          "modexp_ints equals pow at L = 128")
+    return checks + 1
 
 
 def _main_cfg(**kw):
@@ -204,15 +282,16 @@ def _run(agg, xs) -> tuple:
 def phase_main(xs, ref, dev) -> tuple[dict, dict]:
     from repro_torch import Runtime, SecureAggregator
     from repro_torch.core.byzantine import ByzantineSpec
-    from repro_torch.kernels.secure_agg import ops
+    from repro_torch.kernels import backend
     agg = SecureAggregator(**_main_cfg(), device=dev)
     want_bytes = agg.cost(T_MAIN)["bytes_total"]
     torch.cuda.reset_peak_memory_stats()
-    ops.reset_launch_counts()
+    backend.reset_launch_counts()
     out, sent, secs = _run(agg, xs)
-    launches = ops.launch_counts()
+    launches = backend.launch_counts()
     check(launches["mask_encrypt"] >= 1 and launches["unmask_decrypt"] >= 1
           and launches["vote_combine"] >= 15, f"launches {launches}")
+    launches = {k.name: launches[k.name] for k in backend.SECURE_AGG}
     check(tuple(out.shape) == (N_MAIN, T_MAIN), f"shape {out.shape}")
     check(bool(torch.isfinite(out).all()), "finite result")
     check(torch.equal(out, ref.expand_as(out)), "full: equals reference")
@@ -227,9 +306,9 @@ def phase_main(xs, ref, dev) -> tuple[dict, dict]:
 
     plain = SecureAggregator(**_main_cfg(runtime=Runtime(
         kernel_impl="torch")), device=dev)
-    before = ops.launch_counts()
+    before = backend.launch_counts()
     plain_out, plain_sent, plain_s = _run(plain, xs)
-    check(ops.launch_counts() == before, "plain run launched a kernel")
+    check(backend.launch_counts() == before, "plain run launched a kernel")
     check(torch.equal(plain_out, out), "plain-version run equals kernels")
     check(plain_sent == want_bytes, "plain run bytes")
     del plain_out
@@ -259,21 +338,22 @@ def phase_main(xs, ref, dev) -> tuple[dict, dict]:
 def phase_batched(rng, dev) -> dict:
     from repro_torch import SecureAggregator, Security, Topology
     from repro_torch.core.masking import reference_aggregate
-    from repro_torch.kernels.secure_agg import ops
+    from repro_torch.kernels import backend
     S, n, T = 64, 16, 1 << 16
     agg = SecureAggregator(topology=Topology(n_nodes=n, cluster_size=4),
                            security=Security(redundancy=3), device=dev)
     xs = torch.from_numpy(rng.standard_normal((S, n, T), np.float32)
                           * 0.3).to(dev)
-    ops.reset_launch_counts()
+    backend.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = agg.allreduce_batched(xs)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    launches = ops.launch_counts()
+    launches = backend.launch_counts()
     check(tuple(out.shape) == (S, T), f"batched shape {out.shape}")
-    check(min(launches.values()) >= 1, f"batched launches {launches}")
+    check(min(launches[k.name] for k in backend.SECURE_AGG) >= 1,
+          f"batched launches {launches}")
     check(agg.stats()["bytes_sent"] == S * agg.cost(T)["bytes_total"],
           "batched: bytes")
     mcfg = agg.cfg.mask_cfg()
@@ -285,12 +365,103 @@ def phase_batched(rng, dev) -> dict:
             "bytes_sent": agg.stats()["bytes_sent"]}
 
 
+def phase_paillier(dev) -> tuple[dict, dict, int]:
+    """Threshold Paillier and the paper's DA protocol at full width, with
+    the partial decryptions on the card."""
+    from repro_torch.core import protocol
+    from repro_torch.core.overlay import build_overlay
+    from repro_torch.crypto import paillier
+    from repro_torch.kernels import backend
+
+    # (a) one threshold decryption of 512 summed votes
+    phase_t0 = time.perf_counter()
+    t0 = time.perf_counter()
+    tp, shares = paillier.threshold_keygen(
+        bits=KEY_BITS, t=C_THRESHOLD // 2 + 1, c=C_THRESHOLD, p=P_FULL,
+        q=Q_FULL)
+    keygen_s = time.perf_counter() - t0
+    votes = np.random.default_rng(KEY_BITS).integers(0, 2, N_OVERLAY)
+    t0 = time.perf_counter()
+    agg = None
+    for v in votes.tolist():
+        ct = tp.pk.encrypt(v)
+        agg = ct if agg is None else tp.pk.add(agg, ct)
+    encrypt_s = time.perf_counter() - t0
+    decryptors = shares[:N_DECRYPT]
+    nbits = max((2 * tp.delta * sh.value).bit_length() for sh in decryptors)
+    backend.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    parts = tp.partial_decrypt_batch(agg, decryptors, device=dev)
+    torch.cuda.synchronize()
+    kernel_s = time.perf_counter() - t0
+    launches = backend.MONT_MUL.launches
+    t0 = time.perf_counter()
+    want = tp.partial_decrypt_batch(agg, decryptors, use_kernel=False)
+    pow_s = time.perf_counter() - t0
+    check(parts == want, "partial decryptions on the card equal pow")
+    check(tp.combine(parts) == int(votes.sum()), "combine: the vote sum")
+    check(launches == 2 * nbits + 1,
+          f"mont_mul launches {launches} != 2 * {nbits} + 1")
+    ladder = profile_device(
+        lambda: tp.partial_decrypt_batch(agg, decryptors, device=dev))
+
+    # (b) the DA protocol over a 512-node overlay, Step 4 on the card; the
+    # key's primes are the committed ones, so its shapes are fixed
+    seed = 0
+
+    def run(kernel_crypto: bool):
+        ov = build_overlay(N_OVERLAY, TAU_OVERLAY, seed=seed)
+        proto = protocol.DAProtocol(ov, key_bits=KEY_BITS, seed=seed,
+                                    kernel_crypto=kernel_crypto, device=dev,
+                                    primes=(P_FULL, Q_FULL))
+        t0 = time.perf_counter()
+        res = proto.run()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    backend.reset_launch_counts()
+    res, da_s = run(True)
+    path_launches = backend.launch_counts()
+    ref, da_pow_s = run(False)
+    check(res.exact and res.output == res.expected, "DA protocol exact")
+    check(res.cluster_sizes[-1] == C_THRESHOLD,
+          f"threshold cluster of {res.cluster_sizes[-1]} members")
+    check(path_launches["mont_mul"] > 0, "DA protocol launched mont_mul")
+    for k in ("output", "expected", "exact", "phase_bytes", "n", "g",
+              "cluster_sizes"):
+        check(getattr(res, k) == getattr(ref, k), f"DA protocol {k}")
+    check(dataclasses.asdict(res.stats) == dataclasses.asdict(ref.stats),
+          "DA protocol stats")
+    ct_bytes = (tp.pk.n2.bit_length() + 7) // 8
+    # Step 4 counts c_t messages of 2 ciphertexts for each decryptor
+    rows = res.phase_bytes["decrypt"] // (C_THRESHOLD * ct_bytes * 2)
+    return ({"phase": "paillier", "key_bits": KEY_BITS,
+             "n2_bits": tp.pk.n2.bit_length(), "c_t": C_THRESHOLD,
+             "t": tp.t, "decryptors": len(decryptors), "nbits": nbits,
+             "mont_mul_launches": launches, "kernel_s": kernel_s,
+             "pow_s": pow_s, "keygen_s": keygen_s, "encrypt_s": encrypt_s,
+             "ladder_profile": ladder,
+             "plaintext": int(votes.sum()), "equal_pow": True,
+             "da": {"n": res.n, "g": res.g,
+                    "cluster_sizes": res.cluster_sizes,
+                    "output": res.output, "exact": res.exact,
+                    "messages": res.stats.messages,
+                    "bytes": res.stats.bytes, "launches": path_launches,
+                    "decryptors": rows,
+                    "ladder_bits": (path_launches["mont_mul"] - 1) // 2,
+                    "seconds": da_s,
+                    "pow_seconds": da_pow_s, "equal_pow_run": True},
+             "seconds": time.perf_counter() - phase_t0},
+            path_launches, rows)
+
+
 def _network_exchanges(r: int) -> int:
     return sum(len(range(p % 2, r - 1, 2)) for p in range(r))
 
 
-def phase_timing(rng, dev, xs) -> tuple[dict, dict]:
-    """Kernel and plain-version times at the main path's shapes, with the
+def phase_timing(rng, dev, xs, decrypt_rows: int) -> tuple[dict, dict]:
+    """Kernel and plain-version times at the main paths' shapes, with the
     least time the card could take for the same work."""
     from repro_torch.core.plan import AggConfig
     from repro_torch.kernels.secure_agg import ops
@@ -350,25 +521,103 @@ def phase_timing(rng, dev, xs) -> tuple[dict, dict]:
                      "bytes_ms": bytes_ms, "operations_ms": ops_ms,
                      "library_ms": None}
     del agg, copies, acc
+    mm = time_mont_mul(rng, dev, [(decrypt_rows, 128), (1056, 128)])
+    out["mont_mul"] = mm[f"{decrypt_rows}x128"]
     return {"phase": "timing", "shapes": {"rows": B, "T": T, "r": r},
-            "kernels": out, "allreduce": _time_allreduce(xs, dev),
+            "kernels": out, "mont_mul": mm,
+            "allreduce": _time_allreduce(xs, dev),
             "nvidia_smi": smi_line()}, out
+
+
+def device_ms(fn, reps: int, inner: int) -> float:
+    """Median device time of one of ``inner`` back-to-back calls of
+    ``fn``, in ms.  A spin kernel queued first holds the stream while the
+    host enqueues the events and the calls, so host launch overhead stays
+    outside the events."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(inner):
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    cycles = int(4 * host_s * 2e9) + 100_000     # clock < 2 GHz: covered
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(inner):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / inner)
+    return statistics.median(times)
+
+
+def mont_mul_work(rows: int, L: int) -> tuple[int, int]:
+    """(bytes, 32-bit integer instructions) one Montgomery product of
+    ``rows`` rows of L limbs needs: a, b and the output once each and n;
+    per step 8 L + 5 (per limb two products, a mask and a shift of each,
+    and the four adds into T as two three-input IADD3; m; the fold), 3 per
+    slot of the carry pass, 4 per limb of the borrow pass and one select
+    per limb."""
+    return (4 * (3 * rows * L + L),
+            rows * (L * (8 * L + 5) + 3 * (L + 2) + 5 * L))
+
+
+def time_mont_mul(rng, dev, shapes) -> dict:
+    """``mont_mul`` kernel and plain times, with bounds, at (rows, L)."""
+    from repro_torch.crypto.limb import montgomery_params
+    from repro_torch.kernels.modmul import ops as mm
+    out = {}
+    for rows, L in shapes:
+        n = _rand_below(rng, 1 << (16 * L - 1)) | (1 << (16 * L - 2)) | 1
+        mp = montgomery_params(n, L)
+        nl = torch.from_numpy(mp["n_limbs"].astype(np.int32)).to(dev)
+        a = torch.randint(0, 1 << 16, (rows, L), dtype=torch.int32,
+                          device=dev)
+        a[:, -1] = 0                      # operands below n
+        b = a.roll(1, 0).contiguous()
+        kernel_ms = device_ms(
+            lambda: mm.mont_mul_op(a, b, nl, mp["n0inv"]), reps=7, inner=200)
+        plain_ms = cuda_ms(
+            lambda: mm.mont_mul_op(a, b, nl, mp["n0inv"], impl="torch"),
+            reps=3)
+        nbytes, int_ops = mont_mul_work(rows, L)
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = int_ops / INT32_OPS_PER_S * 1e3
+        out[f"{rows}x{L}"] = {
+            "ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes": nbytes, "int_ops": int_ops, "bytes_ms": bytes_ms,
+            "operations_ms": ops_ms, "library_ms": None}
+    return out
 
 
 def _time_allreduce(xs, dev) -> dict:
     """Host-clock median of the full-width allreduce, and one profiled
     call: device time by kernel name and the device's busy share."""
     from repro_torch import SecureAggregator
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     agg = SecureAggregator(**_main_cfg(), device=dev)
     agg.allreduce(xs)
     host = [_run(agg, xs)[2] for _ in range(3)]
+    return {"host_s": host, "median_s": statistics.median(host),
+            **profile_device(lambda: agg.allreduce(xs))}
+
+
+def profile_device(fn) -> dict:
+    """One profiled call of ``fn``: its wall time, device time by kernel
+    name and the device's busy share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        agg.allreduce(xs)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rows = []
@@ -381,8 +630,7 @@ def _time_allreduce(xs, dev) -> dict:
             rows.append((ev.key[:80], dev_us / 1e3, ev.count))
     rows.sort(key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows)
-    return {"host_s": host, "median_s": statistics.median(host),
-            "profiled_wall_s": wall, "device_busy_ms": busy_ms,
+    return {"profiled_wall_s": wall, "device_busy_ms": busy_ms,
             "device_busy_share": busy_ms / (wall * 1e3),
             "by_kernel_ms": rows[:12]}
 
@@ -399,12 +647,12 @@ def main() -> int:
         ap.error(f"unknown phases {sorted(unknown)}")
 
     emit(phase_device())            # always first: raises without a card
-    from repro_torch.kernels.secure_agg import ops
+    from repro_torch.kernels import backend
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(args.seed)
     if "build" in phases:
         emit(phase_build())
-    errs = {k.name: 0.0 for k in ops.KERNELS}
+    errs = {k.name: 0.0 for k in backend.KERNELS}
     if "kernels" in phases:
         emit(phase_kernels(rng, dev, errs))
     launches, timing = {}, {}
@@ -416,17 +664,23 @@ def main() -> int:
         from repro_torch.core.plan import AggConfig
         mcfg = AggConfig(n_nodes=N_MAIN, cluster_size=C_MAIN).mask_cfg()
         ref = reference_aggregate(mcfg, xs)
-        line, launches = phase_main(xs, ref, dev)
+        line, main_launches = phase_main(xs, ref, dev)
+        launches.update(main_launches)
         del ref
         emit(line)
     if "batched" in phases:
         emit(phase_batched(rng, dev))
+    decrypt_rows = N_DECRYPT
+    if "paillier" in phases:
+        line, da_launches, decrypt_rows = phase_paillier(dev)
+        launches["mont_mul"] = da_launches["mont_mul"]
+        emit(line)
     if "timing" in phases:
-        line, timing = phase_timing(rng, dev, xs)
+        line, timing = phase_timing(rng, dev, xs, decrypt_rows)
         emit(line)
 
     kernels = []
-    for k in ops.KERNELS:
+    for k in backend.KERNELS:
         t = timing.get(k.name, {})
         kernels.append({
             "name": k.name, "route": "cuda", "source": k.source,

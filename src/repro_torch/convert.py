@@ -1,11 +1,13 @@
 """Carry the system's state between the JAX package and the port.
 
 The system has no weights: its state is the protocol config, the
-per-session seeds and counter offsets, and the fault masks.  These
+per-session seeds and counter offsets, the fault masks, and for the
+paper's DA protocol the threshold key material and the overlay.  These
 functions take that state in plain Python / numpy form -- the JAX
-``AggConfig`` as ``dataclasses.asdict`` output, numpy arrays for the
-session metadata -- so one config and one session can run on both
-sides, and convert ring words at the numpy boundary.
+``AggConfig``, ``ThresholdPublic`` and shares as ``dataclasses.asdict``
+output, numpy arrays for the session metadata, plain fields for the
+overlay -- so one config, one session, one key and one overlay can run
+on both sides, and convert ring words at the numpy boundary.
 """
 from __future__ import annotations
 
@@ -15,7 +17,10 @@ import numpy as np
 import torch
 
 from repro_torch.core.byzantine import ByzantineSpec
+from repro_torch.core.overlay import MsgStats, Node, Overlay
 from repro_torch.core.plan import AggConfig, SessionMeta, words
+from repro_torch.crypto.paillier import (PublicKey, ThresholdPublic,
+                                         ThresholdShare)
 from repro_torch.kernels.backend import IMPLS
 
 
@@ -59,3 +64,44 @@ def words_from_numpy(a, device="cpu") -> torch.Tensor:
     """numpy uint32 -> int32-word tensor with the same bits."""
     a = np.ascontiguousarray(np.asarray(a, dtype=np.uint32))
     return torch.from_numpy(a.view(np.int32).copy()).to(device)
+
+
+def threshold_from_fields(pub: dict, shares: list[dict]
+                          ) -> tuple[ThresholdPublic, list[ThresholdShare]]:
+    """The port's threshold key from ``dataclasses.asdict`` of the
+    reference's ``ThresholdPublic`` (``pk`` nested as ``{"n": ...}``) and
+    of each of its ``ThresholdShare``s."""
+    tp = ThresholdPublic(pk=PublicKey(int(pub["pk"]["n"])), t=int(pub["t"]),
+                         c=int(pub["c"]), delta=int(pub["delta"]))
+    return tp, [ThresholdShare(int(s["index"]), int(s["value"]))
+                for s in shares]
+
+
+_OVERLAY_PARAMS = ("n_target", "tau", "k", "msg_size", "g")
+
+
+def overlay_fields(ov) -> dict:
+    """Plain fields of an overlay of either package: its parameters, its
+    nodes (uid, pos, honest), its message stats and the state of its
+    random draws, so further churn replays identically."""
+    return {**{k: getattr(ov, k) for k in _OVERLAY_PARAMS},
+            "nodes": [dataclasses.asdict(nd) for nd in ov.nodes.values()],
+            "next_uid": ov._next_uid,
+            "stats": {"messages": ov.stats.messages,
+                      "bytes": ov.stats.bytes},
+            "rng_state": ov.rng.getstate()}
+
+
+def overlay_from_fields(d: dict) -> Overlay:
+    """An :class:`Overlay` with the same nodes, cluster count g, stats and
+    random state as the overlay :func:`overlay_fields` read."""
+    ov = Overlay(n_target=d["n_target"], tau=d["tau"], k=d["k"],
+                 msg_size=d["msg_size"])
+    ov.g = int(d["g"])
+    for nd in d["nodes"]:
+        ov.nodes[int(nd["uid"])] = Node(int(nd["uid"]), float(nd["pos"]),
+                                        bool(nd["honest"]))
+    ov._next_uid = int(d["next_uid"])
+    ov.stats = MsgStats(int(d["stats"]["messages"]), int(d["stats"]["bytes"]))
+    ov.rng.setstate(d["rng_state"])
+    return ov

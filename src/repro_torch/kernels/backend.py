@@ -10,9 +10,15 @@ an environment override), the port decides per call from the tensor:
     on any device (used to time and check the plain version on the card).
 
 There is no environment override and no fallback from a failed kernel.
+
+Every CUDA kernel of the port has one launch counter here
+(:class:`Kernel`, listed in :data:`KERNELS`): its wrapper adds one where
+it launches the kernel and nowhere else, so a run can show that its path
+went through the kernels.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
@@ -49,3 +55,70 @@ def resolve_device(device=None) -> torch.device:
                 "caller asks for the CPU (device='cpu')")
         device = "cuda"
     return torch.device(device)
+
+
+# ---------------------------------------------------------------------------
+# Launch plumbing shared by the kernels' wrappers
+# ---------------------------------------------------------------------------
+
+
+def check_tensor(t: torch.Tensor, dtype: torch.dtype, ndim: int,
+                 what: str) -> None:
+    """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype`` and
+    ``ndim`` dimensions: what a kernel's C interface takes."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{what} must be a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{what} must be {dtype}, got {t.dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{what} must have {ndim} dims, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what} must be contiguous")
+
+
+def stream(device: torch.device) -> ctypes.c_void_p:
+    """PyTorch's current CUDA stream on ``device``, for a C launcher."""
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def raise_on(rc: int, name: str,
+             refused: Optional[dict[int, str]] = None) -> None:
+    """A C launcher's status: 0 is launched, anything else raises.
+    ``refused`` names the launcher's own argument checks (1000 + k) by
+    status: those raise ``ValueError``, so each limit lives in the
+    launcher alone."""
+    if refused and rc in refused:
+        raise ValueError(f"CUDA kernel {name} refused its arguments: "
+                         f"{refused[rc]} (status {rc})")
+    if rc != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: status {rc}")
+
+
+class Kernel:
+    """Launch counter of one CUDA kernel."""
+
+    def __init__(self, name: str, source: str, replaces: str):
+        self.name = name
+        self.source = source
+        self.replaces = replaces
+        self.launches = 0
+
+
+_SA_SRC = "src/repro_torch/csrc/secure_agg.cu"
+_SA_REF = "src/repro/kernels/secure_agg/secure_agg.py"
+MASK = Kernel("mask_encrypt", _SA_SRC, f"{_SA_REF}:272")
+UNMASK = Kernel("unmask_decrypt", _SA_SRC, f"{_SA_REF}:324")
+VOTE = Kernel("vote_combine", _SA_SRC, f"{_SA_REF}:388")
+MONT_MUL = Kernel("mont_mul", "src/repro_torch/csrc/modmul.cu",
+                  "src/repro/kernels/modmul/modmul.py:95")
+SECURE_AGG = (MASK, UNMASK, VOTE)     # the secure allreduce's kernels
+KERNELS = (*SECURE_AGG, MONT_MUL)
+
+
+def launch_counts() -> dict:
+    return {k.name: k.launches for k in KERNELS}
+
+
+def reset_launch_counts() -> None:
+    for k in KERNELS:
+        k.launches = 0

@@ -1,10 +1,12 @@
-"""Build and bind the secure-aggregation CUDA kernels.
+"""Build and bind the port's CUDA kernels.
 
-``csrc/secure_agg.cu`` has a plain C interface.  At first use it is
-compiled with ``nvcc`` into a shared library under ``build/kernels/``
-at the root of the checkout, named by a hash of the source and the
-flags, and loaded with ctypes; a later process with the same source
-loads the cached library.  Nothing here runs at import time.
+Every ``csrc/*.cu`` has a plain C interface.  At first use each source is
+compiled by its own ``nvcc`` process (all started together), and one
+more ``nvcc`` links the objects into a single shared library under
+``build/kernels/`` at the root of the checkout, named by a hash of all
+sources and the flags; it is loaded with ctypes.  A later process with
+the same sources loads the cached library.  Nothing here runs at import
+time.
 """
 from __future__ import annotations
 
@@ -18,11 +20,13 @@ import time
 from pathlib import Path
 from typing import Optional
 
-_PKG = Path(__file__).resolve().parents[2]          # src/repro_torch
-SOURCES = (_PKG / "csrc" / "secure_agg.cu",)
+_PKG = Path(__file__).resolve().parents[1]          # src/repro_torch
+SOURCES = tuple(sorted((_PKG / "csrc").glob("*.cu")))
 BUILD_DIR = _PKG.parents[1] / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                 "-Xptxas", "-v")
+LINK_FLAGS = (*ARCH, "-shared")
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -32,6 +36,7 @@ _SIGNATURES = {
     "sa_unmask_decrypt": (_P, _P, _P, _P, _I64, _I64, ctypes.c_int,
                           ctypes.c_float, ctypes.c_int, _P),
     "sa_vote_combine": (ctypes.POINTER(_P), ctypes.c_int, _P, _P, _I64, _P),
+    "mm_mont_mul": (_P, _P, _P, ctypes.c_uint32, _P, _I64, ctypes.c_int, _P),
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -51,10 +56,25 @@ def _nvcc() -> str:
 
 
 def library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
     for src in SOURCES:
+        h.update(src.name.encode())
         h.update(src.read_bytes())
-    return BUILD_DIR / f"libsecure_agg_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"libkernels_{h.hexdigest()[:16]}.so"
+
+
+def _run_all(cmds: list[list[str]]) -> str:
+    """Run the commands in parallel; raise with the first failure's
+    output, else return their joined output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}): "
+                               f"{' '.join(cmd)}\n{out}")
+    return "".join(outs)
 
 
 def build() -> Path:
@@ -67,19 +87,15 @@ def build() -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, SOURCES)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stderr}")
-        build_log = proc.stdout + proc.stderr
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [str(Path(tmp) / f"{src.stem}.o") for src in SOURCES]
+        log = _run_all([[nvcc, *COMPILE_FLAGS, "-c", "-o", obj, str(src)]
+                        for src, obj in zip(SOURCES, objs)])
+        lib_tmp = str(Path(tmp) / out.name)
+        log += _run_all([[nvcc, *LINK_FLAGS, "-o", lib_tmp, *objs]])
+        os.replace(lib_tmp, out)
+    build_log = log
     build_seconds = time.perf_counter() - t0
     return out
 

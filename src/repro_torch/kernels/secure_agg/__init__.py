@@ -1,9 +1,7 @@
 """Secure-aggregation kernels: mask/encrypt, unmask/decrypt and vote as
 CUDA kernels (``csrc/secure_agg.cu``) beside their plain versions."""
-from repro_torch.kernels.secure_agg.ops import (KERNELS, launch_counts,
-                                                mask_encrypt_batch_fn,
+from repro_torch.kernels.secure_agg.ops import (mask_encrypt_batch_fn,
                                                 mask_encrypt_fn,
-                                                reset_launch_counts,
                                                 unmask_decrypt_batch_fn,
                                                 unmask_decrypt_fn,
                                                 vote_combine_batch_fn,

@@ -5,11 +5,12 @@ calls one of the ``*_fn`` ops; :func:`repro_torch.kernels.backend.resolve`
 picks the CUDA kernel for a CUDA tensor and the plain version
 (``ref.py``) for a CPU tensor or an explicit ``impl="torch"``.
 
-Each CUDA kernel has a launch counter (:class:`Kernel`): its wrapper adds
-one where it launches the kernel and nowhere else, so a run can show that
-the main path went through the kernels.  A wrapper checks device, dtype,
-shape and contiguity, allocates its output with ``torch.empty``, launches
-on the current stream and raises on a non-zero launch status.
+Each CUDA kernel has a launch counter (:class:`backend.Kernel`): its
+wrapper adds one where it launches the kernel and nowhere else, so a run
+can show that the main path went through the kernels.  A wrapper checks
+device, dtype, shape and contiguity, allocates its output with
+``torch.empty``, launches on the current stream and raises on a non-zero
+launch status.
 """
 from __future__ import annotations
 
@@ -18,8 +19,8 @@ from typing import Optional, Sequence, Union
 
 import torch
 
-from repro_torch.kernels import backend
-from repro_torch.kernels.secure_agg import build
+from repro_torch.kernels import backend, build
+from repro_torch.kernels.backend import MASK, UNMASK, VOTE
 from repro_torch.kernels.secure_agg import ref as R
 from repro_torch.kernels.secure_agg.secure_agg import as_copy_list, narrow
 
@@ -28,49 +29,9 @@ _UNMASK_MODES = {"dequantize": 0, "mask": 1}
 MAX_COPIES = 31          # largest vote redundancy: MAX_COPIES in csrc
 
 
-class Kernel:
-    """Launch counter of one CUDA kernel."""
-
-    def __init__(self, name: str, source: str, replaces: str):
-        self.name = name
-        self.source = source
-        self.replaces = replaces
-        self.launches = 0
-
-
-_SRC = "src/repro_torch/csrc/secure_agg.cu"
-MASK = Kernel("mask_encrypt", _SRC,
-              "src/repro/kernels/secure_agg/secure_agg.py:272")
-UNMASK = Kernel("unmask_decrypt", _SRC,
-                "src/repro/kernels/secure_agg/secure_agg.py:324")
-VOTE = Kernel("vote_combine", _SRC,
-              "src/repro/kernels/secure_agg/secure_agg.py:388")
-KERNELS = (MASK, UNMASK, VOTE)
-
-
-def launch_counts() -> dict:
-    return {k.name: k.launches for k in KERNELS}
-
-
-def reset_launch_counts() -> None:
-    for k in KERNELS:
-        k.launches = 0
-
-
 # ---------------------------------------------------------------------------
 # CUDA launches
 # ---------------------------------------------------------------------------
-
-
-def _check(t: torch.Tensor, dtype: torch.dtype, ndim: int, what: str):
-    if t.device.type != "cuda":
-        raise ValueError(f"{what} must be a CUDA tensor, got {t.device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{what} must be {dtype}, got {t.dtype}")
-    if t.dim() != ndim:
-        raise ValueError(f"{what} must have {ndim} dims, got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{what} must be contiguous")
 
 
 def _words(B: int, v, device: torch.device) -> torch.Tensor:
@@ -81,18 +42,9 @@ def _words(B: int, v, device: torch.device) -> torch.Tensor:
     return narrow(R.row_meta(B, v, device).reshape(B)).contiguous()
 
 
-def _stream(device: torch.device):
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
-
-
-def _raise_on(rc: int, name: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"CUDA kernel {name} failed to launch: status {rc}")
-
-
 def _mask_cuda(x, node_ids, seeds, scale, clip, mode, offsets,
                cluster_size) -> torch.Tensor:
-    _check(x, torch.float32, 2, "x")
+    backend.check_tensor(x, torch.float32, 2, "x")
     if mode not in _MASK_MODES:
         raise ValueError(f"unknown mask mode {mode!r}")
     if mode == "pairwise" and cluster_size < 1:
@@ -109,14 +61,14 @@ def _mask_cuda(x, node_ids, seeds, scale, clip, mode, offsets,
         rc = build.lib().sa_mask_encrypt(
             x.data_ptr(), sd.data_ptr(), nid.data_ptr(), off.data_ptr(),
             out.data_ptr(), B, T, R.f32(scale), R.f32(clip),
-            _MASK_MODES[mode], int(cluster_size), _stream(dev))
-    _raise_on(rc, MASK.name)
+            _MASK_MODES[mode], int(cluster_size), backend.stream(dev))
+    backend.raise_on(rc, MASK.name)
     MASK.launches += 1
     return out
 
 
 def _unmask_cuda(agg, n_nodes, seeds, scale, mode, offsets) -> torch.Tensor:
-    _check(agg, torch.int32, 2, "agg")
+    backend.check_tensor(agg, torch.int32, 2, "agg")
     if mode not in _UNMASK_MODES:
         raise ValueError(f"unknown unmask mode {mode!r}")
     B, T = agg.shape
@@ -130,8 +82,8 @@ def _unmask_cuda(agg, n_nodes, seeds, scale, mode, offsets) -> torch.Tensor:
         rc = build.lib().sa_unmask_decrypt(
             agg.data_ptr(), sd.data_ptr(), off.data_ptr(), out.data_ptr(),
             B, T, int(n_nodes), R.f32(scale), _UNMASK_MODES[mode],
-            _stream(dev))
-    _raise_on(rc, UNMASK.name)
+            backend.stream(dev))
+    backend.raise_on(rc, UNMASK.name)
     UNMASK.launches += 1
     return out
 
@@ -141,9 +93,9 @@ def _vote_cuda(copies: list, acc: torch.Tensor) -> torch.Tensor:
     if r % 2 != 1 or r > MAX_COPIES:
         raise ValueError(f"vote redundancy must be odd and <= {MAX_COPIES}, "
                          f"got {r}")
-    _check(acc, torch.int32, 1, "acc")
+    backend.check_tensor(acc, torch.int32, 1, "acc")
     for c in copies:
-        _check(c, torch.int32, 1, "vote copy")
+        backend.check_tensor(c, torch.int32, 1, "vote copy")
         if c.shape != acc.shape or c.device != acc.device:
             raise ValueError("vote copies must match acc's shape and device")
     dev = acc.device
@@ -154,8 +106,8 @@ def _vote_cuda(copies: list, acc: torch.Tensor) -> torch.Tensor:
     with torch.cuda.device(dev):
         rc = build.lib().sa_vote_combine(ptrs, r, acc.data_ptr(),
                                          out.data_ptr(), acc.numel(),
-                                         _stream(dev))
-    _raise_on(rc, VOTE.name)
+                                         backend.stream(dev))
+    backend.raise_on(rc, VOTE.name)
     VOTE.launches += 1
     return out
 

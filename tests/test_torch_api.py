@@ -144,7 +144,10 @@ def test_later_slices_raise_config_error():
 
 def test_import_leaves_jax_and_repro_out():
     code = ("import sys, repro_torch, repro_torch.core.engine, "
-            "repro_torch.convert, repro_torch.kernels.secure_agg.build; "
+            "repro_torch.convert, repro_torch.kernels.build, "
+            "repro_torch.kernels.modmul, repro_torch.crypto.paillier, "
+            "repro_torch.core.protocol, repro_torch.core.baseline_nl, "
+            "repro_torch.core.lower_bound; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); "
             "sys.exit(1 if bad else 0)")

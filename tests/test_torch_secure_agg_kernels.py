@@ -15,6 +15,7 @@ import torch
 
 from repro.kernels.secure_agg import ops as J
 from repro_torch.convert import words_from_numpy, words_to_numpy
+from repro_torch.kernels.backend import launch_counts
 from repro_torch.kernels.secure_agg import ops as P
 
 CASES = ([(T, "pallas_interpret") for T in (1, 77, 1025)]
@@ -110,5 +111,5 @@ def test_cpu_tensor_with_cuda_impl_raises():
         P.mask_encrypt_batch_fn(x, 0, 0, SCALE, CLIP, impl="cuda")
     with pytest.raises(ValueError, match="not in"):
         P.mask_encrypt_batch_fn(x, 0, 0, SCALE, CLIP, impl="pallas")
-    assert P.launch_counts() == {"mask_encrypt": 0, "unmask_decrypt": 0,
-                                 "vote_combine": 0}
+    assert launch_counts() == {"mask_encrypt": 0, "unmask_decrypt": 0,
+                               "vote_combine": 0, "mont_mul": 0}
