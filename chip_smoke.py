@@ -13,7 +13,12 @@ with a non-zero exit code:
            and vote copies with and without a majority; the Montgomery
            multiply at L in {8, 32, 128, 256} limbs and 1..1024 rows with
            edge operands (some also against Python ints), and
-           ``modexp_ints`` against ``pow`` at L = 128
+           ``modexp_ints`` against ``pow`` at L = 128; flash attention in
+           float32 and bf16 (GQA groups 1, 2, 8, causal or not, window
+           128, Sq = Skv in {77, 512, 2048}, Sq != Skv, qwen3's prefill
+           shape) and the SSD scan (the kernel tests' shapes, a ragged S,
+           mamba2's prefill shape with B and C shared) within
+           FLASH_TOL / SSD_TOL of their plain versions
   main     the secure allreduce at full width -- n = 64 nodes, clusters
            of 4, ring schedule, r = 3, global masking, T = 2^22 float32
            per node -- through ``SecureAggregator.allreduce`` on the card:
@@ -27,10 +32,22 @@ with a non-zero exit code:
            ``pow`` and combined to the sum, 2 nbits + 1 launches; then the
            paper's DA protocol over a 512-node overlay with Step 4 on the
            card, exact and equal in every account to the ``pow`` run
+  serve    ``repro_torch.launch.serve.serve`` at full width for
+           qwen3-1.7b and mamba2-370m (bf16, random weights from the
+           seed): batch 4, prompt 2048, 32 tokens; prefill seconds, decode
+           tokens/s, peak memory; exactly 28 ``flash_attention`` / 48
+           ``ssd`` launches in the prefill and none in decode; a float32
+           prefill through the kernels against the plain versions (last
+           logits within LOGIT_TOL_F32); the bf16 run on the plain
+           versions (its logit error and token agreement); the config
+           widths against the reference's config files
   timing   CUDA-event medians of each kernel and its plain version at
-           the main path's shapes (the Montgomery multiply at the
-           decryption's rows x 128 limbs and at 1056 x 128), and the
-           end-to-end allreduce time
+           the main paths' shapes (the Montgomery multiply at the
+           decryption's rows x 128 limbs and at 1056 x 128, flash
+           attention and the SSD scan at the two models' prefill shapes,
+           with ``scaled_dot_product_attention`` timed beside flash
+           attention as the library yardstick), and the end-to-end
+           allreduce time
 
 The last lines are the card's name and power limit, one JSON object
 describing every kernel, and ``{"ok": true, "device": {...}}``.  Without
@@ -54,7 +71,7 @@ import torch
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
 
 PHASES = ("device", "build", "kernels", "main", "batched", "paillier",
-          "timing")
+          "serve", "timing")
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 # 32-bit lane operations issued per second: 132 SMs x 128 lanes x
 # 1.98 GHz, half the 67 TFLOP/s float32 FMA rate (an FMA counts two FLOPs)
@@ -62,6 +79,8 @@ LANE_OPS_PER_S = 67e12 / 2
 # 32-bit integer add, logical, shift and multiply on sm_90: 64 results
 # per clock per SM, half the lane rate
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
+F32_FLOPS_PER_S = 67e12       # float32 FMA outside the tensor cores
+BF16_FLOPS_PER_S = 989e12     # dense bf16 on the tensor cores
 N_MAIN, C_MAIN, T_MAIN = 64, 4, 1 << 22
 SPLITMIX_OPS = 9              # add, 3 shifts, 3 xors, 2 multiplies
 PAD_OPS = SPLITMIX_OPS + 2    # ctr ^ k1, then + k2
@@ -77,6 +96,36 @@ Q_FULL = int("878186117668736310300858909383076763157932463076984285209715"
 N_OVERLAY, TAU_OVERLAY, KEY_BITS = 512, 0.3, 1024
 C_THRESHOLD = 69              # threshold cluster of build_overlay(512, 0.3, 0)
 N_DECRYPT = 58                # decryptors of a threshold decryption
+# serve: the repo's prefill_32k / decode_32k shapes cut in traffic, not in
+# width, to fit one run beside the other phases
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 2048, 32
+# widths of the reference's config files (src/repro/configs/qwen3_1p7b.py,
+# mamba2_370m.py), hard-coded: this script imports nothing of the package
+REFERENCE_WIDTHS = {
+    "qwen3-1.7b": dict(d_model=2048, n_heads=16, n_kv_heads=8, hd=128,
+                       d_ff=6144, vocab_size=151936, n_units=28, ssm=None,
+                       qk_norm=True, tie_embeddings=True,
+                       rope_theta=1_000_000.0, dtype="bfloat16"),
+    "mamba2-370m": dict(d_model=1024, n_heads=16, n_kv_heads=16, hd=64,
+                        d_ff=0, vocab_size=50280, n_units=48,
+                        ssm=dict(d_state=128, d_conv=4, expand=2,
+                                 head_dim=64, chunk=256),
+                        tie_embeddings=True, dtype="bfloat16"),
+}
+SERVE_KERNEL = {"qwen3-1.7b": "flash_attention", "mamba2-370m": "ssd"}
+# Tolerances of the float kernels against their plain versions on the
+# card (max |a - b| <= atol + rtol |b|).  Flash attention: 1e-5 in float32
+# -- both compute in float32, but the kernel's online softmax rescales its
+# sums once per kv tile (up to 32 at S = 2048) and adds in another order
+# than cuBLAS; 2e-2 in bf16, one bf16 rounding of the output (the kernel
+# tests' tolerance).  SSD: the kernel tests' 5e-4 / 1e-3 (chunks of 64 in
+# the kernel, of 128 or 256 in the plain version: other sums, in float32).
+FLASH_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+SSD_TOL = (5e-4, 1e-3)
+# the full-width float32 prefill: last-position logits (of unit scale)
+# through the kernels against the plain versions, after 28 or 48 layers
+# whose residual streams carry the kernels' float32 rounding differences
+LOGIT_TOL_F32 = 2e-3
 
 
 def emit(obj) -> None:
@@ -205,9 +254,117 @@ def phase_kernels(rng, dev, errs: dict) -> dict:
                       f"vote_combine T={T} r={r} majority={majority}")
                 checks += 1
     checks += _check_mont_mul(rng, dev, errs)
+    flash = _check_flash(rng, dev, errs)
+    ssd = _check_ssd(rng, dev, errs)
     torch.cuda.synchronize()
-    return {"phase": "kernels", "checks": checks, "equal": True,
-            "max_abs_err": errs}
+    return {"phase": "kernels", "checks": checks + flash + ssd,
+            "equal": True, "flash_attention_checks": flash,
+            "ssd_checks": ssd, "allow_tf32": False,
+            "flash_tol": {str(k): v for k, v in FLASH_TOL.items()},
+            "ssd_tol": SSD_TOL, "max_abs_err": errs}
+
+
+def within(got: torch.Tensor, want: torch.Tensor, atol: float,
+           rtol: float) -> bool:
+    g, w = got.double(), want.double()
+    return bool(torch.isfinite(g).all()) and \
+        bool(((g - w).abs() <= atol + rtol * w.abs()).all())
+
+
+# (B, Sq, Skv, H, K, hd, causal, window): the kernel tests' shapes, then
+# GQA groups 1, 2 and 8, causal or not, window 128, Sq = Skv in {77, 512,
+# 2048}, Sq != Skv both ways (a window chunk past the keys leaves rows with
+# no allowed key), and qwen3-1.7b's prefill
+FLASH_CASES = [
+    (2, 256, 256, 4, 2, 64, True, 0), (1, 128, 128, 2, 2, 32, False, 0),
+    (1, 512, 512, 4, 1, 64, True, 128), (2, 128, 384, 2, 1, 32, True, 0),
+    (1, 256, 256, 8, 8, 16, True, 0),
+    (2, 77, 77, 8, 8, 128, True, 0), (2, 77, 77, 8, 4, 128, False, 0),
+    (2, 77, 77, 8, 1, 128, True, 128), (2, 512, 512, 16, 16, 128, False, 0),
+    (2, 512, 512, 16, 8, 128, True, 128), (1, 512, 512, 16, 2, 128, True, 0),
+    (1, 2048, 2048, 16, 8, 128, True, 0), (1, 2048, 2048, 8, 1, 128, False, 0),
+    (1, 2048, 2048, 16, 16, 128, True, 128), (2, 200, 77, 4, 2, 64, True, 64),
+    (4, 2048, 2048, 16, 8, 128, True, 0),
+]
+
+
+def _check_flash(rng, dev, errs: dict) -> int:
+    """``flash_attention`` against its plain version on the card."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    checks = 0
+    by_dtype = errs.setdefault("flash_attention_by_dtype", {})
+    for B, Sq, Skv, H, K, hd, causal, window in FLASH_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (torch.from_numpy(rng.standard_normal(
+                (B, S, n, hd), np.float32)).to(dev, dtype)
+                for S, n in ((Sq, H), (Skv, K), (Skv, K)))
+            got = flash_attention(q, k, v, causal=causal, window=window)
+            want = flash_attention(q, k, v, causal=causal, window=window,
+                                   impl="torch")
+            err = max_abs_err(got.float(), want.float())
+            errs["flash_attention"] = max(errs["flash_attention"], err)
+            by_dtype[str(dtype)] = max(by_dtype.get(str(dtype), 0.0), err)
+            tol = FLASH_TOL[dtype]
+            check(got.dtype == dtype and within(got, want, tol, tol),
+                  f"flash_attention {dtype} B={B} Sq={Sq} Skv={Skv} H={H} "
+                  f"K={K} hd={hd} causal={causal} window={window}: max err "
+                  f"{max_abs_err(got.float(), want.float())}")
+            checks += 1
+    return checks
+
+
+def _ssd_inputs(rng, dev, *shape_x, N: int, per_head: bool):
+    """Random SSD inputs: x, dt (0.1 |N(0, 1)|), a or A (negative), B, C;
+    per head (BH, S, ...) or in the model's layout (B, S, H, ...)."""
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+    x = rng.standard_normal(shape_x, np.float32)
+    dt = np.abs(rng.standard_normal(shape_x[:-1], np.float32)) * 0.1
+    if per_head:
+        BH, S, _ = shape_x
+        a = -np.abs(rng.standard_normal(BH, np.float32))
+        bc = (BH, S, N)
+    else:
+        Bsz, S, H, _ = shape_x
+        a = -np.linspace(1.0, 16.0, H, dtype=np.float32)
+        bc = (Bsz, S, N)
+    return (t(x), t(dt), t(a), t(rng.standard_normal(bc, np.float32)),
+            t(rng.standard_normal(bc, np.float32)))
+
+
+def _check_ssd(rng, dev, errs: dict) -> int:
+    """``ssd`` (the Pallas signature) and ``ssd_chunked`` (the model's
+    form) against their plain versions on the card; at the kernel tests'
+    small shapes also against the sequential ``ssd_ref``."""
+    from repro_torch.kernels.ssd import ssd, ssd_chunked, ssd_ref
+    atol, rtol = SSD_TOL
+    checks = 0
+
+    def hold(got, want, what):
+        nonlocal checks
+        for g, w, part in zip(got, want, ("y", "state")):
+            errs["ssd"] = max(errs["ssd"], max_abs_err(g, w))
+            check(within(g, w, atol, rtol),
+                  f"ssd {what} {part}: max err {max_abs_err(g, w)}")
+        checks += 1
+
+    for BH, S, P, N, chunk in ((4, 256, 64, 32, 64), (2, 128, 32, 16, 128),
+                               (8, 512, 64, 64, 128), (1, 64, 16, 8, 32),
+                               (3, 77, 64, 128, 64), (2, 200, 16, 128, 128)):
+        args = _ssd_inputs(rng, dev, BH, S, P, N=N, per_head=True)
+        got = ssd(*args, chunk=chunk)
+        hold(got, ssd(*args, chunk=chunk, impl="torch"),
+             f"BH={BH} S={S} P={P} N={N}")
+        if S <= 512:
+            hold(got, ssd_ref(*args), f"BH={BH} S={S} vs sequential")
+    for Bsz, S, H, P, N in ((2, 200, 4, 64, 128), (2, 77, 8, 32, 64),
+                            (4, 2048, 32, 64, 128)):
+        args = _ssd_inputs(rng, dev, Bsz, S, H, P, N=N, per_head=False)
+        chunk = min(256, S)
+        hold(ssd_chunked(*args, chunk),
+             ssd_chunked(*args, chunk, impl="torch"),
+             f"model form B={Bsz} S={S} H={H} P={P} N={N}")
+    return checks
 
 
 def _rand_below(rng, n: int) -> int:
@@ -456,6 +613,184 @@ def phase_paillier(dev) -> tuple[dict, dict, int]:
             path_launches, rows)
 
 
+def check_widths(arch: str, cfg) -> None:
+    """The port's full config against the reference's published widths."""
+    want = REFERENCE_WIDTHS[arch]
+    got = {k: getattr(cfg, k) for k in want if k != "ssm"}
+    got["ssm"] = dataclasses.asdict(cfg.ssm) if cfg.ssm else None
+    check(got == want, f"{arch} widths {got} != reference {want}")
+
+
+def phase_serve(dev, seed: int,
+                shape=(SERVE_BATCH, SERVE_PROMPT, SERVE_GEN), configs=None
+                ) -> tuple[dict, dict]:
+    """Both models served at full width through the kernels, with the
+    float32 prefill held against the plain versions.  ``configs`` (arch
+    -> config) replaces the full configs in a CPU rehearsal."""
+    from repro_torch.configs import get_config
+    batch, prompt, gen = shape
+    out, launches = {"phase": "serve", "batch": batch, "prompt_len": prompt,
+                     "gen": gen}, {}
+    for arch in REFERENCE_WIDTHS:
+        cfg = configs[arch] if configs else get_config(arch)
+        if configs is None:
+            check_widths(arch, cfg)
+        out[arch], launches[SERVE_KERNEL[arch]] = _serve_arch(
+            arch, cfg, dev, seed, shape)
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return out, launches
+
+
+def _serve_arch(arch: str, cfg, dev, seed: int, shape) -> tuple[dict, int]:
+    """One model: every tensor it makes dies when it returns."""
+    from repro_torch.kernels import backend
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import model as M
+    batch, prompt, gen = shape
+    kname = SERVE_KERNEL[arch]
+    n_layers = cfg.n_layers
+    cuda = dev.type == "cuda"
+    tokens = _serve_prompts(cfg, batch, prompt, seed, dev)
+    max_seq = prompt + gen
+
+    def master():
+        """The float32 master weights drawn from the seed on the card (the
+        same numbers every call)."""
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed)
+        return M.init_params(cfg, g)
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    # the weights as served, bf16: the float32 masters are dropped so the
+    # peak is the serving footprint; a short serve first, so the timed one
+    # finds cuBLAS, the kernel library and the allocator warm
+    cast = M.cast_params(cfg, master())
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for t in _leaves(cast))
+    serve(cfg, batch=batch, prompt_len=64, gen=2, seed=seed, params=cast,
+          device=dev)
+    mem_before = 0
+    if cuda:
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        mem_before = torch.cuda.memory_allocated()
+    # 1. the bf16 serve through the kernels
+    res = serve(cfg, batch=batch, prompt_len=prompt, gen=gen, seed=seed,
+                params=cast, device=dev)
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    toks = res["tokens"]
+    check(toks.shape == (batch, gen) and bool(
+        ((toks >= 0) & (toks < cfg.vocab_size)).all()),
+        f"{arch}: tokens {toks.shape}")
+    # 2. launches: one kernel per layer in the prefill, none in decode
+    pre, dec = res["launches"]["prefill"], res["launches"]["decode"]
+    check(pre[kname] == n_layers and sum(pre.values()) == n_layers,
+          f"{arch}: prefill launches {pre}, want {n_layers} {kname}")
+    check(sum(dec.values()) == 0, f"{arch}: decode launches {dec}")
+    # the warm prefill alone, three times
+    prefill_s = []
+    for _ in range(3):
+        sync()
+        t0 = time.perf_counter()
+        M.prefill(cfg, cast, {"tokens": tokens}, max_seq)
+        sync()
+        prefill_s.append(time.perf_counter() - t0)
+    # 4. the bf16 serve through the plain versions, and the bf16 prefill
+    # logits of both
+    plain = serve(cfg, batch=batch, prompt_len=prompt, gen=gen, seed=seed,
+                  params=cast, device=dev, kernel_impl="torch")
+    check(sum(plain["launches"]["prefill"].values()) == 0,
+          f"{arch}: the plain run launched a kernel")
+    lb, _ = M.prefill(cfg, cast, {"tokens": tokens}, max_seq)
+    lbp, _ = M.prefill(cfg, cast, {"tokens": tokens}, max_seq, impl="torch")
+    bf16_err = max_abs_err(lb.float(), lbp.float())
+    profiles = _profile_serve(cfg, cast, tokens, max_seq, prompt) \
+        if cuda else {}
+    del cast, lb, lbp
+    # 3. the float32 prefill, kernels against plain versions, then one
+    # float32 decode step, which launches nothing
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params = master()
+    backend.reset_launch_counts()
+    lk, cache = M.prefill(cfg32, params, {"tokens": tokens}, max_seq)
+    f32_launches = backend.launch_counts()[kname]
+    lp, _ = M.prefill(cfg32, params, {"tokens": tokens}, max_seq,
+                      impl="torch")
+    check(backend.launch_counts()[kname] == f32_launches == n_layers,
+          f"{arch}: float32 prefill launches {f32_launches}")
+    f32_err = max_abs_err(lk, lp)
+    check(bool(torch.isfinite(lk).all()) and f32_err <= LOGIT_TOL_F32,
+          f"{arch}: float32 prefill logits differ by {f32_err}")
+    nxt = torch.argmax(lk[:, -1, :cfg.vocab_size], -1)[:, None]
+    M.decode_step(cfg32, params, cache, nxt, prompt)
+    check(backend.launch_counts()[kname] == n_layers,
+          f"{arch}: float32 decode launched a kernel")
+    return {
+        "prefill_s": res["t_prefill_s"],
+        "prefill_s_warm": prefill_s,
+        "prefill_s_warm_median": statistics.median(prefill_s),
+        "decode_s": res["t_decode_s"], "decode_tok_per_s": res["tok_per_s"],
+        "peak_mem_bytes": peak, "mem_at_reset_bytes": mem_before,
+        "weight_bytes": weight_bytes, "params": cfg.param_count(),
+        "launches_prefill": pre[kname],
+        "launches_decode": sum(dec.values()),
+        "f32_prefill_logit_max_err": f32_err,
+        "f32_logit_tol": LOGIT_TOL_F32,
+        "f32_logit_max_abs": float(lp.abs().max()),
+        "bf16_prefill_logit_max_err_vs_plain": bf16_err,
+        "bf16_tokens_equal_plain_share": float(
+            (plain["tokens"] == toks).mean()),
+        "plain_prefill_s": plain["t_prefill_s"],
+        "plain_decode_tok_per_s": plain["tok_per_s"],
+        "profiles": profiles,
+        "sample_tokens": toks[0, :8].tolist()}, pre[kname]
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def _profile_serve(cfg, params, tokens, max_seq: int, prompt: int) -> dict:
+    """One profiled prefill and 4 profiled decode steps: device time by
+    kernel and the device's busy share."""
+    from repro_torch.models import model as M
+    holder = {}
+
+    def prefill():
+        holder["out"] = M.prefill(cfg, params, {"tokens": tokens}, max_seq)
+
+    out = {"prefill": profile_device(prefill)}
+    logits, cache = holder.pop("out")
+    nxt = torch.argmax(logits[:, -1, :cfg.vocab_size], -1)[:, None]
+
+    def decode():
+        c = cache
+        for i in range(4):
+            _, c = M.decode_step(cfg, params, c, nxt, prompt + i)
+
+    out["decode_4_steps"] = profile_device(decode)
+    return out
+
+
+def _serve_prompts(cfg, batch: int, prompt: int, seed: int, dev):
+    """The prompts ``serve`` builds: the reference's synthetic stream."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticStream
+    stream = SyntheticStream(DataConfig(seq_len=prompt, global_batch=batch,
+                                        seed=seed), cfg)
+    return torch.from_numpy(stream.global_batch(0)["tokens"]).to(dev)
+
+
 def _network_exchanges(r: int) -> int:
     return sum(len(range(p % 2, r - 1, 2)) for p in range(r))
 
@@ -523,6 +858,8 @@ def phase_timing(rng, dev, xs, decrypt_rows: int) -> tuple[dict, dict]:
     del agg, copies, acc
     mm = time_mont_mul(rng, dev, [(decrypt_rows, 128), (1056, 128)])
     out["mont_mul"] = mm[f"{decrypt_rows}x128"]
+    out["flash_attention"] = time_flash(rng, dev)
+    out["ssd"] = time_ssd(rng, dev)
     return {"phase": "timing", "shapes": {"rows": B, "T": T, "r": r},
             "kernels": out, "mont_mul": mm,
             "allreduce": _time_allreduce(xs, dev),
@@ -597,6 +934,73 @@ def time_mont_mul(rng, dev, shapes) -> dict:
     return out
 
 
+def bound(nbytes: float, flops: float, flops_per_s: float) -> dict:
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / flops_per_s * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes": nbytes, "flops": flops, "bytes_ms": bytes_ms,
+            "operations_ms": ops_ms}
+
+
+def time_flash(rng, dev) -> dict:
+    """``flash_attention`` at qwen3-1.7b's prefill (B 4, S 2048, H 16,
+    K 8, hd 128, causal, bf16), its plain version, and
+    ``scaled_dot_product_attention`` on the same inputs in its (B, H, S,
+    hd) layout (timed here only; the port never calls it)."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    B, S, H, K, hd = SERVE_BATCH, SERVE_PROMPT, 16, 8, 128
+    q, k, v = (torch.from_numpy(rng.standard_normal((B, S, n, hd),
+                                                    np.float32)
+                                ).to(dev, torch.bfloat16)
+               for n in (H, K, K))
+    kernel_ms = cuda_ms(lambda: flash_attention(q, k, v, causal=True),
+                        reps=10)
+    plain_ms = cuda_ms(lambda: flash_attention(q, k, v, causal=True,
+                                               impl="torch"), reps=3)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library_ms = cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
+                                      enable_gqa=True), reps=10)
+    got = flash_attention(q, k, v, causal=True).transpose(1, 2).float()
+    lib_err = max_abs_err(got, sdpa(qt, kt, vt, is_causal=True,
+                                    enable_gqa=True).float())
+    # the causal pairs (i >= j) of two products, 2 FLOP a multiply-add
+    flops = 4 * B * H * hd * S * (S + 1) // 2
+    nbytes = 2 * (2 * B * S * H * hd + 2 * B * S * K * hd)
+    return {"ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "library": "scaled_dot_product_attention(is_causal=True, "
+                       "enable_gqa=True)",
+            "library_max_abs_err": lib_err,
+            "shape": [B, S, H, K, hd], **bound(nbytes, flops,
+                                                BF16_FLOPS_PER_S)}
+
+
+def ssd_flops(Bsz: int, S: int, H: int, P: int, N: int, Q: int = 64) -> int:
+    """FLOPs of the kernel's chunked scan (chunks of Q, S padded to a
+    multiple): per row the lower triangles of C B^T and of (L o C B^T)(x dt)
+    and the state's two products, C state^T and (x dt)^T B."""
+    Sp = -(-S // Q) * Q
+    per_row = Sp * (Q + 1) // 2 * (N + P) + 2 * Sp * N * P
+    return 2 * Bsz * H * per_row
+
+
+def time_ssd(rng, dev) -> dict:
+    """``ssd_chunked`` at mamba2-370m's prefill (B 4, S 2048, 32 heads of
+    P = 64, N = 128, B and C shared by the heads) and its plain version."""
+    from repro_torch.kernels.ssd import ssd_chunked
+    Bsz, S, H, P, N = SERVE_BATCH, SERVE_PROMPT, 32, 64, 128
+    args = _ssd_inputs(rng, dev, Bsz, S, H, P, N=N, per_head=False)
+    kernel_ms = cuda_ms(lambda: ssd_chunked(*args, 256), reps=10)
+    plain_ms = cuda_ms(lambda: ssd_chunked(*args, 256, impl="torch"), reps=3)
+    # x and y, dt, A, B and C once each, the final state written once
+    nbytes = 4 * (2 * Bsz * S * H * P + Bsz * S * H + H + 2 * Bsz * S * N
+                  + Bsz * H * P * N)
+    return {"ms": kernel_ms, "plain_ms": plain_ms, "library_ms": None,
+            "shape": [Bsz, S, H, P, N], "kernel_chunk": 64,
+            **bound(nbytes, ssd_flops(Bsz, S, H, P, N), F32_FLOPS_PER_S)}
+
+
 def _time_allreduce(xs, dev) -> dict:
     """Host-clock median of the full-width allreduce, and one profiled
     call: device time by kernel name and the device's busy share."""
@@ -647,6 +1051,10 @@ def main() -> int:
         ap.error(f"unknown phases {sorted(unknown)}")
 
     emit(phase_device())            # always first: raises without a card
+    # float32 products in full float32 (also the default), stated for the
+    # float checks; no convolution runs, so cuDNN's TF32 switch is moot
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     from repro_torch.kernels import backend
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(args.seed)
@@ -675,6 +1083,10 @@ def main() -> int:
         line, da_launches, decrypt_rows = phase_paillier(dev)
         launches["mont_mul"] = da_launches["mont_mul"]
         emit(line)
+    if "serve" in phases:
+        line, serve_launches = phase_serve(dev, args.seed)
+        launches.update(serve_launches)
+        emit(line)
     if "timing" in phases:
         line, timing = phase_timing(rng, dev, xs, decrypt_rows)
         emit(line)
@@ -687,7 +1099,8 @@ def main() -> int:
             "replaces": k.replaces, "launches": launches.get(k.name, 0),
             "max_abs_err": errs[k.name], "ms": t.get("ms"),
             "plain_ms": t.get("plain_ms"), "bound_ms": t.get("bound_ms"),
-            "bound_by": t.get("bound_by"), "library_ms": None})
+            "bound_by": t.get("bound_by"),
+            "library_ms": t.get("library_ms")})
     print(smi_line(), flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,0 +1,9 @@
+"""Import every ported architecture config to populate the registry.
+
+The port carries two of the reference's ten configs so far: the two that
+serve through the port's kernels.  The other eight wait for their slices
+(MoE, cross-attention and frontends; ``ROADMAP.md`` Queue 1 item 10).
+"""
+from repro_torch.configs import mamba2_370m, qwen3_1p7b
+
+__all__ = ["qwen3_1p7b", "mamba2_370m"]

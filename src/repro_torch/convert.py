@@ -1,13 +1,15 @@
 """Carry the system's state between the JAX package and the port.
 
-The system has no weights: its state is the protocol config, the
-per-session seeds and counter offsets, the fault masks, and for the
-paper's DA protocol the threshold key material and the overlay.  These
-functions take that state in plain Python / numpy form -- the JAX
-``AggConfig``, ``ThresholdPublic`` and shares as ``dataclasses.asdict``
-output, numpy arrays for the session metadata, plain fields for the
-overlay -- so one config, one session, one key and one overlay can run
-on both sides, and convert ring words at the numpy boundary.
+The aggregation system has no weights: its state is the protocol config,
+the per-session seeds and counter offsets, the fault masks, and for the
+paper's DA protocol the threshold key material and the overlay.  The
+model stack adds a model config and its weights.  These functions take
+that state in plain Python / numpy form -- the JAX ``AggConfig``,
+``ModelConfig``, ``ThresholdPublic`` and shares as ``dataclasses.asdict``
+output, numpy arrays for the session metadata and the weights, plain
+fields for the overlay -- so one config, one session, one key, one
+overlay and one set of weights can run on both sides, and convert ring
+words at the numpy boundary.
 """
 from __future__ import annotations
 
@@ -16,6 +18,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.configs.base import (LayerSpec, ModelConfig, MoEConfig,
+                                      SSMConfig)
 from repro_torch.core.byzantine import ByzantineSpec
 from repro_torch.core.overlay import MsgStats, Node, Overlay
 from repro_torch.core.plan import AggConfig, SessionMeta, words
@@ -105,3 +109,42 @@ def overlay_from_fields(d: dict) -> Overlay:
     ov.stats = MsgStats(int(d["stats"]["messages"]), int(d["stats"]["bytes"]))
     ov.rng.setstate(d["rng_state"])
     return ov
+
+
+def model_config_from_fields(d: dict) -> ModelConfig:
+    """A model config from ``dataclasses.asdict`` of the reference's
+    ``ModelConfig`` (``pattern`` as a sequence of dicts, ``moe`` and
+    ``ssm`` as dicts or None), so a test's ``dataclasses.replace`` of a
+    reference config carries across."""
+    fields = {f.name for f in dataclasses.fields(ModelConfig)}
+    unknown = set(d) - fields
+    if unknown:
+        raise ValueError(f"unknown ModelConfig fields {sorted(unknown)}")
+    kw = dict(d)
+    kw["pattern"] = tuple(LayerSpec(**dict(s)) for s in kw["pattern"])
+    if kw.get("moe") is not None:
+        kw["moe"] = MoEConfig(**dict(kw["moe"]))
+    if kw.get("ssm") is not None:
+        kw["ssm"] = SSMConfig(**dict(kw["ssm"]))
+    return ModelConfig(**kw)
+
+
+def model_params_from_numpy(cfg: ModelConfig, params_np: dict,
+                            device="cpu") -> dict:
+    """The port's params from the reference's, as a nested dict of numpy
+    arrays.  The reference's ``params["units"]`` leaves carry a leading
+    ``n_units`` axis (its ``init_params`` vmaps the unit init); here they
+    are split into a list of per-unit dicts."""
+
+    def tensors(tree, index=None):
+        if isinstance(tree, dict):
+            return {k: tensors(v, index) for k, v in tree.items()}
+        a = np.asarray(tree)
+        if index is not None:
+            a = a[index]
+        return torch.from_numpy(np.array(a, dtype=a.dtype)).to(device)
+
+    out = {k: tensors(v) for k, v in params_np.items() if k != "units"}
+    out["units"] = [tensors(params_np["units"], u)
+                    for u in range(cfg.n_units)]
+    return out

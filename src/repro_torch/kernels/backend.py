@@ -95,24 +95,36 @@ def raise_on(rc: int, name: str,
 
 
 class Kernel:
-    """Launch counter of one CUDA kernel."""
+    """Launch counter of one CUDA kernel.  ``replaces`` is the file:line of
+    the TPU kernel it ports; ``row_form``, where the TPU kernel has a
+    single-row form beside its batched one, that form's file:line (the
+    port runs it as the batched kernel with B = 1)."""
 
-    def __init__(self, name: str, source: str, replaces: str):
+    def __init__(self, name: str, source: str, replaces: str,
+                 row_form: Optional[str] = None):
         self.name = name
         self.source = source
         self.replaces = replaces
+        self.row_form = row_form
         self.launches = 0
 
 
 _SA_SRC = "src/repro_torch/csrc/secure_agg.cu"
 _SA_REF = "src/repro/kernels/secure_agg/secure_agg.py"
-MASK = Kernel("mask_encrypt", _SA_SRC, f"{_SA_REF}:272")
-UNMASK = Kernel("unmask_decrypt", _SA_SRC, f"{_SA_REF}:324")
+MASK = Kernel("mask_encrypt", _SA_SRC, f"{_SA_REF}:272", f"{_SA_REF}:152")
+UNMASK = Kernel("unmask_decrypt", _SA_SRC, f"{_SA_REF}:324",
+                f"{_SA_REF}:208")
 VOTE = Kernel("vote_combine", _SA_SRC, f"{_SA_REF}:388")
 MONT_MUL = Kernel("mont_mul", "src/repro_torch/csrc/modmul.cu",
                   "src/repro/kernels/modmul/modmul.py:95")
+FLASH_ATTENTION = Kernel(
+    "flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+    "src/repro/kernels/flash_attention/flash_attention.py:69")
+SSD = Kernel("ssd", "src/repro_torch/csrc/ssd.cu",
+             "src/repro/kernels/ssd/ssd.py:74")
 SECURE_AGG = (MASK, UNMASK, VOTE)     # the secure allreduce's kernels
-KERNELS = (*SECURE_AGG, MONT_MUL)
+MODEL = (FLASH_ATTENTION, SSD)        # the model stack's prefill kernels
+KERNELS = (*SECURE_AGG, MONT_MUL, *MODEL)
 
 
 def launch_counts() -> dict:

@@ -37,6 +37,17 @@ _SIGNATURES = {
                           ctypes.c_float, ctypes.c_int, _P),
     "sa_vote_combine": (ctypes.POINTER(_P), ctypes.c_int, _P, _P, _I64, _P),
     "mm_mont_mul": (_P, _P, _P, ctypes.c_uint32, _P, _I64, ctypes.c_int, _P),
+    # q, k, v, o, B, H, K, Sq, Skv, hd, causal, window, scale, is_bf16,
+    # stream
+    "fa_flash_attention": (_P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
+                           ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                           ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                           ctypes.c_float, ctypes.c_int, _P),
+    # x, dt, a, Bm, Cm, y, state, BH, H, S, P, N, x strides (b, h, s),
+    # dt strides (b, h, s), B/C strides (b, s), stream
+    "ssd_scan": (_P, _P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
+                 ctypes.c_int, ctypes.c_int, ctypes.c_int, _I64, _I64, _I64,
+                 _I64, _I64, _I64, _I64, _I64, _P),
 }
 
 _lib: Optional[ctypes.CDLL] = None

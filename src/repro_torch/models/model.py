@@ -1,0 +1,294 @@
+"""The port's unified model: init / forward / prefill / decode over the
+stack of pattern units (see ``configs.base.ModelConfig``).
+
+Counterpart of ``repro/models/model.py``.  Parameters are nested dicts of
+tensors in the reference's layout, except that the reference's
+``params["units"]`` leaves carry a leading ``n_units`` axis (its
+``init_params`` vmaps the unit init and its forward scans over that
+axis), while here ``params["units"]`` is a list of ``n_units`` unit dicts
+run by a Python loop; caches likewise.  ``constrain`` (sharding hints)
+and ``remat`` (rematerialisation for the backward pass) have no
+counterpart on one device in inference and are left out.  Every prefill
+reaches its kernels through ``impl``: ``None`` picks the CUDA kernel on a
+CUDA tensor and the plain version on a CPU tensor, ``"torch"`` the plain
+version anywhere.
+"""
+from __future__ import annotations
+
+from typing import Any, Optional
+
+import torch
+
+from repro_torch.configs.base import (ATTN_CHUNKED, CROSS_ATTN, DENSE, MAMBA2,
+                                      MOE, NONE, ModelConfig)
+from repro_torch.models import layers as L
+
+Params = Any
+Cache = Any
+
+# leaves the reference reads in float32 whatever the compute dtype; every
+# other leaf it reads only as ``.astype(cfg.dtype)``
+F32_LEAVES = ("q_norm", "k_norm", "dt_bias", "A_log", "out_norm")
+
+
+def padded_vocab(cfg: ModelConfig) -> int:
+    return -(-cfg.vocab_size // 256) * 256
+
+
+def compute_dtype(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise for what the port's model stack does not run yet, naming the
+    slice it comes with."""
+    if cfg.frontend != "none":
+        raise L.not_ported(f"the {cfg.frontend} frontend",
+                           "cross-attention and frontends")
+    for spec in cfg.pattern:
+        if spec.mixer == CROSS_ATTN:
+            raise L.not_ported("cross-attention",
+                               "cross-attention and frontends")
+        if spec.mlp == MOE:
+            raise L.not_ported("the MoE MLP", "MoE")
+    if (cfg.norm != "rmsnorm" or cfg.attn_bias or not cfg.mlp_gated
+            or cfg.logit_softcap or not cfg.tie_embeddings
+            or cfg.embedding_multiplier != 1.0):
+        raise L.not_ported(
+            "layernorm, a GELU MLP, QKV biases, soft-capping, an untied head "
+            "or an embedding multiplier", "other configs")
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+
+def _init_unit(cfg: ModelConfig, gen: torch.Generator) -> dict:
+    unit = {}
+    for i, spec in enumerate(cfg.pattern):
+        lp = {"norm1": L.make_norm_params(cfg, gen)}
+        if spec.mixer == MAMBA2:
+            lp["mixer"] = L.make_mamba_params(cfg, gen)
+        else:
+            lp["mixer"] = L.make_attn_params(cfg, gen)
+        if spec.mlp == DENSE:
+            lp["norm2"] = L.make_norm_params(cfg, gen)
+            lp["mlp"] = L.make_mlp_params(cfg, gen)
+        unit[f"layer{i}"] = lp
+    return unit
+
+
+def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
+    """Random float32 master weights with the reference's stds, drawn from
+    ``gen`` on ``gen.device``.  The numbers differ from the reference's
+    ``jax.random`` draws for the same seed; a test that needs the same
+    weights carries the reference's across (``convert``)."""
+    check_supported(cfg)
+    d = cfg.d_model
+    params: dict = {"embed": torch.randn((padded_vocab(cfg), d),
+                                         generator=gen, device=gen.device)
+                    * (d ** -0.5)}
+    params["final_norm"] = L.make_norm_params(cfg, gen)
+    params["units"] = [_init_unit(cfg, gen) for _ in range(cfg.n_units)]
+    return params
+
+
+def cast_params(cfg: ModelConfig, params: Params) -> Params:
+    """The weights as the forward reads them: every leaf the reference
+    casts to ``cfg.dtype`` at each use is cast once here (the same
+    rounding, so the same values), the float32 leaves stay.  Serving calls
+    it once instead of casting every weight at every step."""
+    dtype = compute_dtype(cfg)
+
+    def go(tree, name=""):
+        if isinstance(tree, dict):
+            return {k: go(v, k) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [go(v) for v in tree]
+        return tree if name in F32_LEAVES else tree.to(dtype)
+
+    return go(params)
+
+
+# ---------------------------------------------------------------------------
+# Embedding / head
+# ---------------------------------------------------------------------------
+
+
+def embed_inputs(cfg: ModelConfig, params: Params, batch: dict
+                 ) -> torch.Tensor:
+    check_supported(cfg)
+    # gather, then cast: the reference casts the table first, the same
+    # values for the rows gathered
+    return params["embed"][batch["tokens"]].to(compute_dtype(cfg))
+
+
+def lm_head(cfg: ModelConfig, params: Params, x: torch.Tensor
+            ) -> torch.Tensor:
+    """Tied embeddings: x @ embed^T."""
+    return x @ params["embed"].to(x.dtype).T
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+
+def _mlp(cfg: ModelConfig, spec, lp: dict, x: torch.Tensor) -> torch.Tensor:
+    if spec.mlp == NONE:
+        return x
+    h = L.apply_norm(cfg, lp["norm2"], x)
+    return x + L.mlp_forward(cfg, lp["mlp"], h)
+
+
+def _unit_forward(cfg: ModelConfig, unit: dict, x: torch.Tensor,
+                  impl: Optional[str]) -> torch.Tensor:
+    for i, spec in enumerate(cfg.pattern):
+        lp = unit[f"layer{i}"]
+        h = L.apply_norm(cfg, lp["norm1"], x)
+        if spec.mixer == MAMBA2:
+            y, _ = L.mamba_forward(cfg, lp["mixer"], h, impl=impl)
+        else:
+            y = L.attn_forward(cfg, lp["mixer"], h, mixer=spec.mixer,
+                               impl=impl)
+        x = _mlp(cfg, spec, lp, x + y)
+    return x
+
+
+def forward(cfg: ModelConfig, params: Params, batch: dict,
+            impl: Optional[str] = None) -> torch.Tensor:
+    """Returns logits (B, S, Vp)."""
+    x = embed_inputs(cfg, params, batch)
+    for unit in params["units"]:
+        x = _unit_forward(cfg, unit, x, impl)
+    x = L.apply_norm(cfg, params["final_norm"], x)
+    return lm_head(cfg, params, x)
+
+
+# ---------------------------------------------------------------------------
+# KV / SSM caches
+# ---------------------------------------------------------------------------
+
+
+def _layer_cache(cfg: ModelConfig, spec, B: int, max_seq: int,
+                 device) -> dict:
+    K, hd = cfg.n_kv_heads, cfg.hd
+    dtype = compute_dtype(cfg)
+    if spec.mixer == MAMBA2:
+        s = cfg.ssm
+        d_in = s.expand * cfg.d_model
+        nh = d_in // s.head_dim
+        return {
+            "conv_x": torch.zeros((B, s.d_conv - 1, d_in), dtype=dtype,
+                                  device=device),
+            "conv_B": torch.zeros((B, s.d_conv - 1, s.d_state), dtype=dtype,
+                                  device=device),
+            "conv_C": torch.zeros((B, s.d_conv - 1, s.d_state), dtype=dtype,
+                                  device=device),
+            "ssd": torch.zeros((B, nh, s.head_dim, s.d_state),
+                               dtype=torch.float32, device=device),
+        }
+    S = min(max_seq, cfg.attn_window) if spec.mixer == ATTN_CHUNKED \
+        else max_seq
+    return {"k": torch.zeros((B, S, K, hd), dtype=dtype, device=device),
+            "v": torch.zeros((B, S, K, hd), dtype=dtype, device=device)}
+
+
+def init_cache(cfg: ModelConfig, B: int, max_seq: int, device) -> Cache:
+    check_supported(cfg)
+    return [{f"layer{i}": _layer_cache(cfg, spec, B, max_seq, device)
+             for i, spec in enumerate(cfg.pattern)}
+            for _ in range(cfg.n_units)]
+
+
+# ---------------------------------------------------------------------------
+# Prefill
+# ---------------------------------------------------------------------------
+
+
+def _unit_prefill(cfg: ModelConfig, unit: dict, x: torch.Tensor, *,
+                  max_seq: int, impl: Optional[str]
+                  ) -> tuple[torch.Tensor, dict]:
+    B, S, _ = x.shape
+    dtype = x.dtype
+    caches = {}
+    for i, spec in enumerate(cfg.pattern):
+        lp = unit[f"layer{i}"]
+        h = L.apply_norm(cfg, lp["norm1"], x)
+        if spec.mixer == MAMBA2:
+            y, st = L.mamba_forward(cfg, lp["mixer"], h, impl=impl)
+            caches[f"layer{i}"] = st
+        else:
+            positions = torch.arange(S, dtype=torch.int32, device=x.device)
+            q, k, v = L._qkv(cfg, lp["mixer"], h, h, dtype)
+            q = L.rope(q, positions, cfg.rope_theta)
+            k = L.rope(k, positions, cfg.rope_theta)
+            window = cfg.attn_window if spec.mixer == ATTN_CHUNKED else 0
+            o = L.flash_attention(q, k, v, causal=cfg.causal, window=window,
+                                  impl=impl)
+            y = o.reshape(B, S, -1) @ lp["mixer"]["wo"].to(dtype)
+            cache = _layer_cache(cfg, spec, B, max_seq, x.device)
+            # ring buffer slot = pos % window: only the current (possibly
+            # partial) chunk's tail belongs in the cache; S % window == 0
+            # means decode starts a fresh chunk
+            take = S % window if window else min(S, cache["k"].shape[1])
+            if take:
+                cache["k"][:, :take] = k[:, -take:]
+                cache["v"][:, :take] = v[:, -take:]
+            caches[f"layer{i}"] = cache
+        x = _mlp(cfg, spec, lp, x + y)
+    return x, caches
+
+
+def prefill(cfg: ModelConfig, params: Params, batch: dict, max_seq: int,
+            impl: Optional[str] = None) -> tuple[torch.Tensor, Cache]:
+    """Run the prompt; returns (last-position logits (B, 1, Vp), cache
+    sized for ``max_seq`` positions)."""
+    x = embed_inputs(cfg, params, batch)
+    caches = []
+    for unit in params["units"]:
+        x, cache_u = _unit_prefill(cfg, unit, x, max_seq=max_seq, impl=impl)
+        caches.append(cache_u)
+    x = L.apply_norm(cfg, params["final_norm"], x)
+    return lm_head(cfg, params, x[:, -1:]), caches
+
+
+# ---------------------------------------------------------------------------
+# Decode
+# ---------------------------------------------------------------------------
+
+
+def _unit_decode(cfg: ModelConfig, unit: dict, cache_u: dict,
+                 x: torch.Tensor, t: int) -> tuple[torch.Tensor, dict]:
+    new_cache = {}
+    for i, spec in enumerate(cfg.pattern):
+        lp = unit[f"layer{i}"]
+        cu = cache_u[f"layer{i}"]
+        h = L.apply_norm(cfg, lp["norm1"], x)
+        if spec.mixer == MAMBA2:
+            y, st = L.mamba_forward(cfg, lp["mixer"], h, state=cu,
+                                    decode=True)
+        elif spec.mixer == ATTN_CHUNKED:
+            # ring-buffer within the current chunk: local slot index
+            y, st = L.attn_decode(cfg, lp["mixer"], h, cu, t,
+                                  mixer=spec.mixer, slot=t % cfg.attn_window)
+        else:
+            y, st = L.attn_decode(cfg, lp["mixer"], h, cu, t,
+                                  mixer=spec.mixer)
+        new_cache[f"layer{i}"] = st
+        x = _mlp(cfg, spec, lp, x + y)
+    return x, new_cache
+
+
+def decode_step(cfg: ModelConfig, params: Params, cache: Cache,
+                tokens: torch.Tensor, t: int) -> tuple[torch.Tensor, Cache]:
+    """One token for every sequence. tokens: (B, 1) int; t: position.
+    Attention caches are written in place."""
+    x = embed_inputs(cfg, params, {"tokens": tokens})
+    new_cache = []
+    for unit, cache_u in zip(params["units"], cache):
+        x, cu = _unit_decode(cfg, unit, cache_u, x, int(t))
+        new_cache.append(cu)
+    x = L.apply_norm(cfg, params["final_norm"], x)
+    return lm_head(cfg, params, x), new_cache

@@ -1,0 +1,52 @@
+"""Every TPU kernel of the JAX package has a counterpart in the port.
+
+The functions under ``src/repro/kernels/`` that reach ``pl.pallas_call``
+are found by reading the source text (the port never imports the JAX
+package).  Each must be named, as ``file:line`` of its ``def``, by the
+``replaces`` field of one kernel in ``repro_torch.kernels.backend.KERNELS``
+or by its ``row_form`` (a single-row form the port runs as B = 1).
+"""
+import ast
+import pathlib
+
+import pytest
+
+from repro_torch.kernels import backend
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+KERNEL_DIR = ROOT / "src" / "repro" / "kernels"
+
+
+def _calls_pallas(fn: ast.AST) -> bool:
+    return any(isinstance(n, ast.Call) and isinstance(n.func, ast.Attribute)
+               and n.func.attr == "pallas_call" for n in ast.walk(fn))
+
+
+def pallas_sites() -> list[str]:
+    """file:line of every top-level function that calls ``pallas_call``."""
+    sites = []
+    for path in sorted(KERNEL_DIR.rglob("*.py")):
+        tree = ast.parse(path.read_text(), str(path))
+        rel = path.relative_to(ROOT).as_posix()
+        sites += [f"{rel}:{node.lineno}" for node in tree.body
+                  if isinstance(node, ast.FunctionDef) and _calls_pallas(node)]
+    return sites
+
+
+def test_the_scan_finds_all_eight_sites():
+    assert len(pallas_sites()) == 8
+
+
+@pytest.mark.parametrize("site", pallas_sites())
+def test_every_pallas_kernel_has_a_port(site):
+    named = {k.replaces for k in backend.KERNELS} | \
+        {k.row_form for k in backend.KERNELS if k.row_form}
+    assert site in named, f"{site} has no counterpart in backend.KERNELS"
+
+
+@pytest.mark.parametrize("kernel", backend.KERNELS, ids=lambda k: k.name)
+def test_every_port_names_a_pallas_kernel_and_its_source(kernel):
+    sites = pallas_sites()
+    assert kernel.replaces in sites
+    assert kernel.row_form is None or kernel.row_form in sites
+    assert (ROOT / kernel.source).is_file()
