@@ -13,8 +13,13 @@ with a non-zero exit code:
            and vote copies with and without a majority; the Montgomery
            multiply at L in {8, 32, 128, 256} limbs and 1..1024 rows with
            edge operands (some also against Python ints), and
-           ``modexp_ints`` against ``pow`` at L = 128; flash attention in
-           float32 and bf16 (GQA groups 1, 2, 8, causal or not, window
+           ``modexp_ints`` against ``pow`` at L = 128; the one-launch
+           ladder ``mont_exp`` against the plain ladder and ``pow`` at L
+           in {8, 32, 128, 256} and an odd L in batches 1, 7, 58, and at
+           L = 128 with exponents of 0, 1, 64 and (against ``pow``) 2,374
+           bits; flash
+           attention in float32 (the CUDA-core kernel) and bf16 (the
+           tensor-core kernel) (GQA groups 1, 2, 8, causal or not, window
            128, Sq = Skv in {77, 512, 2048}, Sq != Skv, qwen3's prefill
            shape) and the SSD scan (the kernel tests' shapes, a ragged S,
            mamba2's prefill shape with B and C shared) within
@@ -29,9 +34,11 @@ with a non-zero exit code:
   paillier threshold Paillier at full width (1024-bit n, fixed committed
            safe primes): 512 encrypted votes summed, partial decryption
            of c_t = 69 shares' first 58 on the card equal to Python
-           ``pow`` and combined to the sum, 2 nbits + 1 launches; then the
-           paper's DA protocol over a 512-node overlay with Step 4 on the
-           card, exact and equal in every account to the ``pow`` run
+           ``pow`` and combined to the sum, with one ``mont_exp`` launch
+           (the ladder) and one ``mont_mul`` (leaving the Montgomery
+           domain); then the paper's DA protocol over a 512-node overlay
+           with Step 4 on the card, exact and equal in every account to
+           the ``pow`` run
   serve    ``repro_torch.launch.serve.serve`` at full width for
            qwen3-1.7b and mamba2-370m (bf16, random weights from the
            seed): batch 4, prompt 2048, 32 tokens; prefill seconds, decode
@@ -43,7 +50,10 @@ with a non-zero exit code:
            widths against the reference's config files
   timing   CUDA-event medians of each kernel and its plain version at
            the main paths' shapes (the Montgomery multiply at the
-           decryption's rows x 128 limbs and at 1056 x 128, flash
+           decryption's rows x 128 limbs and at 1056 x 128; the ladder at
+           the decryption's rows, 128 limbs and exponent bits, beside the
+           host loop of two ``mont_mul`` launches a bit it replaced, in
+           turns, and its plain version once, held equal to it; flash
            attention and the SSD scan at the two models' prefill shapes,
            with ``scaled_dot_product_attention`` timed beside flash
            attention as the library yardstick), and the end-to-end
@@ -59,6 +69,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import pathlib
 import statistics
 import subprocess
@@ -96,6 +107,9 @@ Q_FULL = int("878186117668736310300858909383076763157932463076984285209715"
 N_OVERLAY, TAU_OVERLAY, KEY_BITS = 512, 0.3, 1024
 C_THRESHOLD = 69              # threshold cluster of build_overlay(512, 0.3, 0)
 N_DECRYPT = 58                # decryptors of a threshold decryption
+# exponent bits of 2 Delta s_i at c_t = 69 and 1024-bit n (a share lies
+# below n m): the ladder's length when the paillier phase does not run
+DECRYPT_BITS = 1 + (math.factorial(C_THRESHOLD)).bit_length() + 2046
 # serve: the repo's prefill_32k / decode_32k shapes cut in traffic, not in
 # width, to fit one run beside the other phases
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 2048, 32
@@ -379,7 +393,7 @@ def _check_mont_mul(rng, dev, errs: dict) -> int:
                                          montgomery_params)
     from repro_torch.kernels.modmul import ops as mm
     from repro_torch.kernels.modmul.ref import mont_mul_int
-    checks = 0
+    checks = _check_mont_exp(rng, dev, errs)
     for L in (8, 32, 128, 256):
         n = _rand_below(rng, 1 << (16 * L - 3)) | (1 << (16 * L - 4)) | 1
         check(limbs_needed(n) == L, f"modulus of {L} limbs")
@@ -415,6 +429,68 @@ def _check_mont_mul(rng, dev, errs: dict) -> int:
     check(got == [pow(x, e, n) for x, e in zip(bases, exps)],
           "modexp_ints equals pow at L = 128")
     return checks + 1
+
+
+def _ladder_inputs(n: int, L: int, xs, exps, dev):
+    """Montgomery-domain bases, exponent bits and R mod n, on the card."""
+    from repro_torch.crypto.limb import (batch_to_limbs, montgomery_params,
+                                         to_limbs, to_mont)
+    from repro_torch.kernels.modmul.ops import exponent_bits
+    mp = montgomery_params(n, L)
+    nbits = max(e.bit_length() for e in exps) or 1
+    a = torch.from_numpy(batch_to_limbs([to_mont(x % n, mp) for x in xs], L)
+                         .astype(np.int32)).to(dev)
+    bits = torch.from_numpy(exponent_bits(exps, nbits)).to(dev)
+    one = torch.from_numpy(to_limbs(mp["R"] % n, L).astype(np.int32)).to(dev)
+    return mp, a, bits, one
+
+
+def _check_mont_exp(rng, dev, errs: dict) -> int:
+    """``mont_exp`` (the whole ladder in one launch) against the plain
+    ladder (``impl="torch"``) limb for limb and against Python ``pow``:
+    even L on 32-bit digits, an odd L on 16-bit ones, batches 1, 7, 58
+    with 32-bit exponents; then the decryption's width with exponents of
+    0, 1 and 64 bits, and with a 2,374-bit one against ``pow``."""
+    from repro_torch.crypto.limb import batch_from_limbs
+    from repro_torch.kernels.modmul import ops as mm
+    checks = 0
+
+    def hold(n, L, xs, exps, what, plain=True):
+        nonlocal checks
+        mp, a, bits, one = _ladder_inputs(n, L, xs, exps, dev)
+        got = mm.mont_exp_op(a, bits, mp["n_limbs"], mp["n0inv"], one)
+        if plain:
+            want = mm.mont_exp_op(a, bits, mp["n_limbs"], mp["n0inv"], one,
+                                  impl="torch")
+            errs["mont_exp"] = max(errs["mont_exp"], max_abs_err(got, want))
+            check(torch.equal(got, want), f"mont_exp {what}: plain ladder")
+            checks += 1
+        R_inv = pow(mp["R"], -1, n)
+        vals = batch_from_limbs(got.cpu().numpy().astype(np.uint32))
+        check([v * R_inv % n for v in vals] ==
+              [pow(x, e, n) for x, e in zip(xs, exps)],
+              f"mont_exp {what}: pow")
+        checks += 1
+
+    for L in (8, 32, 128, 256, 33):
+        n = _rand_below(rng, 1 << (16 * L - 3)) | (1 << (16 * L - 4)) | 1
+        for batch in (1, 7, 58):
+            xs = [_rand_below(rng, n) for _ in range(batch)]
+            exps = [0, 1][:batch] + [_rand_below(rng, 1 << 32) | 1 << 31
+                                     for _ in range(batch - 2)]
+            hold(n, L, xs, exps, f"L={L} batch={batch}")
+    # the decryption's width; the 2,374-bit row against pow only here:
+    # the plain ladder over ~2,400 bits takes ~4 min on the card, so the
+    # timing phase holds it against the kernel once, at the decryption's
+    # own shape
+    n = _rand_below(rng, 1 << 2047) | (1 << 2047) | 1
+    exps = [0, 1, _rand_below(rng, 1 << 64) | (1 << 63)]
+    hold(n, 128, [_rand_below(rng, n) for _ in exps], exps,
+         "L=128, exponents of 0, 1 and 64 bits")
+    exps.append(_rand_below(rng, 1 << 2374) | (1 << 2373))
+    hold(n, 128, [_rand_below(rng, n) for _ in exps], exps,
+         "L=128, exponents of 0, 1, 64 and 2,374 bits", plain=False)
+    return checks
 
 
 def _main_cfg(**kw):
@@ -522,9 +598,10 @@ def phase_batched(rng, dev) -> dict:
             "bytes_sent": agg.stats()["bytes_sent"]}
 
 
-def phase_paillier(dev) -> tuple[dict, dict, int]:
+def phase_paillier(dev) -> tuple[dict, dict, tuple[int, int]]:
     """Threshold Paillier and the paper's DA protocol at full width, with
-    the partial decryptions on the card."""
+    the partial decryptions on the card.  Returns the line, the DA path's
+    launches and the decryption's (rows, exponent bits)."""
     from repro_torch.core import protocol
     from repro_torch.core.overlay import build_overlay
     from repro_torch.crypto import paillier
@@ -552,14 +629,15 @@ def phase_paillier(dev) -> tuple[dict, dict, int]:
     parts = tp.partial_decrypt_batch(agg, decryptors, device=dev)
     torch.cuda.synchronize()
     kernel_s = time.perf_counter() - t0
-    launches = backend.MONT_MUL.launches
+    launches = {k.name: k.launches for k in backend.MODMUL}
     t0 = time.perf_counter()
     want = tp.partial_decrypt_batch(agg, decryptors, use_kernel=False)
     pow_s = time.perf_counter() - t0
     check(parts == want, "partial decryptions on the card equal pow")
     check(tp.combine(parts) == int(votes.sum()), "combine: the vote sum")
-    check(launches == 2 * nbits + 1,
-          f"mont_mul launches {launches} != 2 * {nbits} + 1")
+    check(launches == {"mont_mul": 1, "mont_exp": 1},
+          f"a decryption's launches {launches}: want one ladder and one "
+          "exit multiply")
     ladder = profile_device(
         lambda: tp.partial_decrypt_batch(agg, decryptors, device=dev))
 
@@ -584,7 +662,10 @@ def phase_paillier(dev) -> tuple[dict, dict, int]:
     check(res.exact and res.output == res.expected, "DA protocol exact")
     check(res.cluster_sizes[-1] == C_THRESHOLD,
           f"threshold cluster of {res.cluster_sizes[-1]} members")
-    check(path_launches["mont_mul"] > 0, "DA protocol launched mont_mul")
+    check(path_launches["mont_exp"] > 0 and
+          path_launches["mont_mul"] == path_launches["mont_exp"],
+          f"DA protocol launches {path_launches}: one ladder and one exit "
+          "multiply a decryption")
     for k in ("output", "expected", "exact", "phase_bytes", "n", "g",
               "cluster_sizes"):
         check(getattr(res, k) == getattr(ref, k), f"DA protocol {k}")
@@ -596,7 +677,7 @@ def phase_paillier(dev) -> tuple[dict, dict, int]:
     return ({"phase": "paillier", "key_bits": KEY_BITS,
              "n2_bits": tp.pk.n2.bit_length(), "c_t": C_THRESHOLD,
              "t": tp.t, "decryptors": len(decryptors), "nbits": nbits,
-             "mont_mul_launches": launches, "kernel_s": kernel_s,
+             "launches": launches, "kernel_s": kernel_s,
              "pow_s": pow_s, "keygen_s": keygen_s, "encrypt_s": encrypt_s,
              "ladder_profile": ladder,
              "plaintext": int(votes.sum()), "equal_pow": True,
@@ -606,11 +687,11 @@ def phase_paillier(dev) -> tuple[dict, dict, int]:
                     "messages": res.stats.messages,
                     "bytes": res.stats.bytes, "launches": path_launches,
                     "decryptors": rows,
-                    "ladder_bits": (path_launches["mont_mul"] - 1) // 2,
+                    "decryptions": path_launches["mont_exp"],
                     "seconds": da_s,
                     "pow_seconds": da_pow_s, "equal_pow_run": True},
              "seconds": time.perf_counter() - phase_t0},
-            path_launches, rows)
+            path_launches, (rows, nbits))
 
 
 def check_widths(arch: str, cfg) -> None:
@@ -795,7 +876,8 @@ def _network_exchanges(r: int) -> int:
     return sum(len(range(p % 2, r - 1, 2)) for p in range(r))
 
 
-def phase_timing(rng, dev, xs, decrypt_rows: int) -> tuple[dict, dict]:
+def phase_timing(rng, dev, xs, decrypt: tuple[int, int]
+                 ) -> tuple[dict, dict]:
     """Kernel and plain-version times at the main paths' shapes, with the
     least time the card could take for the same work."""
     from repro_torch.core.plan import AggConfig
@@ -856,8 +938,10 @@ def phase_timing(rng, dev, xs, decrypt_rows: int) -> tuple[dict, dict]:
                      "bytes_ms": bytes_ms, "operations_ms": ops_ms,
                      "library_ms": None}
     del agg, copies, acc
-    mm = time_mont_mul(rng, dev, [(decrypt_rows, 128), (1056, 128)])
-    out["mont_mul"] = mm[f"{decrypt_rows}x128"]
+    rows, nbits = decrypt
+    mm = time_mont_mul(rng, dev, [(rows, 128), (1056, 128)])
+    out["mont_mul"] = mm[f"{rows}x128"]
+    out["mont_exp"] = time_mont_exp(rng, dev, rows, 128, nbits)
     out["flash_attention"] = time_flash(rng, dev)
     out["ssd"] = time_ssd(rng, dev)
     return {"phase": "timing", "shapes": {"rows": B, "T": T, "r": r},
@@ -932,6 +1016,64 @@ def time_mont_mul(rng, dev, shapes) -> dict:
             "bytes": nbytes, "int_ops": int_ops, "bytes_ms": bytes_ms,
             "operations_ms": ops_ms, "library_ms": None}
     return out
+
+
+def mont_exp_work(rows: int, L: int, nbits: int) -> tuple[int, int]:
+    """(bytes, 32-bit integer instructions) the ladder needs for ``rows``
+    rows of L limbs and nbits exponent bits: the bases, the output, n,
+    R mod n and the bits once each; per row and bit two products on s =
+    L / 2 digits of s (10 s + 5) + 12 s instructions each (per digit and
+    step two low and two high products and the 64-bit adds of the slots;
+    m and the fold; the lookahead tail) and one select a digit."""
+    s = L // 2
+    product = s * (10 * s + 5) + 12 * s
+    return (4 * (2 * rows * L + 2 * L + rows * nbits),
+            rows * nbits * (2 * product + s))
+
+
+def time_mont_exp(rng, dev, rows: int, L: int, nbits: int) -> dict:
+    """The one-launch ladder at the decryption's shape, beside the host
+    loop of two ``mont_mul`` launches a bit that it replaced (in turns:
+    ladder, loop, loop, ladder) and its plain version, timed once and
+    held equal to it."""
+    from repro_torch.kernels.modmul import ops as mm
+    n = _rand_below(rng, 1 << (16 * L - 1)) | (1 << (16 * L - 2)) | 1
+    xs = [_rand_below(rng, n) for _ in range(rows)]
+    exps = [_rand_below(rng, 1 << nbits) | 1 << (nbits - 1)
+            for _ in range(rows)]
+    mp, a, bits, one = _ladder_inputs(n, L, xs, exps, dev)
+    nl = torch.from_numpy(mp["n_limbs"].astype(np.int32)).to(dev)
+
+    def ladder():
+        return mm.mont_exp_op(a, bits, mp["n_limbs"], mp["n0inv"], one)
+
+    def loop():
+        return mm.mont_exp_loop(a, bits, nl, mp["n0inv"], one)
+
+    ladder_ms, loop_ms = [cuda_ms(ladder, reps=3)], [cuda_ms(loop, reps=1)]
+    loop_ms.append(cuda_ms(loop, reps=1))
+    ladder_ms.append(cuda_ms(ladder, reps=3))
+    got = ladder()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = mm.mont_exp_op(a, bits, mp["n_limbs"], mp["n0inv"], one,
+                          impl="torch")
+    end.record()
+    end.synchronize()
+    check(torch.equal(got, want), "mont_exp at the decryption's shape "
+          "equals the plain ladder")
+    nbytes, int_ops = mont_exp_work(rows, L, nbits)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = int_ops / INT32_OPS_PER_S * 1e3
+    ms = statistics.median(ladder_ms)
+    return {"ms": ms, "ladder_ms": ladder_ms, "loop_ms": loop_ms,
+            "plain_ms": start.elapsed_time(end), "rows": rows, "L": L,
+            "nbits": nbits, "us_per_product": ms * 1e3 / (2 * nbits),
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes": nbytes, "int_ops": int_ops, "bytes_ms": bytes_ms,
+            "operations_ms": ops_ms, "library_ms": None}
 
 
 def bound(nbytes: float, flops: float, flops_per_s: float) -> dict:
@@ -1078,17 +1220,18 @@ def main() -> int:
         emit(line)
     if "batched" in phases:
         emit(phase_batched(rng, dev))
-    decrypt_rows = N_DECRYPT
+    decrypt = (N_DECRYPT, DECRYPT_BITS)
     if "paillier" in phases:
-        line, da_launches, decrypt_rows = phase_paillier(dev)
-        launches["mont_mul"] = da_launches["mont_mul"]
+        line, da_launches, decrypt = phase_paillier(dev)
+        for k in backend.MODMUL:
+            launches[k.name] = da_launches[k.name]
         emit(line)
     if "serve" in phases:
         line, serve_launches = phase_serve(dev, args.seed)
         launches.update(serve_launches)
         emit(line)
     if "timing" in phases:
-        line, timing = phase_timing(rng, dev, xs, decrypt_rows)
+        line, timing = phase_timing(rng, dev, xs, decrypt)
         emit(line)
 
     kernels = []

@@ -45,15 +45,20 @@ def montgomery_params(n: int, L: int) -> dict:
     R = 1 << (LIMB_BITS * L)
     if n % 2 != 1 or n >= R:
         raise ValueError("the modulus must be odd and below R = 2^(16 L)")
-    n0inv = (-pow(n, -1, 1 << LIMB_BITS)) % (1 << LIMB_BITS)
     return {
         "n": n,
         "L": L,
         "R": R,
         "n_limbs": to_limbs(n, L),
-        "n0inv": np.uint32(n0inv),
+        "n0inv": np.uint32(n0inv_digit(n, LIMB_BITS)),
         "R2": R * R % n,          # to enter the Montgomery domain
     }
+
+
+def n0inv_digit(n: int, bits: int) -> int:
+    """-n^-1 mod 2^bits for an odd n: CIOS's per-digit constant (16 for
+    the limbs, 32 for the ladder kernel's digits)."""
+    return (-pow(n, -1, 1 << bits)) % (1 << bits)
 
 
 def to_mont(x: int, mp: dict) -> int:

@@ -98,14 +98,18 @@ class Kernel:
     """Launch counter of one CUDA kernel.  ``replaces`` is the file:line of
     the TPU kernel it ports; ``row_form``, where the TPU kernel has a
     single-row form beside its batched one, that form's file:line (the
-    port runs it as the batched kernel with B = 1)."""
+    port runs it as the batched kernel with B = 1); ``loop``, where the
+    kernel also runs the reference's host-side loop around the TPU kernel,
+    that loop's file:line."""
 
     def __init__(self, name: str, source: str, replaces: str,
-                 row_form: Optional[str] = None):
+                 row_form: Optional[str] = None,
+                 loop: Optional[str] = None):
         self.name = name
         self.source = source
         self.replaces = replaces
         self.row_form = row_form
+        self.loop = loop
         self.launches = 0
 
 
@@ -115,8 +119,12 @@ MASK = Kernel("mask_encrypt", _SA_SRC, f"{_SA_REF}:272", f"{_SA_REF}:152")
 UNMASK = Kernel("unmask_decrypt", _SA_SRC, f"{_SA_REF}:324",
                 f"{_SA_REF}:208")
 VOTE = Kernel("vote_combine", _SA_SRC, f"{_SA_REF}:388")
-MONT_MUL = Kernel("mont_mul", "src/repro_torch/csrc/modmul.cu",
+_MM_SRC = "src/repro_torch/csrc/modmul.cu"
+MONT_MUL = Kernel("mont_mul", _MM_SRC,
                   "src/repro/kernels/modmul/modmul.py:95")
+MONT_EXP = Kernel("mont_exp", _MM_SRC,
+                  "src/repro/kernels/modmul/modmul.py:95",
+                  loop="src/repro/kernels/modmul/ops.py:23")
 FLASH_ATTENTION = Kernel(
     "flash_attention", "src/repro_torch/csrc/flash_attention.cu",
     "src/repro/kernels/flash_attention/flash_attention.py:69")
@@ -124,7 +132,8 @@ SSD = Kernel("ssd", "src/repro_torch/csrc/ssd.cu",
              "src/repro/kernels/ssd/ssd.py:74")
 SECURE_AGG = (MASK, UNMASK, VOTE)     # the secure allreduce's kernels
 MODEL = (FLASH_ATTENTION, SSD)        # the model stack's prefill kernels
-KERNELS = (*SECURE_AGG, MONT_MUL, *MODEL)
+MODMUL = (MONT_MUL, MONT_EXP)        # threshold decryption's kernels
+KERNELS = (*SECURE_AGG, *MODMUL, *MODEL)
 
 
 def launch_counts() -> dict:

@@ -37,6 +37,9 @@ _SIGNATURES = {
                           ctypes.c_float, ctypes.c_int, _P),
     "sa_vote_combine": (ctypes.POINTER(_P), ctypes.c_int, _P, _P, _I64, _P),
     "mm_mont_mul": (_P, _P, _P, ctypes.c_uint32, _P, _I64, ctypes.c_int, _P),
+    # base, bits, n, n0inv, one, out, batch, L, nbits, stream
+    "mm_mont_exp": (_P, _P, _P, ctypes.c_uint32, _P, _P, _I64, ctypes.c_int,
+                    ctypes.c_int, _P),
     # q, k, v, o, B, H, K, Sq, Skv, hd, causal, window, scale, is_bf16,
     # stream
     "fa_flash_attention": (_P, _P, _P, _P, ctypes.c_int, ctypes.c_int,

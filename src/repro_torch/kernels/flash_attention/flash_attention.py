@@ -3,9 +3,10 @@
 Counterpart of ``repro/kernels/flash_attention/flash_attention.py`` (the
 Pallas kernel and its ``ops.flash_attention_op``), with its public
 layout: q ``(B, Sq, H, hd)``, k and v ``(B, Skv, K, hd)``, query head h
-reading kv head ``h // (H // K)``.  A CUDA tensor launches the
-hand-written kernel (``csrc/flash_attention.cu``); a CPU tensor, or an
-explicit ``impl="torch"``, runs the plain version (``ref.attention_ref``).
+reading kv head ``h // (H // K)``.  A CUDA tensor launches a
+hand-written kernel (``csrc/flash_attention.cu``: bf16 on the tensor
+cores, float32 on the CUDA cores); a CPU tensor, or an explicit
+``impl="torch"``, runs the plain version (``ref.attention_ref``).
 Unlike the Pallas wrapper, any Sq and Skv are taken: the kernel masks the
 ragged edge of its tiles itself.
 """

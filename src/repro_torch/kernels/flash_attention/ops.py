@@ -1,4 +1,6 @@
-"""Launch of the CUDA flash attention kernel (``csrc/flash_attention.cu``).
+"""Launch of the CUDA flash attention kernels (``csrc/flash_attention.cu``):
+bf16 inputs run the tensor-core kernel (wgmma, tiles by TMA), float32
+inputs the CUDA-core kernel.
 
 The wrapper checks device, dtype, shape and contiguity, allocates the
 output with ``torch.empty``, launches on the current stream, raises on a
@@ -22,8 +24,10 @@ _REFUSED = {1001: "head_dim is not one of the kernel's instantiations "
                   f"{HEAD_DIMS}",
             1002: "n_heads is not a multiple of n_kv_heads",
             1003: "the grid does not fit (B * H or the query tiles)",
-            1004: "a pointer is not 16-byte aligned (the kernel reads "
-                  "16-byte vectors)"}
+            1004: "a pointer is not 16-byte aligned (the kernels read "
+                  "16-byte vectors and TMA boxes)",
+            1005: "the driver offers no cuTensorMapEncodeTiled",
+            1006: "cuTensorMapEncodeTiled refused a tensor map"}
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -4,7 +4,9 @@ The functions under ``src/repro/kernels/`` that reach ``pl.pallas_call``
 are found by reading the source text (the port never imports the JAX
 package).  Each must be named, as ``file:line`` of its ``def``, by the
 ``replaces`` field of one kernel in ``repro_torch.kernels.backend.KERNELS``
-or by its ``row_form`` (a single-row form the port runs as B = 1).
+or by its ``row_form`` (a single-row form the port runs as B = 1); one
+site may have more than one port (a kernel and a kernel that runs the
+reference's loop around it, ``loop``).
 """
 import ast
 import pathlib
@@ -50,3 +52,23 @@ def test_every_port_names_a_pallas_kernel_and_its_source(kernel):
     assert kernel.replaces in sites
     assert kernel.row_form is None or kernel.row_form in sites
     assert (ROOT / kernel.source).is_file()
+
+
+@pytest.mark.parametrize("kernel", [k for k in backend.KERNELS if k.loop],
+                         ids=lambda k: k.name)
+def test_a_kernel_that_runs_a_reference_loop_names_it(kernel):
+    """A kernel that also runs the reference's host-side loop around a
+    TPU kernel (the Montgomery ladder around ``mont_mul``) names that
+    loop's ``def`` by file:line, beside the TPU kernel it replaces."""
+    path, line = kernel.loop.rsplit(":", 1)
+    text = (ROOT / path).read_text().splitlines()[int(line) - 1]
+    assert text.startswith("def "), text
+    assert kernel.replaces in pallas_sites()
+
+
+def test_two_ports_may_share_one_pallas_site():
+    """``mont_mul`` and the ladder ``mont_exp`` both replace modmul.py's
+    ``mont_mul``: one product, and the whole loop of products."""
+    site = backend.MONT_MUL.replaces
+    assert backend.MONT_EXP.replaces == site
+    assert backend.MONT_EXP.loop == "src/repro/kernels/modmul/ops.py:23"
