@@ -12,7 +12,8 @@ with a non-zero exit code:
            bit for bit, over lengths, modes, counter offsets near 2^32
            and vote copies with and without a majority; the Montgomery
            multiply at L in {8, 32, 128, 256} limbs and 1..1024 rows with
-           edge operands (some also against Python ints), and
+           edge operands (some also against Python ints), at odd L of
+           513 and 1021 (past the ladder's 511) in batches 1 and 7, and
            ``modexp_ints`` against ``pow`` at L = 128; the one-launch
            ladder ``mont_exp`` against the plain ladder and ``pow`` at L
            in {8, 32, 128, 256} and an odd L in batches 1, 7, 58, and at
@@ -21,9 +22,10 @@ with a non-zero exit code:
            attention in float32 (the CUDA-core kernel) and bf16 (the
            tensor-core kernel) (GQA groups 1, 2, 8, causal or not, window
            128, Sq = Skv in {77, 512, 2048}, Sq != Skv, qwen3's prefill
-           shape) and the SSD scan (the kernel tests' shapes, a ragged S,
-           mamba2's prefill shape with B and C shared) within
-           FLASH_TOL / SSD_TOL of their plain versions
+           shape) and the SSD scan (the kernel tests' shapes, S ragged
+           against the kernel's 256-row chunk and S below one chunk, N
+           in {8, 13, 128}, mamba2's prefill shape with B and C shared)
+           within FLASH_TOL / SSD_TOL of their plain versions
   main     the secure allreduce at full width -- n = 64 nodes, clusters
            of 4, ring schedule, r = 3, global masking, T = 2^22 float32
            per node -- through ``SecureAggregator.allreduce`` on the card:
@@ -92,6 +94,9 @@ LANE_OPS_PER_S = 67e12 / 2
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 F32_FLOPS_PER_S = 67e12       # float32 FMA outside the tensor cores
 BF16_FLOPS_PER_S = 989e12     # dense bf16 on the tensor cores
+# float32 products on the tensor cores in 3xTF32: three TF32 products
+# (495 TFLOP/s dense) for each float32 one
+F32_3XTF32_FLOPS_PER_S = 495e12 / 3
 N_MAIN, C_MAIN, T_MAIN = 64, 4, 1 << 22
 SPLITMIX_OPS = 9              # add, 3 shifts, 3 xors, 2 multiplies
 PAD_OPS = SPLITMIX_OPS + 2    # ctr ^ k1, then + k2
@@ -132,8 +137,9 @@ SERVE_KERNEL = {"qwen3-1.7b": "flash_attention", "mamba2-370m": "ssd"}
 # -- both compute in float32, but the kernel's online softmax rescales its
 # sums once per kv tile (up to 32 at S = 2048) and adds in another order
 # than cuBLAS; 2e-2 in bf16, one bf16 rounding of the output (the kernel
-# tests' tolerance).  SSD: the kernel tests' 5e-4 / 1e-3 (chunks of 64 in
-# the kernel, of 128 or 256 in the plain version: other sums, in float32).
+# tests' tolerance).  SSD: the kernel tests' 5e-4 / 1e-3 (chunks of 256
+# in the kernel, of the caller's chunk in the plain version, products in
+# 3xTF32 on the tensor cores: other sums, at float32 accuracy).
 FLASH_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 SSD_TOL = (5e-4, 1e-3)
 # the full-width float32 prefill: last-position logits (of unit scale)
@@ -362,9 +368,14 @@ def _check_ssd(rng, dev, errs: dict) -> int:
                   f"ssd {what} {part}: max err {max_abs_err(g, w)}")
         checks += 1
 
+    # the kernel tests' shapes; then S ragged against the kernel's chunk of
+    # 256 (over two and three chunks) and below one chunk, N in {8, 13,
+    # 128} (13: rows of B and C off 16-byte boundaries)
     for BH, S, P, N, chunk in ((4, 256, 64, 32, 64), (2, 128, 32, 16, 128),
                                (8, 512, 64, 64, 128), (1, 64, 16, 8, 32),
-                               (3, 77, 64, 128, 64), (2, 200, 16, 128, 128)):
+                               (3, 77, 64, 128, 64), (2, 200, 16, 128, 128),
+                               (2, 520, 32, 8, 128), (3, 700, 64, 128, 128),
+                               (2, 40, 64, 8, 32), (2, 300, 16, 13, 100)):
         args = _ssd_inputs(rng, dev, BH, S, P, N=N, per_head=True)
         got = ssd(*args, chunk=chunk)
         hold(got, ssd(*args, chunk=chunk, impl="torch"),
@@ -372,6 +383,7 @@ def _check_ssd(rng, dev, errs: dict) -> int:
         if S <= 512:
             hold(got, ssd_ref(*args), f"BH={BH} S={S} vs sequential")
     for Bsz, S, H, P, N in ((2, 200, 4, 64, 128), (2, 77, 8, 32, 64),
+                            (2, 600, 8, 64, 8), (1, 300, 4, 16, 13),
                             (4, 2048, 32, 64, 128)):
         args = _ssd_inputs(rng, dev, Bsz, S, H, P, N=N, per_head=False)
         chunk = min(256, S)
@@ -418,6 +430,26 @@ def _check_mont_mul(rng, dev, errs: dict) -> int:
                                      truth.astype(np.int32)),
                       f"mont_mul L={L} batch={batch} against Python ints")
                 checks += 1
+    # odd L past the ladder's 511: 16-bit digits, 32 a lane
+    for L in (513, 1021):
+        n = _rand_below(rng, 1 << (16 * L - 3)) | (1 << (16 * L - 4)) | 1
+        mp = montgomery_params(n, L)
+        nl = torch.from_numpy(mp["n_limbs"].astype(np.int32)).to(dev)
+        for batch in (1, 7):
+            av = [0, n - 1, mp["R"] % n][:batch] + [
+                _rand_below(rng, n) for _ in range(batch - min(batch, 3))]
+            bv = [_rand_below(rng, n) for _ in range(batch)]
+            limbs = batch_to_limbs(av + bv, L)
+            a = torch.from_numpy(limbs[:batch].astype(np.int32)).to(dev)
+            b = torch.from_numpy(limbs[batch:].astype(np.int32)).to(dev)
+            got = mm.mont_mul_op(a, b, nl, mp["n0inv"])
+            want = mm.mont_mul_op(a, b, nl, mp["n0inv"], impl="torch")
+            errs["mont_mul"] = max(errs["mont_mul"], max_abs_err(got, want))
+            check(torch.equal(got, want), f"mont_mul L={L} batch={batch}")
+            truth = mont_mul_int(limbs[:batch], limbs[batch:], n, L)
+            check(np.array_equal(got.cpu().numpy(), truth.astype(np.int32)),
+                  f"mont_mul L={L} batch={batch} against Python ints")
+            checks += 2
     # modexp at the decryption's width: n^2 of 2048 bits, L = 128
     n = _rand_below(rng, 1 << 2047) | (1 << 2047) | 1
     L = limbs_needed(n)
@@ -851,7 +883,7 @@ def _profile_serve(cfg, params, tokens, max_seq: int, prompt: int) -> dict:
     def prefill():
         holder["out"] = M.prefill(cfg, params, {"tokens": tokens}, max_seq)
 
-    out = {"prefill": profile_device(prefill)}
+    out = {"prefill": profile_device(prefill, ("ssd_", "flash_"))}
     logits, cache = holder.pop("out")
     nxt = torch.argmax(logits[:, -1, :cfg.vocab_size], -1)[:, None]
 
@@ -943,7 +975,12 @@ def phase_timing(rng, dev, xs, decrypt: tuple[int, int]
     out["mont_mul"] = mm[f"{rows}x128"]
     out["mont_exp"] = time_mont_exp(rng, dev, rows, 128, nbits)
     out["flash_attention"] = time_flash(rng, dev)
-    out["ssd"] = time_ssd(rng, dev)
+    from repro_torch.kernels.ssd.ops import CHUNK
+    Bsz, S, H, P, N = SERVE_BATCH, SERVE_PROMPT, 32, 64, 128
+    # the chunk states, written, read and rewritten, read again
+    out["ssd"] = {**time_ssd(rng, dev), "kernel_chunk": CHUNK,
+                  "scratch_state_bytes": 4 * Bsz * H * (-(-S // CHUNK))
+                  * P * N}
     return {"phase": "timing", "shapes": {"rows": B, "T": T, "r": r},
             "kernels": out, "mont_mul": mm,
             "allreduce": _time_allreduce(xs, dev),
@@ -977,15 +1014,20 @@ def device_ms(fn, reps: int, inner: int) -> float:
     return statistics.median(times)
 
 
+def product_ops(L: int) -> int:
+    """32-bit integer instructions of one Montgomery product on s digits
+    (s = L / 2 32-bit digits, or L 16-bit ones for an odd L): s (10 s + 5)
+    + 12 s -- per digit and step two low and two high products and the
+    64-bit adds of the slots; m and the fold; the lookahead tail."""
+    s = L // 2 if L % 2 == 0 else L
+    return s * (10 * s + 5) + 12 * s
+
+
 def mont_mul_work(rows: int, L: int) -> tuple[int, int]:
     """(bytes, 32-bit integer instructions) one Montgomery product of
     ``rows`` rows of L limbs needs: a, b and the output once each and n;
-    per step 8 L + 5 (per limb two products, a mask and a shift of each,
-    and the four adds into T as two three-input IADD3; m; the fold), 3 per
-    slot of the carry pass, 4 per limb of the borrow pass and one select
-    per limb."""
-    return (4 * (3 * rows * L + L),
-            rows * (L * (8 * L + 5) + 3 * (L + 2) + 5 * L))
+    one product on the kernel's digits a row."""
+    return 4 * (3 * rows * L + L), rows * product_ops(L)
 
 
 def time_mont_mul(rng, dev, shapes) -> dict:
@@ -1025,10 +1067,8 @@ def mont_exp_work(rows: int, L: int, nbits: int) -> tuple[int, int]:
     L / 2 digits of s (10 s + 5) + 12 s instructions each (per digit and
     step two low and two high products and the 64-bit adds of the slots;
     m and the fold; the lookahead tail) and one select a digit."""
-    s = L // 2
-    product = s * (10 * s + 5) + 12 * s
     return (4 * (2 * rows * L + 2 * L + rows * nbits),
-            rows * nbits * (2 * product + s))
+            rows * nbits * (2 * product_ops(L) + L // 2))
 
 
 def time_mont_exp(rng, dev, rows: int, L: int, nbits: int) -> dict:
@@ -1118,29 +1158,67 @@ def time_flash(rng, dev) -> dict:
                                                 BF16_FLOPS_PER_S)}
 
 
-def ssd_flops(Bsz: int, S: int, H: int, P: int, N: int, Q: int = 64) -> int:
-    """FLOPs of the kernel's chunked scan (chunks of Q, S padded to a
-    multiple): per row the lower triangles of C B^T and of (L o C B^T)(x dt)
-    and the state's two products, C state^T and (x dt)^T B."""
-    Sp = -(-S // Q) * Q
-    per_row = Sp * (Q + 1) // 2 * (N + P) + 2 * Sp * N * P
-    return 2 * Bsz * H * per_row
+def ssd_flops_at(Bsz: int, S: int, H: int, P: int, N: int, Q: int) -> int:
+    """FLOPs of the split scan in chunks of Q (S padded to a multiple):
+    the lower triangle of C B^T once per batch row and chunk, shared by
+    its H heads; per head the lower triangle of (L o C B^T)(x dt), the
+    state's two products, C state^T and (x dt)^T B, and the state
+    passing's multiply-add per state element and chunk boundary."""
+    nc = -(-S // Q)
+    Sp = nc * Q
+    tri = Sp * (Q + 1) // 2
+    return 2 * (Bsz * tri * N
+                + Bsz * H * (tri * P + 2 * Sp * N * P + (nc - 1) * P * N))
+
+
+def ssd_flops(Bsz: int, S: int, H: int, P: int, N: int) -> tuple[int, int]:
+    """The least FLOPs the scan needs at these shapes, over every chunk
+    length Q (the work depends on Q, the result does not), and that Q."""
+    return min((ssd_flops_at(Bsz, S, H, P, N, Q), Q) for Q in range(1, S + 1))
 
 
 def time_ssd(rng, dev) -> dict:
     """``ssd_chunked`` at mamba2-370m's prefill (B 4, S 2048, 32 heads of
-    P = 64, N = 128, B and C shared by the heads) and its plain version."""
+    P = 64, N = 128, B and C shared by the heads) and its plain version.
+    ``ms`` is the CUDA-event median of single calls, the host's enqueueing
+    of the wrapper's launches and scratch included; ``queued_ms`` the
+    device time of one of 20 calls queued back to back; ``by_kernel_ms``
+    each kernel's mean device time a launch, and its launches seen, in a
+    profiled run of 200 calls (late in a long process the profiler can
+    drop a window's first launches, so means, not sums), and
+    ``kernels_ms`` their sum, one call's device time.  The bound is the
+    least work over every chunking at the rate of the unit the kernel
+    runs on (3xTF32 on the tensor cores), with the float32 CUDA-core
+    rate's beside it."""
     from repro_torch.kernels.ssd import ssd_chunked
     Bsz, S, H, P, N = SERVE_BATCH, SERVE_PROMPT, 32, 64, 128
     args = _ssd_inputs(rng, dev, Bsz, S, H, P, N=N, per_head=False)
-    kernel_ms = cuda_ms(lambda: ssd_chunked(*args, 256), reps=10)
+
+    def call():
+        return ssd_chunked(*args, 256)
+
+    kernel_ms = cuda_ms(call, reps=10)
+    queued_ms = device_ms(call, reps=5, inner=20)
+    def calls():
+        for _ in range(200):
+            call()
+
+    prof = profile_device(calls)
+    by_kernel = [(name, ms / n, n) for name, ms, n in prof["by_kernel_ms"]]
     plain_ms = cuda_ms(lambda: ssd_chunked(*args, 256, impl="torch"), reps=3)
     # x and y, dt, A, B and C once each, the final state written once
     nbytes = 4 * (2 * Bsz * S * H * P + Bsz * S * H + H + 2 * Bsz * S * N
                   + Bsz * H * P * N)
-    return {"ms": kernel_ms, "plain_ms": plain_ms, "library_ms": None,
-            "shape": [Bsz, S, H, P, N], "kernel_chunk": 64,
-            **bound(nbytes, ssd_flops(Bsz, S, H, P, N), F32_FLOPS_PER_S)}
+    flops, least_q = ssd_flops(Bsz, S, H, P, N)
+    f32 = bound(nbytes, flops, F32_FLOPS_PER_S)
+    return {"ms": kernel_ms, "queued_ms": queued_ms,
+            "by_kernel_ms": by_kernel,
+            "kernels_ms": sum(ms for _, ms, _ in by_kernel),
+            "plain_ms": plain_ms, "library_ms": None,
+            "shape": [Bsz, S, H, P, N], "unit": "tensor cores, 3xTF32",
+            "bound_chunk": least_q,
+            **bound(nbytes, flops, F32_3XTF32_FLOPS_PER_S),
+            "bound_f32_ms": f32["bound_ms"], "bound_f32_by": f32["bound_by"]}
 
 
 def _time_allreduce(xs, dev) -> dict:
@@ -1154,9 +1232,10 @@ def _time_allreduce(xs, dev) -> dict:
             **profile_device(lambda: agg.allreduce(xs))}
 
 
-def profile_device(fn) -> dict:
+def profile_device(fn, parts: tuple = ()) -> dict:
     """One profiled call of ``fn``: its wall time, device time by kernel
-    name and the device's busy share."""
+    name, the device's busy share, and for each of ``parts`` the device
+    time and launches of the kernels whose names contain it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1178,7 +1257,10 @@ def profile_device(fn) -> dict:
     busy_ms = sum(r[1] for r in rows)
     return {"profiled_wall_s": wall, "device_busy_ms": busy_ms,
             "device_busy_share": busy_ms / (wall * 1e3),
-            "by_kernel_ms": rows[:12]}
+            "by_kernel_ms": rows[:12],
+            "by_part": {p: {"ms": sum(r[1] for r in rows if p in r[0]),
+                            "launches": sum(r[2] for r in rows if p in r[0])}
+                        for p in parts}}
 
 
 def main() -> int:

@@ -1,0 +1,94 @@
+"""A/B timing of the port's SSD scan and Montgomery multiply across
+source trees, on one GPU, in turns.
+
+    python3 kernel_ab.py --tree parent=<checkout> --tree change=. \
+        --order parent,change,change,parent [--out build/ab.json]
+
+Each turn starts one Python process whose import path holds that tree's
+``src/`` first; the process builds that tree's kernels (into the tree's
+own ``build/``) and times them with this checkout's ``chip_smoke.py``
+timing functions, so every tree gets one method and one input set:
+``time_ssd`` (``ssd_chunked`` at mamba2-370m's prefill) and
+``time_mont_mul`` (``mont_mul_op`` at a threshold decryption's 58 rows x
+128 limbs).  The inputs come from one seed and are the same in every
+turn.  Prints one JSON line a turn, then the card's name and power limit
+as ``nvidia-smi`` gives them, and exits non-zero without a card.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import pathlib
+import subprocess
+import sys
+
+CHILD = r'''
+import json, pathlib, sys, time
+import numpy as np
+import torch
+here, src = sys.argv[1], sys.argv[2]
+sys.path.insert(0, here)
+import chip_smoke                      # puts this checkout's src/ first
+sys.path.insert(0, src)
+import repro_torch
+from repro_torch.kernels import build
+assert pathlib.Path(repro_torch.__file__).is_relative_to(src), \
+    repro_torch.__file__
+dev = torch.device("cuda", 0)
+t0 = time.perf_counter()
+build.lib()
+build_s = time.perf_counter() - t0
+ssd = chip_smoke.time_ssd(np.random.default_rng(0), dev)
+mont = chip_smoke.time_mont_mul(np.random.default_rng(0), dev, [(58, 128)])
+print(json.dumps({"build_s": build_s, "ssd": ssd,
+                  "mont_mul": mont["58x128"]}))
+'''
+
+
+def smi_line() -> str:
+    proc = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvidia-smi: {proc.stderr.strip()}")
+    return proc.stdout.strip().splitlines()[0]
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--tree", action="append", required=True,
+                    help="name=path of a checkout (repeatable)")
+    ap.add_argument("--order", required=True,
+                    help="comma-separated tree names, one turn each")
+    ap.add_argument("--out", default=None, help="also write the turns here")
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("no CUDA device: this timing needs a GPU", file=sys.stderr)
+        return 1
+    trees = dict(t.split("=", 1) for t in args.tree)
+    here = pathlib.Path(__file__).resolve().parent
+    turns = []
+    for name in args.order.split(","):
+        root = pathlib.Path(trees[name]).resolve()
+        proc = subprocess.run([sys.executable, "-c", CHILD, str(here),
+                               str(root / "src")], cwd=root,
+                              capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            print(proc.stdout, proc.stderr, file=sys.stderr)
+            return proc.returncode
+        turn = {"tree": name, **json.loads(proc.stdout.strip()
+                                            .splitlines()[-1])}
+        turns.append(turn)
+        print(json.dumps(turn), flush=True)
+    smi = smi_line()
+    if args.out:
+        pathlib.Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        pathlib.Path(args.out).write_text(json.dumps(
+            {"turns": turns, "nvidia_smi": smi}, indent=1))
+    print(smi)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -3,77 +3,66 @@
 //
 //   mm_mont_mul  <- mont_mul / _kernel / _mont_mul_block of
 //                   src/repro/kernels/modmul/modmul.py:95
-//
-// out = a * b * R^-1 mod n for each row of (batch, L) operands of 16-bit
-// limbs held in uint32, R = 2^(16 L): the lazy-carry CIOS of the reference,
-// bit for bit.  The TPU kernel vectorises over a (128-row, L) VMEM block,
-// one multiplication per lane.  Here one thread block takes one row and
-// one thread takes one of the L + 2 slots of the accumulator T, kept in a
-// register.  At outer step i thread j adds lo(a_i b_j) + hi(a_i b_{j-1}),
-// so it is the only writer of its slot: no races and no atomics.  Slot 0
-// gives m = (T_0 & 0xffff) * n0inv & 0xffff to every thread through shared
-// memory; thread j adds lo(m n_j) + hi(m n_{j-1}); the one-limb shift goes
-// through shared memory, with T_0 >> 16 folded into the new slot 0.  Two
-// barriers per step.  After the L steps one thread runs the reference's
-// two serial passes: the carry pass over the L + 2 slots, then the borrow
-// pass of the conditional subtract, keeping its rule exactly (`over` is
-// slot L only; ge_n = borrow == 0 || over > 0).  All sums are exact (a
-// step adds less than 2^18 to a slot, which lives at most L + 1 steps, so
-// no slot reaches 2^29 for L <= 1022), so the order of the additions
-// changes no slot and the output equals the plain version bit for bit.
-//
-// Bound on an H100 SXM: about 8 L^2 32-bit integer instructions per row
-// (per limb and step two products, a mask and a shift of each, and the
-// four adds into T as two three-input IADD3), 131k at L = 128; at the ~58
-// rows of a threshold decryption that is 7.7e6, 0.46 us at the 16.7 T/s
-// int32 rate, and the bytes (3 x 4 B x L per row) are smaller still.
-// So at the path's shape the kernel is bound by its L-step dependency
-// chain (two barriers a step) and by launches, not by throughput.
-//
 //   mm_mont_exp  <- the square-and-multiply ladder of
 //                   src/repro/kernels/modmul/ops.py:23 (mont_exp_op, a
 //                   fori_loop over the Pallas mont_mul of modmul.py:95)
 //
-// The whole ladder in one launch: acc = one_mont; for every exponent bit,
-// sq = acc * acc, mul = sq * base, acc = bit ? mul : sq, all in the
-// Montgomery domain.  The exponents of a threshold decryption are
-// 2 Delta s_i, s_i a key share, so they are secret: every bit squares,
-// multiplies and selects by a mask, with no branch and the same memory
-// accesses whatever the bit, so the kernel's time does not depend on the
-// exponent's bits (only on its length, which is public).
+// Both rest on one Montgomery product, out = a * b * R^-1 mod n for
+// operands of L 16-bit limbs held in uint32, R = 2^(16 L), every operand
+// below n.  The TPU kernel vectorises the reference's lazy-carry CIOS
+// over a (128-row, L) VMEM block, one multiplication per lane.
 //
-// One warp per row, no __syncthreads.  Inside the kernel the digits are
-// 32 bits wide (s = L / 2 digits, products by IMAD and IMAD.HI) when L is
-// even: R = 2^(16 L) = 2^(32 s) is then the same number, and since every
-// operand is below n each product is the canonical residue, so the result
-// equals the 16-bit plain version bit for bit.  An odd L runs the same
-// kernel on 16-bit digits.  The 16-bit limbs of crypto/limb.py are the
-// interface: the kernel packs them on entry and unpacks on exit.  Lane l
-// holds digits l W .. l W + W - 1 (W = 1..16, the least power of two with
-// 32 W >= s) as 64-bit lazy slots; the base and n stay in registers for
-// all the bits, the multiplier's digits go through shared memory, read
-// one a step by every lane (a broadcast).  A CIOS step: lane 0's slot 0
-// gives m, which one shuffle spreads; every digit j adds lo(a_i b_j) +
-// lo(m n_j) to its slot and hands hi(a_i b_j) + hi(m n_j) to slot j + 1,
-// and the one-digit shift is one 64-bit shuffle between neighbouring
-// lanes.  The tail is a carry-lookahead, not a serial pass: each slot's
-// excess over its digit moves one place up, leaving carries of one bit;
-// each lane folds its W digits into a generate and a propagate bit, two
+// The product (mont_product) takes one warp per row, no __syncthreads.
+// Inside it the digits are 32 bits wide (s = L / 2 digits, products by
+// IMAD and IMAD.HI) when L is even: R = 2^(16 L) = 2^(32 s) is then the
+// same number, and since every operand is below n each product is the
+// canonical residue, so the result equals the 16-bit plain version bit
+// for bit.  An odd L runs the same code on 16-bit digits.  The 16-bit
+// limbs of crypto/limb.py are the interface: the kernels pack them on
+// entry and unpack on exit.  Lane l holds digits l W .. l W + W - 1 (W =
+// 1..32, the least power of two with 32 W >= s) as 64-bit lazy slots; b
+// and n stay in registers, a's digits go through shared memory, read one
+// a step by every lane (a broadcast).  A CIOS step: lane 0's slot 0 gives
+// m, which one shuffle spreads; every digit j adds lo(a_i b_j) + lo(m n_j)
+// to its slot and hands hi(a_i b_j) + hi(m n_j) to slot j + 1, and the
+// one-digit shift is one 64-bit shuffle between neighbouring lanes.  The
+// tail is a carry-lookahead, not a serial pass: each slot's excess over
+// its digit moves one place up, leaving carries of one bit; each lane
+// folds its W digits into a generate and a propagate bit, two
 // __ballot_sync make 32-bit masks, and ((G | P) + G) ^ P gives every
 // lane's carry-in at once; the conditional subtract resolves its borrows
 // the same way.  The rule is the reference's: subtract when the
 // difference does not borrow or the digits at and above position s (the
-// reference's slot L) are not all zero.  The exit multiply by plain 1
-// stays a launch of mm_mont_mul (ops.modexp_ints), so a decryption makes
-// one mm_mont_exp and one mm_mont_mul launch.
+// reference's slot L) are not all zero.
 //
-// Bound: per row and product s (10 s + 5) + 12 s 32-bit instructions
-// (per digit and step two low and two high products and the 64-bit adds
-// of the slots; m and the fold; the tail), 2 nbits products; at the
-// decryption's 58 rows x 128 limbs x 2,372 bits that is 1.2e10, 0.69 ms
-// at the int32 rate.  The ladder is a chain of 2 nbits s dependent
-// steps, each a shared load, two shuffles and a multiply chain, so it is
-// bound by latency, ~58 of 132 SMs each holding one warp.
+// mm_mont_mul is one call of the product a row.  It takes every L of
+// 1..1022: W up to 16 serves even L up to 1022 and odd L up to 511, and
+// W = 32, for odd L up to 1021, is instantiated for it alone.  It keeps
+// the plain version's n0inv = -n^-1 mod 2^16 and, for 32-bit digits,
+// lifts it to mod 2^32 by one Newton step from n's low digit.  Bound on
+// an H100 SXM: per row s (10 s + 5) + 12 s 32-bit instructions (per digit
+// and step two low and two high products and the 64-bit adds of the
+// slots; m and the fold; the tail), 42k at L = 128; at the ~58 rows of a
+// threshold decryption 2.4e6, 0.15 us at the 16.7 T/s int32 rate; the
+// bytes (3 x 4 B x L per row) are smaller still.  At the path's shape it
+// is bound by its chain of s dependent steps (a shared load, two
+// shuffles and a multiply chain each) and by the launch.
+//
+// mm_mont_exp is the whole ladder in one launch: acc = one_mont; for
+// every exponent bit, sq = acc * acc, mul = sq * base, acc = bit ? mul :
+// sq, all in the Montgomery domain, the base and n in registers for all
+// the bits.  The exponents of a threshold decryption are 2 Delta s_i, s_i
+// a key share, so they are secret: every bit squares, multiplies and
+// selects by a mask, with no branch and the same memory accesses whatever
+// the bit, so the kernel's time does not depend on the exponent's bits
+// (only on its length, which is public).  It takes even L up to 1022 and
+// odd L up to 511.  The exit multiply by plain 1 is a launch of
+// mm_mont_mul (ops.modexp_ints), so a decryption makes one mm_mont_exp
+// and one mm_mont_mul launch.  Bound: 2 nbits products a row; at the
+// decryption's 58 rows x 128 limbs x 2,372 bits that is 1.2e10
+// instructions, 0.69 ms at the int32 rate.  The ladder is a chain of 2
+// nbits s dependent steps, so it is bound by latency, ~58 of 132 SMs
+// each holding one warp.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -81,83 +70,10 @@
 namespace {
 
 constexpr uint32_t LIMB_MASK = 0xFFFFu;
-constexpr int LIMB_BITS = 16;
-constexpr int MAX_THREADS = 1024;
-constexpr int MAX_LIMBS = MAX_THREADS - 2;   // L + 2 slots, one thread each
-
-__global__ void __launch_bounds__(MAX_THREADS)
-mont_mul_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
-                const uint32_t* __restrict__ n, uint32_t n0inv,
-                uint32_t* __restrict__ out, int L) {
-  extern __shared__ uint32_t smem[];
-  uint32_t* sa = smem;              // a_i, read by every thread at step i
-  uint32_t* sn = sa + L;            // n, for the borrow pass
-  uint32_t* st = sn + L;            // T (L + 2 slots): shift and final passes
-  uint32_t* sd = st + L + 2;        // T - n of the conditional subtract
-  uint32_t* bcast = sd + L;         // m each step, then ge_n
-
-  const int j = threadIdx.x;
-  const int64_t row = blockIdx.x;
-  const uint32_t* arow = a + row * L;
-  const uint32_t* brow = b + row * L;
-  if (j < L) {
-    sa[j] = arow[j];
-    sn[j] = n[j];
-  }
-  // this slot's operands: limb j (low half) and limb j - 1 (high half);
-  // zero where the slot takes no such half
-  const bool lo = j < L, hi = j >= 1 && j <= L;
-  const uint32_t bj = lo ? brow[j] : 0u, bjm = hi ? brow[j - 1] : 0u;
-  const uint32_t nj = lo ? n[j] : 0u, njm = hi ? n[j - 1] : 0u;
-  const bool slot = j < L + 2;
-  __syncthreads();
-
-  uint32_t t = 0;
-  for (int i = 0; i < L; ++i) {
-    const uint32_t ai = sa[i];
-    t += ((ai * bj) & LIMB_MASK) + ((ai * bjm) >> LIMB_BITS);
-    if (j == 0) *bcast = ((t & LIMB_MASK) * n0inv) & LIMB_MASK;
-    __syncthreads();
-    const uint32_t m = *bcast;
-    t += ((m * nj) & LIMB_MASK) + ((m * njm) >> LIMB_BITS);
-    if (slot) st[j] = t;
-    __syncthreads();
-    // shift one limb right (slot L + 1 takes a zero); fold T_0's high bits
-    uint32_t next = (j + 1 < L + 2) ? st[j + 1] : 0u;
-    if (j == 0) next += t >> LIMB_BITS;
-    t = next;
-  }
-  __syncthreads();                  // every shift read is done
-  if (slot) st[j] = t;
-  __syncthreads();
-
-  if (j == 0) {
-    uint32_t carry = 0;
-    for (int k = 0; k < L + 2; ++k) {
-      const uint32_t v = st[k] + carry;
-      st[k] = v & LIMB_MASK;
-      carry = v >> LIMB_BITS;
-    }
-    const uint32_t over = st[L];    // 0 or 1 (result < 2n)
-    int32_t borrow = 0;
-    for (int k = 0; k < L; ++k) {
-      const int32_t v = (int32_t)st[k] - (int32_t)sn[k] - borrow;
-      sd[k] = (uint32_t)v & LIMB_MASK;
-      borrow = v < 0;
-    }
-    *bcast = (borrow == 0 || over > 0) ? 1u : 0u;
-  }
-  __syncthreads();
-  if (j < L) out[row * L + j] = *bcast ? sd[j] : st[j];
-}
-
-// ---------------------------------------------------------------------------
-// mm_mont_exp: the ladder, one warp per row
-// ---------------------------------------------------------------------------
-
 constexpr unsigned FULL = 0xFFFFFFFFu;
-constexpr int MAX_EXP_LIMBS = 1022;       // 16-bit limbs, even L
-constexpr int MAX_EXP_LIMBS_ODD = 511;    // odd L: 16-bit digits, W <= 16
+constexpr int MAX_LIMBS = 1022;           // 16-bit limbs, even L
+constexpr int MAX_EXP_LIMBS_ODD = 511;    // odd L in the ladder: W <= 16
+constexpr int MAX_MUL_LIMBS_ODD = 1021;   // odd L in mm_mont_mul: W = 32
 
 template <int DB> struct Digit;
 template <> struct Digit<32> {
@@ -297,6 +213,24 @@ __device__ __forceinline__ void mont_product(const uint32_t* sa,
   for (int w = 0; w < W; ++w) out[w] = ge_n ? d[w] : x[w];
 }
 
+// the lane's digits back to 16-bit limbs (digits at and past s dropped)
+template <int DB, int W>
+__device__ __forceinline__ void store_digits(uint32_t* limbs,
+                                             const uint32_t (&v)[W], int s,
+                                             int lane) {
+#pragma unroll
+  for (int w = 0; w < W; ++w) {
+    const int j = lane * W + w;
+    if (j >= s) continue;
+    if (DB == 16) {
+      limbs[j] = v[w];
+    } else {
+      limbs[2 * j] = v[w] & LIMB_MASK;
+      limbs[2 * j + 1] = v[w] >> 16;
+    }
+  }
+}
+
 template <int DB, int W>
 __device__ __forceinline__ void to_shared(uint32_t* sa,
                                           const uint32_t (&v)[W], int lane) {
@@ -335,18 +269,7 @@ mont_exp_kernel(const uint32_t* __restrict__ base,
 #pragma unroll
     for (int w = 0; w < W; ++w) acc[w] = (mul[w] & take) | (sq[w] & ~take);
   }
-  uint32_t* orow = out + row * L;
-#pragma unroll
-  for (int w = 0; w < W; ++w) {
-    const int j = lane * W + w;
-    if (j >= s) continue;
-    if (DB == 16) {
-      orow[j] = acc[w];
-    } else {
-      orow[2 * j] = acc[w] & 0xFFFFu;
-      orow[2 * j + 1] = acc[w] >> 16;
-    }
-  }
+  store_digits<DB, W>(out + row * L, acc, s, lane);
 }
 
 template <int DB>
@@ -371,24 +294,77 @@ int launch_exp(const uint32_t* base, const int32_t* bits, const uint32_t* n,
   return 1001;
 }
 
+template <int DB, int W>
+__global__ void __launch_bounds__(32)
+mont_mul_kernel(const uint32_t* __restrict__ a,
+                const uint32_t* __restrict__ b,
+                const uint32_t* __restrict__ nl, uint32_t n0inv,
+                uint32_t* __restrict__ out, int L) {
+  __shared__ uint32_t sa[32 * W];
+  const int lane = threadIdx.x;
+  const int64_t row = blockIdx.x;
+  const int s = DB == 32 ? L / 2 : L;
+  uint32_t av[W], bv[W], nv[W], res[W];
+#pragma unroll
+  for (int w = 0; w < W; ++w) {
+    const int j = lane * W + w;
+    av[w] = load_digit<DB>(a + row * L, j, s);
+    bv[w] = load_digit<DB>(b + row * L, j, s);
+    nv[w] = load_digit<DB>(nl, j, s);
+  }
+  if (DB == 32) {
+    // the caller's n0inv is -n^-1 mod 2^16; one Newton step lifts it to
+    // -n^-1 mod 2^32: n x = -1 + k 2^16 gives n x (2 + n x) = -1 mod 2^32
+    n0inv *= 2u + __shfl_sync(FULL, nv[0], 0) * n0inv;
+  }
+  to_shared<DB, W>(sa, av, lane);
+  mont_product<DB, W>(sa, bv, nv, n0inv, s, lane, res);
+  store_digits<DB, W>(out + row * L, res, s, lane);
+}
+
+template <int DB>
+int launch_mul(const uint32_t* a, const uint32_t* b, const uint32_t* n,
+               uint32_t n0inv, uint32_t* out, int64_t batch, int L,
+               cudaStream_t stream) {
+  const int s = DB == 32 ? L / 2 : L;
+  const int lanes_w = (s + 31) / 32;
+  const dim3 grid((unsigned)batch);
+#define MM_MUL_CASE(WW)                                                    \
+  if (lanes_w <= WW) {                                                     \
+    mont_mul_kernel<DB, WW><<<grid, 32, 0, stream>>>(a, b, n, n0inv, out, \
+                                                     L);                  \
+    return (int)cudaGetLastError();                                        \
+  }
+  MM_MUL_CASE(1)
+  MM_MUL_CASE(2)
+  MM_MUL_CASE(4)
+  MM_MUL_CASE(8)
+  MM_MUL_CASE(16)
+  if constexpr (DB == 16) {
+    MM_MUL_CASE(32)
+  }
+#undef MM_MUL_CASE
+  return 1001;
+}
+
 }  // namespace
 
 extern "C" {
 
 // Returns cudaGetLastError() after the launch (0 = launched); 1000 + k for
-// an argument the kernel does not take.
+// an argument the kernel does not take.  n0inv is the limbs' -n^-1 mod
+// 2^16, as the plain version takes it, for every L.
 int mm_mont_mul(const uint32_t* a, const uint32_t* b, const uint32_t* n,
                 uint32_t n0inv, uint32_t* out, int64_t batch, int L,
                 void* stream) {
-  if (L < 1 || L > MAX_LIMBS) return 1001;
+  const bool odd = L % 2 != 0;
+  if (L < 1 || L > (odd ? MAX_MUL_LIMBS_ODD : MAX_LIMBS)) return 1001;
   if (n0inv > LIMB_MASK) return 1002;
   if (batch < 0 || batch > 0x7FFFFFFF) return 1003;
   if (batch == 0) return 0;
-  const int threads = (L + 2 + 31) / 32 * 32;
-  const size_t shmem = (size_t)(4 * L + 3) * sizeof(uint32_t);
-  mont_mul_kernel<<<(unsigned)batch, threads, shmem, (cudaStream_t)stream>>>(
-      a, b, n, n0inv, out, L);
-  return (int)cudaGetLastError();
+  const cudaStream_t s = (cudaStream_t)stream;
+  return odd ? launch_mul<16>(a, b, n, n0inv, out, batch, L, s)
+             : launch_mul<32>(a, b, n, n0inv, out, batch, L, s);
 }
 
 // The ladder: out = one * base^e (Montgomery domain) for each row, e's
@@ -399,7 +375,7 @@ int mm_mont_exp(const uint32_t* base, const int32_t* bits, const uint32_t* n,
                 uint32_t n0inv, const uint32_t* one, uint32_t* out,
                 int64_t batch, int L, int nbits, void* stream) {
   const bool odd = L % 2 != 0;
-  if (L < 1 || L > (odd ? MAX_EXP_LIMBS_ODD : MAX_EXP_LIMBS)) return 1001;
+  if (L < 1 || L > (odd ? MAX_EXP_LIMBS_ODD : MAX_LIMBS)) return 1001;
   if (odd && n0inv > LIMB_MASK) return 1002;
   if (batch < 0 || batch > 0x7FFFFFFF) return 1003;
   if (nbits < 0) return 1004;

@@ -46,11 +46,13 @@ _SIGNATURES = {
                            ctypes.c_int, ctypes.c_int, ctypes.c_int,
                            ctypes.c_int, ctypes.c_int, ctypes.c_int,
                            ctypes.c_float, ctypes.c_int, _P),
-    # x, dt, a, Bm, Cm, y, state, BH, H, S, P, N, x strides (b, h, s),
-    # dt strides (b, h, s), B/C strides (b, s), stream
-    "ssd_scan": (_P, _P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
-                 ctypes.c_int, ctypes.c_int, ctypes.c_int, _I64, _I64, _I64,
-                 _I64, _I64, _I64, _I64, _I64, _P),
+    # x, dt, a, Bm, Cm, y, state, scratch cum, cb, states, BH, H, S, P,
+    # N, chunk, x strides (b, h, s), dt strides (b, h, s), B/C strides
+    # (b, s), stream
+    "ssd_scan": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_int,
+                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                 ctypes.c_int, _I64, _I64, _I64, _I64, _I64, _I64, _I64,
+                 _I64, _P),
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -26,8 +26,8 @@ from repro_torch.kernels.backend import MONT_EXP, MONT_MUL
 from repro_torch.kernels.modmul.modmul import mont_mul_block
 
 # the launcher's own argument checks (csrc/modmul.cu), by status
-_REFUSED = {1001: "L limbs outside the kernel's range (L + 2 slots must "
-                  "fit one thread block)",
+_REFUSED = {1001: "L limbs outside the kernel's range (even L <= 1022, "
+                  "odd L <= 1021)",
             1002: "n0inv is not a 16-bit limb",
             1003: "batch does not fit a grid"}
 _EXP_REFUSED = {1001: "L limbs outside the ladder's range (even L <= "
@@ -68,7 +68,9 @@ def _mont_mul_cuda(a: torch.Tensor, b: torch.Tensor, n_limbs,
 
 def mont_mul_op(a: torch.Tensor, b: torch.Tensor, n_limbs, n0inv, *,
                 impl: Optional[str] = None) -> torch.Tensor:
-    """a * b * R^-1 mod n over (batch, L) int32 limbs."""
+    """a * b * R^-1 mod n over (batch, L) int32 limbs of operands below
+    n; n0inv is the limbs' -n^-1 mod 2^16, as the plain version takes
+    it."""
     if backend.resolve(impl, a) == "cuda":
         return _mont_mul_cuda(a, b, n_limbs, n0inv)
     return mont_mul_block(a, b, n_limbs, n0inv)
@@ -77,7 +79,8 @@ def mont_mul_op(a: torch.Tensor, b: torch.Tensor, n_limbs, n0inv, *,
 def ladder_n0inv(n_limbs, n0inv, L: int) -> int:
     """The ladder kernel's n0inv: for an even L it runs on 32-bit digits
     and takes -n^-1 mod 2^32, from n's two low limbs as Python ints; for
-    an odd L, 16-bit digits and the limbs' own n0inv."""
+    an odd L, 16-bit digits and the limbs' own n0inv.  (``mm_mont_mul``
+    takes the limbs' n0inv and lifts it to 32 bits itself.)"""
     if L % 2:
         return int(n0inv)
     if isinstance(n_limbs, torch.Tensor):

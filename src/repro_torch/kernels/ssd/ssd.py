@@ -25,7 +25,7 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     """The Pallas kernel's signature: x (BH, S, P), dt (BH, S), a (BH,),
     Bm/Cm (BH, S, N), all float32 -> y (BH, S, P), final state (BH, P, N).
     ``chunk`` sets the plain version's chunking; the CUDA kernel scans in
-    chunks of its own (64 rows), the same function up to rounding."""
+    chunks of its own (256 rows), the same function up to rounding."""
     if backend.resolve(impl, x) == "cuda":
         y, st = ssd_cuda_heads(x[:, :, None], dt[:, :, None], a, Bm, Cm)
         return y[:, :, 0], st

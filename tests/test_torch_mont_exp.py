@@ -1,5 +1,6 @@
-"""The one-launch Montgomery ladder (``mm_mont_exp`` in
-``src/repro_torch/csrc/modmul.cu``): its arithmetic, emulated on the CPU.
+"""The one-warp Montgomery product of ``src/repro_torch/csrc/modmul.cu``,
+in the ladder (``mm_mont_exp``) and alone (``mm_mont_mul``): its
+arithmetic, emulated on the CPU.
 
 The kernel runs only on the card, so its schedule is emulated here in
 Python ints, lane by lane: the CIOS steps on 32-bit digits (16-bit for
@@ -7,8 +8,10 @@ an odd L) in 64-bit lazy slots, the one-digit shift between lanes, and
 the carry-lookahead tail that resolves carries and the conditional
 subtract's borrows with 32-bit ballot masks.  The emulation is held limb
 for limb against Python ints (``mont_mul_int``) and the plain torch
-version (``mont_mul_block``) at L in {8, 32, 128, 256} and at odd L, and
-as a ladder against ``mont_exp_op(impl="torch")``, the JAX package's
+version (``mont_mul_block``) at L in {8, 32, 128, 256} and at odd L, as
+the standalone multiply ``mm_mont_mul`` (one product, its 16-bit n0inv
+lifted to 32 bits in the kernel) at L in {8, 33, 128, 513, 1021}, and as
+a ladder against ``mont_exp_op(impl="torch")``, the JAX package's
 ``mont_exp_op`` and ``pow``.  Exact arithmetic: no tolerance.  The CUDA
 kernel itself is held against the same plain version on the card by
 ``chip_smoke.py``.
@@ -212,6 +215,49 @@ def test_emulated_product_matches_mont_mul(L):
                          torch.from_numpy(mp["n_limbs"].astype(np.int32)),
                          mp["n0inv"])
     assert np.array_equal(got.astype(np.int32), want.numpy())
+
+
+def lift_n0inv(n0inv: int, n_low: int) -> int:
+    """``mont_mul_kernel``'s lift of the limbs' -n^-1 mod 2^16 to mod 2^32
+    by one Newton step from n's low 32-bit digit."""
+    return n0inv * (2 + n_low * n0inv) & 0xFFFFFFFF
+
+
+def emulate_mont_mul(a: np.ndarray, b: np.ndarray, mp: dict) -> np.ndarray:
+    """``mont_mul_kernel`` for one row: the limbs packed to the kernel's
+    digits, the callers' 16-bit n0inv lifted for 32-bit digits, one
+    ``mont_product``, the digits unpacked."""
+    L = mp["L"]
+    db, s, W = layout(L)
+    n = to_digits(mp["n_limbs"], db)
+    n0 = int(mp["n0inv"])
+    if db == 32:
+        n0 = lift_n0inv(n0, n[0])
+    return from_digits(emulate_product(to_digits(a, db), to_digits(b, db),
+                                       n, n0, db, s, W), db)
+
+
+@pytest.mark.parametrize("L", [8, 33, 128, 513, 1021])
+def test_emulated_mont_mul_kernel_matches_python_ints(L):
+    """The standalone multiply as one call of the warp product, at even
+    and odd L, the odd ones past the ladder's 511 on the 32-digit lane
+    width: limb for limb equal to Python ints, edge operands included."""
+    rng = np.random.default_rng(1000 + L)
+    n = _modulus(rng, L)
+    mp = montgomery_params(n, L)
+    db, s, W = layout(L)
+    assert (db, W) == {8: (32, 1), 33: (16, 2), 128: (32, 2),
+                       513: (16, 32), 1021: (16, 32)}[L]
+    if db == 32:
+        assert lift_n0inv(int(mp["n0inv"]), n & 0xFFFFFFFF) == \
+            n0inv_digit(n, 32)
+    edges = [0, 1, n - 1, mp["R"] % n]
+    av = edges[:2] + [_below(rng, n)]
+    bv = [_below(rng, n)] + edges[2:]
+    a = batch_to_limbs(av, L)
+    b = batch_to_limbs(bv, L)
+    got = np.stack([emulate_mont_mul(x, y, mp) for x, y in zip(a, b)])
+    assert np.array_equal(got, P.mont_mul_int(a, b, n, L))
 
 
 @pytest.mark.parametrize("L", [8, 9])
