@@ -33,6 +33,23 @@ with a non-zero exit code:
            executed wire bytes equal to ``cost``, kernel launch counts;
            then the digest transport and a flip adversary
   batched  ``allreduce_batched`` with S = 64 sessions of n = 16, T = 2^16
+  mesh     the distributed transports: 16 rank processes on the card over
+           a gloo group (every wire staged through pinned host memory,
+           the kernels in every rank), after the parent's port sim on the
+           card: (a) ``SecureAggregator`` on the ``mesh`` backend at n =
+           16, c = 4, ring, r = 3, global masking, T = 2^22 a node, each
+           rank's row equal to the sim's by sha256, within the
+           quantization bound of the plain sum, executed bytes equal to
+           ``cost``, launches 1 / 3 / 1; (b) the ``manual`` backend on a
+           rank-local dict of 2^22 elements in 64 chunks; (c) the digest
+           transport with flips on nodes 0, 4, 8, 12, exact, and with
+           flips on two members of every cluster (past what r = 3
+           absorbs), equal to the sim under the same flips and unequal
+           to the honest sum, which shows the flips reach the ranks; (d)
+           ``allreduce_batched`` of S = 16 sessions of T = 2^16 by the
+           distributed reveal.  Medians of 5 warm runs of (a) and (b) as
+           the slowest rank's wall ms, each rank's wire ms and profiled
+           kernel ms, peak memory per rank
   paillier threshold Paillier at full width (1024-bit n, fixed committed
            safe primes): 512 encrypted votes summed, partial decryption
            of c_t = 69 shares' first 58 on the card equal to Python
@@ -62,7 +79,9 @@ with a non-zero exit code:
            allreduce time
 
 The last lines are the card's name and power limit, one JSON object
-describing every kernel, and ``{"ok": true, "device": {...}}``.  Without
+describing every kernel (``max_abs_err`` from the kernels phase,
+``launches`` on its phase's path, ``mesh_launches_per_rank`` in the mesh
+phase's (a); each null where its phase did not run), and ``{"ok": true, "device": {...}}``.  Without
 a CUDA device the script fails before printing any result.  Imports
 nothing of JAX or of the JAX package.
 """
@@ -70,21 +89,25 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import hashlib
 import json
 import math
 import pathlib
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from typing import Optional
 
 import numpy as np
 import torch
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
 
-PHASES = ("device", "build", "kernels", "main", "batched", "paillier",
-          "serve", "timing")
+PHASES = ("device", "build", "kernels", "main", "batched", "mesh",
+          "paillier", "serve", "timing")
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 # 32-bit lane operations issued per second: 132 SMs x 128 lanes x
 # 1.98 GHz, half the 67 TFLOP/s float32 FMA rate (an FMA counts two FLOPs)
@@ -98,6 +121,16 @@ BF16_FLOPS_PER_S = 989e12     # dense bf16 on the tensor cores
 # (495 TFLOP/s dense) for each float32 one
 F32_3XTF32_FLOPS_PER_S = 495e12 / 3
 N_MAIN, C_MAIN, T_MAIN = 64, 4, 1 << 22
+# mesh: one rank process per node of n = 16 on the one card (the
+# reference's selftest size); (a)'s payload is the main cell's width, (b)
+# chunks it at 2^16, (d) is S sessions of T_batch; (c) flips MESH_FLIP,
+# one member a cluster, which the vote absorbs, and MESH_FLIP_OVER, two
+# members a cluster, which it cannot
+N_MESH = 16
+MESH_SHAPE = {"T": 1 << 22, "chunk": 1 << 16, "S": 16, "T_batch": 1 << 16,
+              "runs": 5}
+MESH_FLIP = (0, 4, 8, 12)
+MESH_FLIP_OVER = (0, 1, 4, 5, 8, 9, 12, 13)
 SPLITMIX_OPS = 9              # add, 3 shifts, 3 xors, 2 multiplies
 PAD_OPS = SPLITMIX_OPS + 2    # ctr ^ k1, then + k2
 # Two 512-bit safe primes, drawn once with the port's gen_safe_prime and
@@ -260,6 +293,8 @@ def phase_kernels(rng, dev, errs: dict) -> dict:
                 check(torch.equal(got, want),
                       f"unmask_decrypt T={T} mode={mode} n={n} off={off}")
                 checks += 1
+        if T >= 8:
+            checks += _check_nonfinite(x, seeds, scale, clip, errs)
         for r in (1, 3, 5):
             for majority in (False, True):
                 copies = [words(rng, (B, T), dev) for _ in range(r)]
@@ -282,6 +317,39 @@ def phase_kernels(rng, dev, errs: dict) -> dict:
             "ssd_checks": ssd, "allow_tf32": False,
             "flash_tol": {str(k): v for k, v in FLASH_TOL.items()},
             "ssd_tol": SSD_TOL, "max_abs_err": errs}
+
+
+def _check_nonfinite(x, seeds, scale: float, clip: float, errs: dict
+                     ) -> int:
+    """NaN, +-Inf and -0.0 elements, in every encrypt mode: the kernel
+    equals its plain version on the card, and a NaN quantizes as 0 does
+    (the reference's XLA conversion sends NaN to 0)."""
+    from repro_torch.kernels.secure_agg import ops
+    edge = torch.tensor([math.nan, math.inf, -math.inf, -0.0, math.nan,
+                         0.25, math.nan, 0.0], device=x.device)
+    x = x.clone()
+    x[:, :8] = edge
+    zeroed = torch.where(torch.isnan(x), torch.zeros_like(x), x)
+    checks = 0
+    for mode, c, nids in (("mask", 0, [3, 9]), ("quantize", 0, [0, 1]),
+                          ("pairwise", 4, [6, 13])):
+        def enc(v, impl=None):
+            return ops.mask_encrypt_batch_fn(v, nids, seeds, scale, clip,
+                                             mode=mode, cluster_size=c,
+                                             impl=impl)
+        got = enc(x)
+        want = enc(x, "torch")
+        errs["mask_encrypt"] = max(errs["mask_encrypt"],
+                                   max_abs_err(got, want))
+        check(torch.equal(got, want), f"mask_encrypt NaN/Inf mode={mode}")
+        check(torch.equal(got, enc(zeroed)), f"NaN quantizes to 0 ({mode})")
+        if mode == "quantize":
+            check(got[:, :8].tolist() == [[0, int(clip * scale),
+                                           -int(clip * scale), 0, 0,
+                                           int(0.25 * scale), 0, 0]] * 2,
+                  "quantize of NaN / Inf / -0.0")
+        checks += 2
+    return checks
 
 
 def within(got: torch.Tensor, want: torch.Tensor, atol: float,
@@ -628,6 +696,252 @@ def phase_batched(rng, dev) -> dict:
     return {"phase": "batched", "S": S, "n_nodes": n, "T": T,
             "equal_reference": True, "launches": launches, "seconds": secs,
             "bytes_sent": agg.stats()["bytes_sent"]}
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def sha(t: torch.Tensor) -> str:
+    return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()
+
+
+def _mesh_cfg(**kw):
+    """The mesh phase's config: the main cell's protocol at n = 16."""
+    from repro_torch import AggConfig
+    return AggConfig(n_nodes=N_MESH, cluster_size=C_MAIN, redundancy=3,
+                     schedule="ring", masking="global", **kw)
+
+
+def _mesh_inputs(seed: int, dev, shape: dict) -> tuple:
+    """(a)'s per-node payloads, (b)'s per-node trees (as rows), (d)'s
+    sessions: drawn from ``seed`` on ``dev``, so the parent and every rank
+    hold the same bits; uniform within 0.9 of the clip, so the plain sum
+    is the quantized sum's yardstick."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+
+    def draw(*sz):
+        return (torch.rand(sz, generator=g, device=dev) * 2 - 1) * 0.9
+
+    n, T = N_MESH, shape["T"]
+    return draw(n, T), draw(n, T), draw(shape["S"], n, shape["T_batch"])
+
+
+def _tree_of(rows: torch.Tensor) -> dict:
+    """(..., T) rows -> (b)'s dict payload: two leaves of T / 2."""
+    h = rows.shape[-1] // 2
+    return {"b": rows[..., h:], "w": rows[..., :h].reshape(
+        rows.shape[:-1] + (h // 64, 64))}
+
+
+def _tree_sha(tree: dict) -> str:
+    return sha(torch.cat([tree[k].reshape(-1) for k in sorted(tree)]))
+
+
+def _mesh_rank(rank: int, seed: int, job_dir: str, shape: dict) -> None:
+    """One rank of the mesh phase: (a)-(d) through the facade, checked
+    against the parent's sim hashes, with timings; writes
+    ``rank{r}.json``.  Any failed check raises and ends the run."""
+    import torch.distributed as dist
+    from repro_torch import Runtime, SecureAggregator
+    from repro_torch.core.byzantine import ByzantineSpec
+    from repro_torch.core.engine import flat_node_id
+    from repro_torch.kernels import backend
+    from repro_torch.runtime.compat import node_mesh
+    dev = torch.device(shape["device"])
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    with open(pathlib.Path(job_dir) / "want.json") as f:
+        want = json.load(f)
+    mesh = node_mesh(N_MESH)
+    nid = flat_node_id(mesh, ("data",))
+    xa, xb, xd = _mesh_inputs(seed, dev, shape)
+    rt = Runtime(backend="mesh", mesh=mesh)
+    on_card = dev.type == "cuda"
+
+    def launches():
+        return backend.launch_counts()
+
+    def timed(agg, fn) -> dict:
+        walls, wires = [], {}
+        for _ in range(shape["runs"]):
+            dist.barrier()
+            w0 = agg.stats()["wire_s"]
+            _sync(dev)
+            t0 = time.perf_counter()
+            fn()
+            _sync(dev)
+            walls.append((time.perf_counter() - t0) * 1e3)
+            for k, v in agg.stats()["wire_s"].items():
+                wires.setdefault(k, []).append((v - w0[k]) * 1e3)
+        prof = None
+        if on_card:
+            dist.barrier()
+            kernels = ("::mask_kernel", "::vote_kernel", "::unmask_kernel")
+            p = profile_device(fn, parts=(*kernels, "Memcpy"))
+            # the ranks' contexts share the card by time slices, so a
+            # profiled span can hold other ranks' turns: only the
+            # kernels' own times and the copies are read from it
+            prof = {"wall_ms": p["profiled_wall_s"] * 1e3,
+                    "device_busy_ms": p["device_busy_ms"],
+                    "kernel_ms": sum(p["by_part"][k]["ms"] for k in kernels),
+                    "kernel_launches": {k[2:]: p["by_part"][k]["launches"]
+                                        for k in kernels},
+                    "copy_ms": p["by_part"]["Memcpy"]["ms"]}
+            if rank == 0:
+                prof["by_kernel_ms"] = p["by_kernel_ms"][:8]
+        return {"wall_ms": walls, "wire_ms": wires, "profile": prof}
+
+    out = {"rank": rank, "node": nid}
+    # (a) the facade on the mesh backend at full payload width
+    agg = SecureAggregator(_mesh_cfg(), runtime=rt, device=dev)
+    backend.reset_launch_counts()
+    got = agg.allreduce(xa)
+    _sync(dev)
+    out["a_launches"] = launches()
+    if on_card:
+        want_launches = dict.fromkeys(out["a_launches"], 0)
+        want_launches.update(mask_encrypt=1, unmask_decrypt=1,
+                             vote_combine=3)
+        check(out["a_launches"] == want_launches,
+              f"rank {rank} (a) launches {out['a_launches']}")
+    check(sha(got[nid]) == want["a_rows"][nid], f"rank {rank} (a) row")
+    check(sha(got) == want["a_all"], f"rank {rank} (a) gathered result")
+    check(agg.stats()["bytes_sent"] == want["a_bytes"], f"rank {rank} bytes")
+    del got
+    out["a"] = timed(agg, lambda: agg.allreduce(xa))
+
+    # (b) the manual backend: this rank's tree, 64 chunks
+    man = SecureAggregator(_mesh_cfg(chunk_elems=shape["chunk"]),
+                           runtime=Runtime(backend="manual"), device=dev)
+    tree = _tree_of(xb[nid])
+    backend.reset_launch_counts()
+    got = man.allreduce(tree)
+    _sync(dev)
+    out["b_launches"] = launches()
+    check(_tree_sha(got) == want["b_rows"][nid], f"rank {rank} (b) tree")
+    del got
+    out["b"] = timed(man, lambda: man.allreduce(tree))
+
+    # (c) under attack: the digest transport, flips on one member a cluster
+    flip = SecureAggregator(_mesh_cfg(transport="digest", byzantine=(
+        ByzantineSpec(corrupt_ranks=MESH_FLIP, mode="flip"))),
+        runtime=rt, device=dev)
+    backend.reset_launch_counts()
+    got = flip.allreduce(xa)
+    _sync(dev)
+    out["c_launches"] = launches()
+    check(sha(got[nid]) == want["a_rows"][nid], f"rank {rank} (c) exact")
+    check(flip.stats()["bytes_sent"] == want["c_bytes"], f"rank {rank} (c)")
+    over = flip.derive(byzantine=ByzantineSpec(corrupt_ranks=MESH_FLIP_OVER,
+                                               mode="flip"))
+    got = over.allreduce(xa)
+    _sync(dev)
+    check(sha(got[nid]) == want["c_over_rows"][nid]
+          and sha(got) == want["c_over_all"],
+          f"rank {rank} (c) flips past the vote: not the sim's result")
+    del got
+
+    # (d) batched on the mesh: the distributed reveal
+    backend.reset_launch_counts()
+    got = agg.allreduce_batched(xd)
+    _sync(dev)
+    out["d_launches"] = launches()
+    check(sha(got) == want["d"], f"rank {rank} (d) batched")
+    del got
+    out["peak_mem_bytes"] = (torch.cuda.max_memory_allocated(dev)
+                             if on_card else None)
+    with open(pathlib.Path(job_dir) / f"rank{rank}.json", "w") as f:
+        json.dump(out, f)
+
+
+def phase_mesh(dev, seed: int, shape: Optional[dict] = None
+               ) -> tuple[dict, dict]:
+    """The distributed transports on one card: N_MESH rank processes over
+    a gloo group, every wire staged through host memory, the kernels in
+    every rank.  The parent computes the port's sim on the card first and
+    hands the ranks its hashes."""
+    from repro_torch import SecureAggregator
+    from repro_torch.core.byzantine import ByzantineSpec
+    from repro_torch.core.masking import quantization_error_bound
+    from repro_torch.runtime.compat import spawn_nodes
+    shape = dict(MESH_SHAPE if shape is None else shape, device=str(dev))
+    if dev.type == "cuda":
+        from repro_torch.kernels import build
+        build.lib()          # the ranks load this build
+    xa, xb, xd = _mesh_inputs(seed, dev, shape)
+    sim = SecureAggregator(_mesh_cfg(), device=dev)
+    ra = sim.allreduce(xa)
+    bound = 4 * quantization_error_bound(sim.cfg.mask_cfg())
+    err = float((ra.double() - xa.double().sum(0)).abs().max())
+    check(err < bound, f"mesh (a) sim: err {err} >= bound {bound}")
+    sim_ms = []
+    for _ in range(3):
+        _sync(dev)
+        t0 = time.perf_counter()
+        sim.allreduce(xa)
+        _sync(dev)
+        sim_ms.append((time.perf_counter() - t0) * 1e3)
+    rb = sim.allreduce(_tree_of(xb))
+    flip_cost = SecureAggregator(_mesh_cfg(transport="digest"),
+                                 device=dev).cost(shape["T"])["bytes_total"]
+    over = SecureAggregator(_mesh_cfg(transport="digest", byzantine=(
+        ByzantineSpec(corrupt_ranks=MESH_FLIP_OVER, mode="flip"))),
+        device=dev).allreduce(xa)
+    check(not torch.equal(over, ra), "mesh (c) sim: flips past the vote "
+          "left the sum unchanged")
+    want = {"c_over_rows": [sha(over[i]) for i in range(N_MESH)],
+            "c_over_all": sha(over),
+            "a_rows": [sha(ra[i]) for i in range(N_MESH)], "a_all": sha(ra),
+            "a_bytes": sim.cost(shape["T"])["bytes_total"],
+            "b_rows": [_tree_sha({k: v[i] for k, v in rb.items()})
+                       for i in range(N_MESH)],
+            "c_bytes": flip_cost, "d": sha(sim.allreduce_batched(xd))}
+    del xa, xb, xd, ra, rb, over
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    job = pathlib.Path(tempfile.mkdtemp(prefix="mesh-phase-"))
+    try:
+        (job / "want.json").write_text(json.dumps(want))
+        t0 = time.perf_counter()
+        spawn_nodes(_mesh_rank, N_MESH, seed, str(job), shape)
+        spawn_s = time.perf_counter() - t0
+        ranks = [json.loads((job / f"rank{r}.json").read_text())
+                 for r in range(N_MESH)]
+    finally:
+        shutil.rmtree(job, ignore_errors=True)
+    for k in ("a", "b", "c", "d"):
+        check(all(r[f"{k}_launches"] == ranks[0][f"{k}_launches"]
+                  for r in ranks), f"mesh ({k}): launches differ by rank")
+
+    def slowest(part):
+        runs = zip(*(r[part]["wall_ms"] for r in ranks))
+        return statistics.median(max(run) for run in runs)
+
+    def split(part):
+        return [{"rank": r["rank"],
+                 "wall_ms": statistics.median(r[part]["wall_ms"]),
+                 "wire_ms": {k: statistics.median(v)
+                             for k, v in r[part]["wire_ms"].items()},
+                 "profile": r[part]["profile"]} for r in ranks]
+
+    line = {"phase": "mesh", "ranks": N_MESH, "backend": "gloo",
+            "device": str(dev), "T": shape["T"],
+            "chunk_elems": shape["chunk"], "batched": [shape["S"],
+                                                       shape["T_batch"]],
+            "equal_sim": True, "sim_err": err, "sim_bound": bound,
+            "bytes_sent": want["a_bytes"],
+            "launches_per_rank": {k: ranks[0][f"{k}_launches"]
+                                  for k in ("a", "b", "c", "d")},
+            "a_slowest_rank_ms": slowest("a"),
+            "b_slowest_rank_ms": slowest("b"), "sim_a_ms": sim_ms,
+            "a_split": split("a"), "b_split": split("b"),
+            "peak_mem_bytes": [r["peak_mem_bytes"] for r in ranks],
+            "spawn_to_end_s": spawn_s}
+    return line, ranks[0]["a_launches"]
 
 
 def phase_paillier(dev) -> tuple[dict, dict, tuple[int, int]]:
@@ -1247,8 +1561,10 @@ def profile_device(fn, parts: tuple = ()) -> dict:
         wall = time.perf_counter() - t0
     rows = []
     for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:   # operators repeat their
-            continue                           # kernels' device time
+        # operators repeat their kernels' device time; gloo's transfers
+        # are host work that the profiler files under the device
+        if ev.device_type != DeviceType.CUDA or ev.key.startswith("gloo:"):
+            continue
         dev_us = getattr(ev, "self_device_time_total",
                          getattr(ev, "self_cuda_time_total", 0))
         if dev_us > 0:
@@ -1302,6 +1618,10 @@ def main() -> int:
         emit(line)
     if "batched" in phases:
         emit(phase_batched(rng, dev))
+    mesh_launches = None
+    if "mesh" in phases:
+        line, mesh_launches = phase_mesh(dev, args.seed)
+        emit(line)
     decrypt = (N_DECRYPT, DECRYPT_BITS)
     if "paillier" in phases:
         line, da_launches, decrypt = phase_paillier(dev)
@@ -1321,11 +1641,14 @@ def main() -> int:
         t = timing.get(k.name, {})
         kernels.append({
             "name": k.name, "route": "cuda", "source": k.source,
-            "replaces": k.replaces, "launches": launches.get(k.name, 0),
-            "max_abs_err": errs[k.name], "ms": t.get("ms"),
+            "replaces": k.replaces, "launches": launches.get(k.name),
+            "max_abs_err": errs[k.name] if "kernels" in phases else None,
+            "ms": t.get("ms"),
             "plain_ms": t.get("plain_ms"), "bound_ms": t.get("bound_ms"),
             "bound_by": t.get("bound_by"),
-            "library_ms": t.get("library_ms")})
+            "library_ms": t.get("library_ms"),
+            "mesh_launches_per_rank": (None if mesh_launches is None
+                                       else mesh_launches[k.name])})
     print(smi_line(), flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,12 +1,15 @@
 """The front door of the port: :class:`SecureAggregator`.
 
-Counterpart of ``repro/api.py`` for the single-device oracle (``sim``
-backend): :meth:`~SecureAggregator.allreduce` aggregates per-node
-payloads (a tensor, or a dict / list / tuple of tensors, each with
-leading axis ``n_nodes``), :meth:`~SecureAggregator.allreduce_batched`
-runs S independent sessions in one pass, and
-:meth:`~SecureAggregator.cost` is the analytic wire account, equal to
-the engine's executed bytes.
+Counterpart of ``repro/api.py``: :meth:`~SecureAggregator.allreduce`
+aggregates per-node payloads (a tensor, or a dict / list / tuple of
+tensors, each with leading axis ``n_nodes``),
+:meth:`~SecureAggregator.allreduce_batched` runs S independent sessions
+in one pass, and :meth:`~SecureAggregator.cost` is the analytic wire
+account, equal to the engine's executed bytes.  The ``Runtime`` section
+picks the backend: the single-device oracle (``sim``), a process group
+with one rank per node where every rank passes the global payloads
+(``mesh``), or where each rank passes its own (``manual``, the training
+step's path).
 
 The facade runs on the card unless the caller asks for the CPU:
 ``device=None`` means ``"cuda"`` and raises where there is none.  On the
@@ -47,38 +50,12 @@ def _later(what: str, slice_key: str) -> ConfigError:
                        f"{_LATER[slice_key]}")
 
 
-def _flatten(tree):
-    """A tensor or a dict / list / tuple of them -> (leaves, rebuild).
-    Dict keys are taken in sorted order, as the reference flattens them,
-    so the leaves concatenate in the same order on both sides."""
-    if isinstance(tree, dict):
-        keys = sorted(tree)
-        parts = [_flatten(tree[k]) for k in keys]
-    elif isinstance(tree, (list, tuple)):
-        keys = None
-        parts = [_flatten(v) for v in tree]
-    else:
-        return [tree], lambda vals: vals[0]
-    leaves = [leaf for ls, _ in parts for leaf in ls]
-
-    def rebuild(vals):
-        out, i = [], 0
-        for ls, re in parts:
-            out.append(re(vals[i:i + len(ls)]))
-            i += len(ls)
-        if keys is not None:
-            return dict(zip(keys, out))
-        return type(tree)(out)
-
-    return leaves, rebuild
-
-
 class SecureAggregator:
     """Facade over the plan / engine / transport core, constructed from
     the composable config model: pass a ready :class:`AggConfig` or the
     sections (``topology`` required, ``security`` / ``wire`` optional).
-    ``runtime`` picks the kernel engine; ``device`` where the run lives
-    (``None`` = the card)."""
+    ``runtime`` picks the backend and the kernel engine; ``device`` where
+    the run lives (``None`` = the card; on a mesh, each rank's device)."""
 
     def __init__(self, cfg: Optional[AggConfig] = None, *,
                  topology: Optional[Topology] = None,
@@ -108,9 +85,17 @@ class SecureAggregator:
         self._plan: Optional[AggPlan] = None
         self._index: Optional[_engine.RoundIndex] = None
         self._batched = None       # the batch-reveal callable, any (S, T)
+        self._mesh_tp: Optional[_engine.MeshTransport] = None
+        self._node_mesh = None     # the manual backend's default mesh
         self._bytes = 0
+        self._wire_s = _engine.wire_seconds()
 
     # -- config / plan ------------------------------------------------------
+
+    @property
+    def backend(self) -> str:
+        """Effective execution backend (``Runtime.backend`` resolved)."""
+        return self.runtime.resolve()
 
     def plan(self) -> AggPlan:
         """The compiled :class:`AggPlan` of this config (shared memo)."""
@@ -134,21 +119,36 @@ class SecureAggregator:
 
     # -- one-shot aggregation ----------------------------------------------
     def allreduce(self, tree):
-        """One-shot secure allreduce of per-node payloads: ``tree`` is a
-        tensor (or a dict / list / tuple of tensors) whose leading axis is
-        ``n_nodes``; returns the same structure of per-node aggregated
-        results on the facade's device."""
-        leaves, rebuild = _flatten(tree)
+        """One-shot secure allreduce.
+
+        ``sim`` / ``mesh`` backends: ``tree`` is a tensor (or a dict /
+        list / tuple of tensors) whose leading axis is ``n_nodes``, the
+        same on every rank of a mesh; returns the same structure of
+        per-node aggregated results on the facade's device, bit-identical
+        across backends.
+
+        ``manual`` backend: every rank of the process group calls it with
+        its own tree; chunk-pipelined over ``Wire.chunk_elems``."""
+        leaves, rebuild = _engine.tree_flatten(tree)
         if not leaves:
             return tree
-        n = self.cfg.n_nodes
         leaves = [self._tensor(leaf) for leaf in leaves]
+        if self.backend == "manual":
+            account = {"bytes_sent": 0, "wire_s": _engine.wire_seconds()}
+            out = _engine.tree_allreduce(
+                rebuild(leaves), self.cfg, self._manual_mesh(),
+                self.runtime.dp_axes, account=account)
+            self._bytes += account["bytes_sent"]
+            self._add_wire(account["wire_s"])
+            return out
+        n = self.cfg.n_nodes
         for leaf in leaves:
             if leaf.dim() < 1 or leaf.shape[0] != n:
                 raise ConfigError(
                     f"allreduce payload leaves must have leading axis "
                     f"n_nodes={n} (per-node values), got shape "
-                    f"{tuple(leaf.shape)}")
+                    f"{tuple(leaf.shape)}; for rank-local values use "
+                    "Runtime(backend='manual')")
         sizes = [math.prod(leaf.shape[1:]) for leaf in leaves]
         T = sum(sizes)
         if T == 0:
@@ -156,9 +156,15 @@ class SecureAggregator:
         flat = [leaf.reshape(n, -1).to(torch.float32) for leaf in leaves]
         xs = (flat[0] if len(flat) == 1 else torch.cat(flat, dim=1))[None]
         meta = SessionMeta.single(self.cfg.seed, device=self.device)
-        out, tp = _engine.sim_batch(self.plan(), xs, meta,
-                                    index=self._round_index())
-        self._bytes += tp.bytes_sent
+        if self.backend == "mesh":
+            mt = self._mesh_transport()
+            out = mt.execute(self.plan(), xs, meta)
+            self._bytes += mt.last_bytes
+            self._add_wire(mt.last_wire_s)
+        else:
+            out, tp = _engine.sim_batch(self.plan(), xs, meta,
+                                        index=self._round_index())
+            self._bytes += tp.bytes_sent
         out = out[0]
         outs, off = [], 0
         for leaf, size in zip(leaves, sizes):
@@ -167,11 +173,43 @@ class SecureAggregator:
             off += size
         return rebuild(outs)
 
+    def _add_wire(self, seconds: dict) -> None:
+        for k, v in seconds.items():
+            self._wire_s[k] += v
+
+    def _mesh_transport(self) -> _engine.MeshTransport:
+        if self._mesh_tp is None:
+            self._mesh_tp = _engine.MeshTransport(
+                self.runtime.mesh, self.runtime.dp_axes,
+                impl=self.cfg.kernel_impl)
+        return self._mesh_tp
+
+    def _manual_mesh(self):
+        """The manual backend's mesh: the runtime's, or the one-axis
+        ``node_mesh`` of the started group (built once: its cluster
+        groups are cached on it)."""
+        if self.runtime.mesh is not None:
+            return self.runtime.mesh
+        if self._node_mesh is None:
+            from repro_torch.runtime.compat import node_mesh
+            if len(self.runtime.dp_axes) != 1:
+                raise ConfigError(
+                    f"backend='manual' over dp_axes={self.runtime.dp_axes} "
+                    "needs Runtime(mesh=...)")
+            self._node_mesh = node_mesh(self.cfg.n_nodes,
+                                        self.runtime.dp_axes[0])
+        return self._node_mesh
+
     def allreduce_batched(self, xs):
         """S independent aggregations in one pass: ``xs`` is
         ``(S, n_nodes, ...)`` per-node payloads; returns the ``(S, ...)``
         revealed per-session aggregates, each row bit-identical to
         ``allreduce`` of that row alone."""
+        if self.backend == "manual":
+            raise ConfigError(
+                "allreduce_batched runs the global batch on every rank, "
+                "which the 'manual' backend does not take -- use "
+                "Runtime(backend='sim') or Runtime(backend='mesh', mesh=...)")
         xs = self._tensor(xs)
         n = self.cfg.n_nodes
         if xs.dim() < 2 or xs.shape[1] != n:
@@ -184,14 +222,20 @@ class SecureAggregator:
         tail = tuple(xs.shape[2:])
         T = math.prod(tail)
         if self._batched is None:
-            self._batched = _engine.build_batch_executable(
-                self.plan(), impl=self.cfg.kernel_impl, device=self.device,
-                index=self._round_index())
+            if self.backend == "mesh":
+                self._batched = _engine.build_batch_executable(
+                    self.plan(), backend="mesh", mesh=self.runtime.mesh,
+                    dp_axes=self.runtime.dp_axes, impl=self.cfg.kernel_impl)
+            else:
+                self._batched = _engine.build_batch_executable(
+                    self.plan(), impl=self.cfg.kernel_impl,
+                    device=self.device, index=self._round_index())
         fn = self._batched
         seeds = words([self.cfg.seed] * S, self.device)
         offsets = words([0] * S, self.device)
         out = fn(xs.reshape(S, n, T).to(torch.float32), seeds, offsets, {})
         self._bytes += fn.last_bytes
+        self._add_wire(fn.last_wire_s)
         return out.reshape((S,) + tail).to(xs.dtype)
 
     # -- later slices ---------------------------------------------------------
@@ -245,12 +289,18 @@ class SecureAggregator:
                              digest_backup=cfg.digest_backup)
 
     def stats(self) -> dict:
-        """The shared plan-cache counters and the wire bytes this facade's
-        runs executed (the engine's ``Transport.bytes_sent``, summed)."""
+        """The resolved backend, the shared plan-cache counters and the
+        wire bytes this facade's runs executed (the engine's
+        ``Transport.bytes_sent``, summed; on a mesh, this rank's account,
+        which is the whole run's), and on the ``mesh`` / ``manual``
+        backends the host seconds this rank spent on the wire (staging
+        copies and waits on transfers), by kind: the hops, the cluster
+        sums and the gathers of results."""
         return {
-            "backend": "sim",
+            "backend": self.backend,
             "device": str(self.device),
             "plan_cache": plan_cache_stats(),
             "bytes_sent": self._bytes,
+            "wire_s": dict(self._wire_s),
         }
 

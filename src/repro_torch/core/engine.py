@@ -3,30 +3,44 @@
 Counterpart of ``repro/core/engine.py``.  ``execute_chunks`` runs a
 compiled :class:`~repro_torch.core.plan.AggPlan` stage by stage --
 encrypt, intra-cluster sum, voted schedule rounds, threshold decrypt --
-against a :class:`Transport`, which only moves bits.  This slice has the
-single-device oracle, :class:`SimTransport`: the node axis is explicit
-and hops are gathers whose index tensors are built once per round on the
-run's device.  The distributed transports come with a later slice.
+against a :class:`Transport`, which only moves bits:
 
-Values are ``(rows, T)`` tensors with ``rows = S * n``: float32 payloads
-in, int32 words (uint32 bits) between stages, float32 out.  The three
-tensor stages go through the dispatch ops of ``kernels/secure_agg``, so
-on a CUDA tensor they launch the CUDA kernels.  Every hop also feeds
-``Transport.bytes_sent``, the bandwidth account that equals
-``schedules.schedule_cost``.
+  * :class:`SimTransport`    -- the single-device oracle: the node axis
+    is explicit and hops are gathers whose index tensors are built once
+    per round on the run's device.  Everything else is pinned against it.
+  * :class:`ManualTransport` -- one rank of a ``torch.distributed`` group
+    per protocol node (a :class:`~repro_torch.runtime.compat.NodeMesh`):
+    hops are paired ``isend`` / ``irecv``, the intra-cluster sum an
+    ``all_reduce`` on the rank's cluster group.  ``manual_allreduce`` /
+    ``tree_allreduce`` run a rank-local payload on it.
+  * :class:`MeshTransport`   -- takes the global (S, n, T) batch on every
+    rank, runs :class:`ManualTransport` on the rank's column and gathers
+    the per-node results back, as the reference's ``shard_map`` does.
+
+Values are ``(rows, T)`` tensors with ``rows = S * local nodes`` (all n
+on the oracle, one a rank on a mesh): float32 payloads in, int32 words
+(uint32 bits) between stages, float32 out.  The three tensor stages go
+through the dispatch ops of ``kernels/secure_agg``, so on a CUDA tensor
+they launch the CUDA kernels, in every rank.  The fault model and the
+hop assembly (``Transport.hop`` / ``_sent`` / ``vote``) are shared by all
+transports, which supply only their primitives: that is what makes them
+bit-identical.  Every hop also feeds ``Transport.bytes_sent``, the
+bandwidth account that equals ``schedules.schedule_cost`` on every rank.
 """
 from __future__ import annotations
 
-from typing import Optional
+import time
+from typing import Optional, Sequence
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.byzantine import (digest_rows, digest_vote_combine,
                                         equivocate_digest,
                                         equivocate_payload, parse_mode,
                                         sent_value)
-from repro_torch.core.plan import (AggPlan, HopRound, SessionMeta,
-                                   hop_wire_words)
+from repro_torch.core.plan import (AggPlan, ConfigError, HopRound,
+                                   SessionMeta, compile_plan, hop_wire_words)
 from repro_torch.kernels import backend
 from repro_torch.kernels.secure_agg import (mask_encrypt_batch_fn,
                                             unmask_decrypt_batch_fn,
@@ -34,6 +48,17 @@ from repro_torch.kernels.secure_agg import (mask_encrypt_batch_fn,
 from repro_torch.kernels.secure_agg.secure_agg import narrow, wide
 
 _ENC_MODE = {"global": "mask", "pairwise": "pairwise", "none": "quantize"}
+
+
+def flat_node_id(mesh, dp_axes: Sequence[str],
+                 rank: Optional[int] = None) -> int:
+    """Row-major flat protocol node id over the dp mesh axes, read from
+    the mesh's coordinates of ``rank`` (default: this rank) -- not
+    assumed to be the global rank."""
+    nid = 0
+    for ax in dp_axes:
+        nid = nid * mesh.shape[ax] + mesh.coord(ax, rank)
+    return nid
 
 
 def _active_bases(items, rnd_idx: int) -> set:
@@ -429,6 +454,7 @@ def sim_batch(plan: AggPlan, xs: torch.Tensor, meta: SessionMeta, *,
 
 
 def build_batch_executable(plan: AggPlan, *, backend: str = "sim",
+                           mesh=None, dp_axes: Sequence[str] = ("data",),
                            impl: Optional[str] = None, device=None,
                            index: Optional[RoundIndex] = None):
     """The batch-reveal callable the facade's batched one-shot uses:
@@ -436,23 +462,466 @@ def build_batch_executable(plan: AggPlan, *, backend: str = "sim",
         fn(xs, seeds, offsets, fault_masks) -> (S, T) revealed rows
 
     with ``xs`` (S, n, T) per-session / per-node payloads on ``device``,
-    for any S and T.  The round index tensors are ``index`` or built
-    once, here.  ``fn.last_bytes`` holds the executed wire bytes of the
-    latest call."""
-    if backend != "sim":
-        raise ValueError(f"backend={backend!r}: only the 'sim' oracle is "
-                         "ported; the mesh transport comes with the "
-                         "distributed slice")
-    if index is None:
-        index = RoundIndex(plan, torch.device(device))
+    for any S and T.  ``backend`` picks the substrate: the sim oracle
+    (its round index tensors are ``index`` or built once, here) or a
+    :class:`MeshTransport` over ``mesh`` with the distributed reveal.
+    ``fn.last_bytes`` holds the executed wire bytes of the latest call,
+    ``fn.last_wire_s`` its staging and transfer seconds by kind (zeros
+    on the sim)."""
+    if backend == "mesh":
+        mt = MeshTransport(mesh, dp_axes, impl=impl)
 
-    def fn(xs, seeds, offsets, fault_masks):
-        meta = SessionMeta(seeds=seeds, offsets=offsets,
-                           fault_masks=dict(fault_masks))
-        out, tp = sim_batch(plan, xs, meta, reveal_only=True, impl=impl,
-                            index=index)
-        fn.last_bytes = tp.bytes_sent
+        def fn(xs, seeds, offsets, fault_masks):
+            meta = SessionMeta(seeds=seeds, offsets=offsets,
+                               fault_masks=dict(fault_masks))
+            out = mt.execute(plan, xs, meta, reveal_only=True)
+            fn.last_bytes, fn.last_wire_s = mt.last_bytes, mt.last_wire_s
+            return out
+    elif backend == "sim":
+        if index is None:
+            index = RoundIndex(plan, torch.device(device))
+
+        def fn(xs, seeds, offsets, fault_masks):
+            meta = SessionMeta(seeds=seeds, offsets=offsets,
+                               fault_masks=dict(fault_masks))
+            out, tp = sim_batch(plan, xs, meta, reveal_only=True, impl=impl,
+                                index=index)
+            fn.last_bytes, fn.last_wire_s = tp.bytes_sent, wire_seconds()
+            return out
+    else:
+        raise ValueError(f"backend={backend!r}: pick 'sim' or 'mesh'")
+
+    fn.last_bytes = fn.last_wire_s = None
+    return fn
+
+
+# ---------------------------------------------------------------------------
+# Rank-local payloads: one rank per protocol node
+# ---------------------------------------------------------------------------
+
+
+def tree_flatten(tree):
+    """A tensor or a dict / list / tuple of them -> (leaves, rebuild).
+    Dict keys are taken in sorted order, as the reference flattens them,
+    so the leaves concatenate in the same order on both sides."""
+    if isinstance(tree, dict):
+        keys = sorted(tree)
+        parts = [tree_flatten(tree[k]) for k in keys]
+    elif isinstance(tree, (list, tuple)):
+        keys = None
+        parts = [tree_flatten(v) for v in tree]
+    else:
+        return [tree], lambda vals: vals[0]
+    leaves = [leaf for ls, _ in parts for leaf in ls]
+
+    def rebuild(vals):
+        out, i = [], 0
+        for ls, re in parts:
+            out.append(re(vals[i:i + len(ls)]))
+            i += len(ls)
+        if keys is not None:
+            return dict(zip(keys, out))
+        return type(tree)(out)
+
+    return leaves, rebuild
+
+
+def manual_allreduce(x: torch.Tensor, cfg, mesh,
+                     dp_axes: Sequence[str] = ("data",)) -> torch.Tensor:
+    """Exact-sum allreduce of this rank's ``x`` over the dp axes of
+    ``mesh`` via the paper schedule; every rank of the mesh calls it with
+    its own value and gets the sum."""
+    plan = compile_plan(cfg)
+    tp = ManualTransport(plan, mesh, dp_axes, device=x.device)
+    flat = x.reshape(-1).to(torch.float32)
+    (out,) = execute_chunks(plan, tp, [flat[None]],
+                            SessionMeta.single(cfg.seed, device=x.device))
+    return out[0].reshape(x.shape)
+
+
+def tree_allreduce(tree, cfg, mesh, dp_axes: Sequence[str] = ("data",),
+                   account: Optional[dict] = None):
+    """Apply to a tree of this rank's tensors (a dict / list / tuple).
+    Leaves are packed into chunks of ``cfg.chunk_elems`` and the voted
+    hops are pipelined over the chunks: chunk k+1's wires are posted
+    before chunk k's vote waits on its own.  Where ``account`` is given,
+    the run's wire bytes and wire seconds by kind are added to its
+    ``"bytes_sent"`` and ``"wire_s"``."""
+    leaves, rebuild = tree_flatten(tree)
+    chunks = pack_chunks(leaves, cfg.chunk_elems)
+    if not chunks:              # every leaf zero-size: nothing to aggregate
+        return tree
+    plan = compile_plan(cfg)
+    dev = chunks[0].device
+    tp = ManualTransport(plan, mesh, dp_axes, device=dev)
+    outs = execute_chunks(plan, tp, [ch[None] for ch in chunks],
+                          SessionMeta.single(cfg.seed, device=dev))
+    if account is not None:
+        account["bytes_sent"] += tp.bytes_sent
+        for k, v in tp.link.seconds.items():
+            account["wire_s"][k] += v
+    return rebuild(unpack_chunks([o[0] for o in outs], leaves))
+
+
+# ---------------------------------------------------------------------------
+# Manual transport: one rank of a process group per protocol node
+# ---------------------------------------------------------------------------
+
+
+def _slice_of(mesh, dp_axes: Sequence[str], rank: int) -> tuple:
+    """``rank``'s coordinates on the mesh axes outside ``dp_axes``."""
+    return tuple(mesh.coord(ax, rank) for ax in mesh.axis_names
+                 if ax not in dp_axes)
+
+
+def _ranks_by_node(mesh, dp_axes: Sequence[str], sl: tuple) -> dict:
+    """node id -> global rank, over the ranks of slice ``sl``."""
+    return {flat_node_id(mesh, dp_axes, r): r for r in range(mesh.size)
+            if _slice_of(mesh, dp_axes, r) == sl}
+
+
+def _subgroup(mesh, dp_axes: Sequence[str], node_groups) -> tuple:
+    """(group, sorted member ranks) of this rank among ``node_groups``
+    (node ids), one group per node group in every slice of the other
+    axes.  ``dist.new_group`` is collective over the default group, so
+    every rank creates every group, in the same order, even those it is
+    not in; they are built once per (mesh, dp axes, node groups) and
+    cached on the mesh."""
+    key = (tuple(dp_axes), tuple(tuple(g) for g in node_groups))
+    if key not in mesh.groups:
+        mine = None
+        for sl in sorted({_slice_of(mesh, dp_axes, r)
+                          for r in range(mesh.size)}):
+            by_node = _ranks_by_node(mesh, dp_axes, sl)
+            for nodes in key[1]:
+                members = sorted(by_node[i] for i in nodes)
+                group = dist.new_group(members)
+                if mesh.rank in members:
+                    mine = (group, members)
+        mesh.groups[key] = mine
+    return mesh.groups[key]
+
+
+WIRE_KINDS = ("hop", "cluster", "gather")
+
+
+def wire_seconds() -> dict:
+    """A zeroed per-kind account of wire seconds."""
+    return dict.fromkeys(WIRE_KINDS, 0.0)
+
+
+class _Link:
+    """How bits reach the wire.  Gloo's point-to-point ops and
+    collectives take host memory, so a CUDA tensor over a gloo group is
+    staged through pinned host buffers (device to host, the transfer,
+    host to device); a CPU tensor goes as it is.  The choice is read from
+    the group's backend.  A CUDA tensor on any other backend (NCCL) is
+    refused: one card takes one NCCL rank, so no run has exercised that
+    wire yet.  ``seconds`` sums the host time spent staging and waiting
+    on transfers, by kind: the hops, the cluster sums and the gathers of
+    results."""
+
+    def __init__(self, mesh, device: torch.device):
+        self.device = device
+        self.stage = device.type == "cuda"
+        if self.stage and mesh.backend != "gloo":
+            raise ConfigError(
+                f"CUDA tensors over a {mesh.backend!r} group: only gloo "
+                "(staged through host memory) is supported")
+        self.seconds = wire_seconds()
+
+    def put(self, x: torch.Tensor, kind: str) -> torch.Tensor:
+        """The tensor to hand to ``torch.distributed`` for ``x``."""
+        if not self.stage:
+            return x.contiguous()
+        torch.cuda.current_stream(self.device).synchronize()
+        t0 = time.perf_counter()
+        h = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+        h.copy_(x)
+        self.seconds[kind] += time.perf_counter() - t0
+        return h
+
+    def zeros(self, like: torch.Tensor) -> torch.Tensor:
+        """A zeroed receive buffer shaped as ``like``, on the wire's side."""
+        if not self.stage:
+            return torch.zeros_like(like)
+        return torch.zeros(like.shape, dtype=like.dtype, pin_memory=True)
+
+    def empty(self, like: torch.Tensor) -> torch.Tensor:
+        """A buffer the transfer fills whole, on the wire's side."""
+        if not self.stage:
+            return torch.empty_like(like)
+        return torch.empty(like.shape, dtype=like.dtype, pin_memory=True)
+
+    def take(self, h: torch.Tensor, kind: str,
+             out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """A received wire tensor back on the run's device (into ``out``
+        where given)."""
+        if not self.stage:
+            return h if out is None else out.copy_(h)
+        t0 = time.perf_counter()
+        out = h.to(self.device) if out is None else out.copy_(h)
+        self.seconds[kind] += time.perf_counter() - t0
         return out
 
-    fn.last_bytes = None
-    return fn
+    def wait(self, works, kind: str) -> None:
+        t0 = time.perf_counter()
+        for w in works:
+            w.wait()
+        self.seconds[kind] += time.perf_counter() - t0
+
+
+def _pair_of(perm, nid: int) -> tuple:
+    """(node ``nid`` sends to, ``nid`` receives from) in one copy stream,
+    None where it does not.  Each stream is a partial permutation --
+    each source and each destination at most once -- as ``ppermute``
+    requires in the reference."""
+    srcs, dsts = [p[0] for p in perm], [p[1] for p in perm]
+    if len(set(srcs)) != len(srcs) or len(set(dsts)) != len(dsts):
+        raise ValueError(f"copy stream {perm} is not a partial permutation")
+    send_to = next((d for s, d in perm if s == nid), None)
+    recv_from = next((s for s, d in perm if d == nid), None)
+    return send_to, recv_from
+
+
+class ManualTransport(Transport):
+    """This rank's (S, T) rows, one rank per protocol node of ``mesh``
+    (node id ``flat_node_id`` over ``dp_axes``): hops are paired
+    ``isend`` / ``irecv``, the intra-cluster sum an ``all_reduce`` on the
+    rank's cluster group, the distributed reveal an ``all_gather``.
+
+    Every rank runs the same engine code over the same plan, so every
+    rank makes the same wires in the same order; a wire's tag is its
+    sequence number in this transport's run.  That gives each wire its
+    own tag -- payload stream s, digest stream s, the backup and the
+    chunk -- which matters where two of them share a (src, dst) pair and
+    are in flight at once: digest stream 1 and the backup stream (both
+    shift 1), or the hops of chunks k and k+1.  ``hop`` posts a round's
+    wires and returns them with the copies they fill; ``vote`` waits on
+    the wires it is handed before it reads a received buffer, so a
+    wrapper (``MeshTransport.wrap_inner``) may hold, reorder or re-issue
+    hops.  A wire made outside ``hop`` is waited on at once.  The shared
+    ``Transport._account`` counts the whole plan's wire bytes from its
+    pair lists, so every rank's ``bytes_sent`` equals the sim's account,
+    which equals ``schedules.schedule_cost``."""
+
+    def __init__(self, plan: AggPlan, mesh, dp_axes: Sequence[str] = ("data",),
+                 S: int = 1, impl: Optional[str] = None,
+                 shard_reveal: bool = False, *, device):
+        self.plan = plan
+        self.mesh = mesh
+        self.dp_axes = tuple(dp_axes)
+        self.S = S
+        self.bytes_sent = 0
+        self._static_faults = None
+        self.impl = impl if impl is not None else plan.cfg.kernel_impl
+        backend.check_impl(self.impl)
+        self.device = torch.device(device)
+        # distributed reveal: each rank decrypts only its 1/n slice of the
+        # revealed sessions (see ``reveal_rows``) instead of all S
+        self.shard_reveal = shard_reveal
+        for ax in self.dp_axes:
+            if ax not in mesh.shape:
+                raise ConfigError(f"dp axis {ax!r} is not a mesh axis "
+                                  f"{mesh.axis_names}")
+        self.node_id = flat_node_id(mesh, self.dp_axes)
+        self._ranks = _ranks_by_node(mesh, self.dp_axes,
+                                     _slice_of(mesh, self.dp_axes, mesh.rank))
+        if len(self._ranks) != plan.n_nodes:
+            raise ConfigError(
+                f"the plan has {plan.n_nodes} nodes, the mesh's dp axes "
+                f"{self.dp_axes} hold {len(self._ranks)} ranks")
+        self._pairs = {}
+        for rnd in plan.rounds:
+            if rnd not in self._pairs:
+                self._pairs[rnd] = (
+                    [_pair_of(p, self.node_id) for p in rnd.perms],
+                    _pair_of(rnd.backup_perm, self.node_id),
+                    rnd.participates[self.node_id])
+        self.link = _Link(mesh, self.device)
+        self._tag = 0
+        self._wires = None          # the wires of the hop being posted
+
+    def node_ids(self) -> torch.Tensor:
+        return torch.full((self.S,), self.node_id, dtype=torch.int32,
+                          device=self.device)
+
+    def expand(self, per_session: torch.Tensor) -> torch.Tensor:
+        return per_session.to(self.device)
+
+    def cluster_sum(self, q: torch.Tensor) -> torch.Tensor:
+        """All-reduce on the rank's cluster group.  The sum of int32 words
+        wraps mod 2^32, which is the ring's sum."""
+        if self.plan.cluster_size == 1:
+            return q
+        group, _ = _subgroup(self.mesh, self.dp_axes, self.plan.groups)
+        t = self.link.put(q, "cluster")
+        self.link.wait([dist.all_reduce(t, op=dist.ReduceOp.SUM,
+                                        group=group, async_op=True)],
+                       "cluster")
+        return self.link.take(t, "cluster")
+
+    # wire view: this rank's (S, T) rows; hops are point-to-point
+    def _sel(self, m: torch.Tensor) -> torch.Tensor:
+        if m.dim() == 1:
+            return m[self.node_id].reshape(1, 1).expand(self.S, 1)
+        return m[:, self.node_id][:, None]      # (S, 1) this rank's column
+
+    def _digest(self, x: torch.Tensor) -> torch.Tensor:
+        return digest_rows(x, self.plan.cfg.digest_words)
+
+    def _exchange(self, x: torch.Tensor, pair: tuple) -> torch.Tensor:
+        send_to, recv_from = pair
+        tag = self._tag
+        self._tag += 1
+        if send_to == self.node_id:
+            # a self-pair (src == dst): no schedule compiles one today,
+            # and a send to one's own rank raises, so it is a local copy
+            return x.clone()
+        # ppermute zero-fills: a rank that is no pair's destination
+        # receives zeros (tree rounds have such ranks)
+        out = torch.zeros_like(x)
+        ops, sent, buf = [], None, None
+        if send_to is not None:
+            sent = self.link.put(x, "hop")
+            ops.append(dist.P2POp(dist.isend, sent, self._ranks[send_to],
+                                  tag=tag))
+        if recv_from is not None:
+            buf = self.link.zeros(x) if self.link.stage else out
+            ops.append(dist.P2POp(dist.irecv, buf, self._ranks[recv_from],
+                                  tag=tag))
+        if ops:
+            wire = (dist.batch_isend_irecv(ops), sent, buf, out)
+            if self._wires is None:
+                self._land([wire])
+            else:
+                self._wires.append(wire)
+        return out
+
+    def _land(self, wires: list) -> None:
+        """Wait on ``wires`` and bring staged receives to their outputs."""
+        for works, _sent, buf, out in wires:
+            self.link.wait(works, "hop")
+            if buf is not None and buf is not out:
+                self.link.take(buf, "hop", out)
+
+    def _move(self, rnd: HopRound, stream: int, x: torch.Tensor
+              ) -> torch.Tensor:
+        return self._exchange(x, self._pairs[rnd][0][stream])
+
+    def _move_backup(self, rnd: HopRound, x: torch.Tensor) -> torch.Tensor:
+        return self._exchange(x, self._pairs[rnd][1])
+
+    def hop(self, rnd: HopRound, rnd_idx: int, meta: SessionMeta,
+            acc: torch.Tensor):
+        """(the round's posted wires, the copies they fill)."""
+        self._wires = []
+        copies = super().hop(rnd, rnd_idx, meta, acc)
+        wires, self._wires = self._wires, None
+        return wires, copies
+
+    def vote(self, rnd: HopRound, inflight, base: torch.Tensor
+             ) -> torch.Tensor:
+        wires, copies = inflight
+        self._land(wires)
+        return super().vote(rnd, copies, base)
+
+    def select(self, rnd: HopRound, voted: torch.Tensor,
+               acc: torch.Tensor) -> torch.Tensor:
+        return voted if self._pairs[rnd][2] else acc
+
+    def reveal_rows(self, accs: list, meta: SessionMeta):
+        seeds = self.expand(meta.seeds)
+        offs = self.expand(meta.offsets)
+        if not self.shard_reveal:
+            # every rank decrypts its own (identical) copy
+            return accs, seeds, offs
+        # Distributed reveal: after the voted rounds every rank holds the
+        # identical (S, T) aggregate, so each rank decrypts only rows
+        # [nid*S_loc, (nid+1)*S_loc) of the zero-padded sessions, with
+        # the matching seed / offset slice; ``gather`` concatenates the
+        # slices back and the caller drops the padding past S.
+        n = self.plan.n_nodes
+        s_loc = -(-self.S // n)
+        pad = n * s_loc - self.S
+        start = self.node_id * s_loc
+
+        def sl(a):
+            if pad:
+                a = torch.cat([a, a.new_zeros((pad,) + tuple(a.shape[1:]))])
+            return a[start:start + s_loc].contiguous()
+
+        return [sl(a) for a in accs], sl(seeds), sl(offs)
+
+    def gather(self, x: torch.Tensor) -> list:
+        """Every node's ``x`` (equal shapes), in node order, on every rank
+        of the dp slice."""
+        n = self.plan.n_nodes
+        group, members = _subgroup(self.mesh, self.dp_axes, [tuple(range(n))])
+        t = self.link.put(x, "gather")
+        parts = [self.link.empty(x) for _ in members]
+        self.link.wait([dist.all_gather(parts, t, group=group,
+                                        async_op=True)], "gather")
+        return [self.link.take(parts[members.index(self._ranks[i])],
+                               "gather") for i in range(n)]
+
+
+# ---------------------------------------------------------------------------
+# Mesh transport: the global batch on every rank, ManualTransport inside
+# ---------------------------------------------------------------------------
+
+
+class MeshTransport:
+    """Distributed plan execution: one rank per protocol node.
+
+    Every rank calls ``execute`` with the global (S, n, T) batch and
+    runs :class:`ManualTransport` on its own column, as the reference's
+    ``shard_map`` in-spec hands each device its slice; the per-node
+    results come back to every rank by ``all_gather``.  Bit-identical to
+    ``SimTransport`` for the same plan.  ``last_bytes`` holds the inner
+    transport's wire account, ``last_wire_s`` its staging and transfer
+    seconds by kind (``WIRE_KINDS``), after an ``execute``."""
+
+    def __init__(self, mesh, dp_axes: Sequence[str] = ("data",),
+                 impl: Optional[str] = None, wrap_inner=None):
+        self.mesh = mesh
+        self.dp_axes = tuple(dp_axes)
+        self.impl = impl
+        # optional hook wrapping the per-rank ManualTransport (e.g. the
+        # service's chaos injection); it must keep the Transport protocol,
+        # and may hold, reorder or re-issue hops: each hop's value carries
+        # the wires its vote waits on
+        self.wrap_inner = wrap_inner
+        self.last_bytes: Optional[int] = None
+        self.last_wire_s: Optional[dict] = None
+        n = 1
+        for ax in self.dp_axes:
+            if ax not in mesh.shape:
+                raise ConfigError(f"dp axis {ax!r} is not a mesh axis "
+                                  f"{mesh.axis_names}")
+            n *= mesh.shape[ax]
+        self.n_devices = n
+
+    def execute(self, plan: AggPlan, xs: torch.Tensor, meta: SessionMeta,
+                *, reveal_only: bool = False) -> torch.Tensor:
+        """xs: (S, n_nodes, T) per-session / per-node payloads on this
+        rank's device -> (S, n_nodes, T) per-node results, or (S, T) with
+        ``reveal_only`` (the distributed reveal: each rank decrypts its
+        1/n slice of the sessions and the slices are gathered)."""
+        S, n, T = xs.shape
+        if not n == plan.n_nodes == self.n_devices:
+            raise ValueError(f"xs has {n} nodes, the plan "
+                             f"{plan.n_nodes}, the mesh {self.n_devices}")
+        tp = ManualTransport(plan, self.mesh, self.dp_axes, S=S,
+                             impl=self.impl, shard_reveal=reveal_only,
+                             device=xs.device)
+        run_tp = tp if self.wrap_inner is None else self.wrap_inner(tp)
+        xl = xs[:, tp.node_id, :].to(torch.float32).contiguous()
+        (out,) = execute_chunks(plan, run_tp, [xl], meta,
+                                reveal_only=reveal_only)
+        parts = tp.gather(out)
+        self.last_bytes = tp.bytes_sent
+        self.last_wire_s = dict(tp.link.seconds)
+        if reveal_only:
+            return torch.cat(parts)[:S]
+        return torch.stack(parts, dim=1)

@@ -123,22 +123,35 @@ class Runtime:
 
     ``kernel_impl``: ``None`` (the CUDA kernels for CUDA tensors, the
     plain versions for CPU tensors), ``"cuda"`` or ``"torch"`` (the plain
-    versions on any device).  ``backend``: ``"auto"`` and ``"sim"`` both
-    mean the single-device oracle; ``"manual"`` and ``"mesh"`` raise, as
-    their transports come with the distributed slice."""
+    versions on any device).  ``backend`` picks the engine transport the
+    one-shot facade verbs run on: ``"sim"`` (single-device oracle),
+    ``"manual"`` (each rank of a process group passes its own value;
+    ``mesh`` or, without one, the ``node_mesh`` of the group), ``"mesh"``
+    (every rank passes the global batch; needs ``mesh``), or ``"auto"``
+    (mesh when one is given, sim otherwise).  ``mesh`` is a
+    :class:`~repro_torch.runtime.compat.NodeMesh`."""
     kernel_impl: Optional[str] = None   # None | cuda | torch
-    backend: str = "auto"               # auto | sim
+    backend: str = "auto"               # auto | sim | manual | mesh
+    mesh: Optional[object] = None       # NodeMesh for "mesh" / "manual"
+    dp_axes: tuple = ("data",)
 
     def __post_init__(self):
-        _require(self.backend not in ("manual", "mesh"),
-                 f"backend={self.backend!r} is not ported yet; it comes "
-                 "with the distributed slice (ROADMAP Queue 1 item 5)")
-        _require(self.backend in ("auto", "sim"),
+        _require(self.backend in ("auto", "sim", "manual", "mesh"),
                  f"unknown backend {self.backend!r}; pick one of "
-                 "['auto', 'sim']")
+                 "['auto', 'sim', 'manual', 'mesh']")
         _require(self.kernel_impl in IMPLS,
                  f"unknown kernel_impl {self.kernel_impl!r}; pick one of "
                  f"{list(IMPLS)}")
+        _require(self.backend != "mesh" or self.mesh is not None,
+                 "backend='mesh' needs a mesh: pass "
+                 "Runtime(backend='mesh', mesh=compat.node_mesh(n))")
+        object.__setattr__(self, "dp_axes", tuple(self.dp_axes))
+
+    def resolve(self) -> str:
+        """The effective backend ('auto' resolved)."""
+        if self.backend != "auto":
+            return self.backend
+        return "mesh" if self.mesh is not None else "sim"
 
 
 @dataclasses.dataclass(frozen=True)

@@ -96,7 +96,10 @@ mask_kernel(const float* __restrict__ x, const uint32_t* __restrict__ seeds,
     q[k] = 0;
     if (e < N) {
       row[k] = e / T;
-      const float v = fminf(fmaxf(x[e], -clip), clip);
+      // NaN quantizes to 0, as XLA's conversion does in the reference:
+      // an explicit select, since fmaxf would return -clip for a NaN
+      const float xe = x[e];
+      const float v = isnan(xe) ? 0.0f : fminf(fmaxf(xe, -clip), clip);
       q[k] = (uint32_t)__float2int_rn(__fmul_rn(v, scale));
       ctr[k] = offsets[row[k]] + (uint32_t)(e - row[k] * T);
     }

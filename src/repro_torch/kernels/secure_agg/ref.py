@@ -56,10 +56,14 @@ def total_pad(n_nodes: int, seed: torch.Tensor, ctr: torch.Tensor
 
 
 def quantize_f32(x: torch.Tensor, scale: float, clip: float) -> torch.Tensor:
-    """clip to +-clip, times float32(scale), round half to even -> int32."""
+    """clip to +-clip, times float32(scale), round half to even -> int32.
+    NaN quantizes to 0, as XLA's float-to-int conversion does in the
+    reference; torch's cast is platform-defined there (-2^31 on the CPU),
+    so NaN is sent to 0 before it.  +-Inf clip to +-clip."""
     c = f32(clip)
     s = torch.tensor(f32(scale), dtype=torch.float32, device=x.device)
     xq = torch.clamp(x.to(torch.float32), -c, c) * s
+    xq = torch.where(torch.isnan(xq), torch.zeros_like(xq), xq)
     return torch.round(xq).to(torch.int32)
 
 

@@ -111,6 +111,26 @@ def test_convert_round_trips():
     assert np.array_equal(words_to_numpy(words_from_numpy(w)), w)
 
 
+def test_nan_payload_allreduce_matches_reference():
+    """A NaN payload element quantizes to 0 on both sides (XLA's NaN to
+    int conversion), so the revealed sums stay bit-equal; +-Inf clip and
+    -0.0 rows alongside."""
+    n, T = 8, 16
+    jcfg = J.AggConfig(n_nodes=n, cluster_size=4, redundancy=3)
+    ja = J.SecureAggregator(jcfg)
+    pa = P.SecureAggregator(config_from_fields(dataclasses.asdict(jcfg)),
+                            device="cpu")
+    xs = (RNG.normal(size=(n, T)) * 0.2).astype(np.float32)
+    xs[2, 5] = np.nan
+    xs[3, 1], xs[4, 1], xs[6, 7] = np.inf, -np.inf, -0.0
+    want = np.asarray(ja.allreduce(xs))
+    got = pa.allreduce(torch.from_numpy(xs)).numpy()
+    assert np.array_equal(got, want)
+    zeroed = xs.copy()
+    zeroed[2, 5] = 0.0
+    assert np.array_equal(got[:, 5], np.asarray(ja.allreduce(zeroed))[:, 5])
+
+
 def test_no_device_means_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -128,10 +148,18 @@ def test_later_slices_raise_config_error():
             getattr(agg, verb)()
     with pytest.raises(P.ConfigError, match="not ported yet"):
         agg.cost(fn="histogram")
-    for backend in ("manual", "mesh"):
-        with pytest.raises(P.ConfigError, match="distributed slice"):
-            P.SecureAggregator(topology=P.Topology(n_nodes=8), device="cpu",
-                               runtime=P.Runtime(backend=backend))
+    # the distributed backends are ported: 'mesh' needs a mesh, as in the
+    # reference; 'manual' needs a started process group (none here) and
+    # never falls back to the sim oracle; it has no batched verb
+    with pytest.raises(P.ConfigError, match="needs a mesh"):
+        P.Runtime(backend="mesh")
+    manual = P.SecureAggregator(topology=P.Topology(n_nodes=8), device="cpu",
+                                runtime=P.Runtime(backend="manual"))
+    assert manual.stats()["backend"] == "manual"
+    with pytest.raises(P.ConfigError, match="process group"):
+        manual.allreduce(torch.zeros(4))
+    with pytest.raises(P.ConfigError, match="'manual' backend"):
+        manual.allreduce_batched(torch.zeros(2, 8, 4))
     with pytest.raises(P.ConfigError, match="not ported yet"):
         P.SecureAggregator(topology=P.Topology(n_nodes=8), device="cpu",
                            tune="auto")
@@ -147,7 +175,8 @@ def test_import_leaves_jax_and_repro_out():
             "repro_torch.convert, repro_torch.kernels.build, "
             "repro_torch.kernels.modmul, repro_torch.crypto.paillier, "
             "repro_torch.core.protocol, repro_torch.core.baseline_nl, "
-            "repro_torch.core.lower_bound; "
+            "repro_torch.core.lower_bound, repro_torch.runtime, "
+            "repro_torch.runtime.compat, repro_torch.launch.selftest; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); "
             "sys.exit(1 if bad else 0)")
@@ -171,6 +200,9 @@ def test_port_sources_import_neither_jax_nor_repro():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 10
+    names = {f.relative_to(ROOT).as_posix() for f in files}
+    assert {"src/repro_torch/runtime/compat.py",
+            "src/repro_torch/launch/selftest.py"} <= names
     for f in files:
         bad = _imported_roots(f) & {"jax", "jaxlib", "repro"}
         assert not bad, f"{f.relative_to(ROOT)} imports {sorted(bad)}"

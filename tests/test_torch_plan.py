@@ -142,9 +142,15 @@ def test_invalid_knobs_raise_config_error(kw, needle):
 
 
 def test_runtime_negatives_replace_and_derive():
-    for backend in ("manual", "mesh"):
-        with pytest.raises(TP.ConfigError, match="not ported yet"):
-            TP.Runtime(backend=backend)
+    # the distributed backends, as in the reference: 'mesh' without a
+    # mesh raises; 'auto' resolves to 'mesh' exactly when one is given
+    for mod in (TP, JP):
+        with pytest.raises(mod.ConfigError, match="needs a mesh"):
+            mod.Runtime(backend="mesh")
+        assert mod.Runtime(backend="manual").resolve() == "manual"
+        assert mod.Runtime().resolve() == "sim"
+        assert mod.Runtime(mesh=object()).resolve() == "mesh"
+    assert TP.Runtime(dp_axes=["pod", "data"]).dp_axes == ("pod", "data")
     with pytest.raises(TP.ConfigError, match="unknown backend"):
         TP.Runtime(backend="tpu")
     cfg = TP.AggConfig(n_nodes=16, cluster_size=4, redundancy=3)

@@ -60,6 +60,34 @@ def test_mask_encrypt_batch_matches_reference(T, impl, mode, c):
     assert np.array_equal(words_to_numpy(one), want[1])
 
 
+# NaN, +-Inf and -0.0 rows: XLA converts NaN to int 0, so the reference
+# quantizes NaN to 0 and +-Inf to +-clip; -0.0 quantizes to 0
+NONFINITE = np.array([np.nan, np.inf, -np.inf, -0.0, 0.25, np.nan, -np.inf,
+                      np.inf], np.float32)
+
+
+@pytest.mark.parametrize("mode,c", [("mask", 0), ("quantize", 0),
+                                    ("pairwise", 2), ("pairwise", 4)])
+@pytest.mark.parametrize("impl", ["pallas_interpret", "jnp"])
+def test_mask_encrypt_nonfinite_rows_match_reference(impl, mode, c):
+    x = np.stack([NONFINITE, NONFINITE[::-1].copy(),
+                  np.full(8, np.nan, np.float32)])
+    node_ids = np.array([0, 5, 6], np.uint32)
+    seeds = np.array([7, 8, 9], np.uint32)
+    want = np.asarray(J.mask_encrypt_batch_fn(
+        jnp.asarray(x), jnp.asarray(node_ids), jnp.asarray(seeds), SCALE,
+        CLIP, mode=mode, offsets=jnp.asarray(OFFSETS), cluster_size=c,
+        impl=impl))
+    got = P.mask_encrypt_batch_fn(torch.from_numpy(x), node_ids, seeds,
+                                  SCALE, CLIP, mode=mode, offsets=OFFSETS,
+                                  cluster_size=c)
+    assert np.array_equal(words_to_numpy(got), want)
+    if mode == "quantize":
+        q = words_to_numpy(got).view(np.int32)
+        assert (q[2] == 0).all()                       # NaN -> 0
+        assert q[0].tolist()[:4] == [0, int(SCALE), -int(SCALE), 0]
+
+
 @pytest.mark.parametrize("mode,n", [("mask", 1), ("mask", 4), ("mask", 64),
                                     ("dequantize", 64)])
 @pytest.mark.parametrize("T,impl", CASES)
