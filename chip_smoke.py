@@ -33,6 +33,26 @@ with a non-zero exit code:
            executed wire bytes equal to ``cost``, kernel launch counts;
            then the digest transport and a flip adversary
   batched  ``allreduce_batched`` with S = 64 sessions of n = 16, T = 2^16
+  service  the multi-session service on the card.  (a) the steady
+           stream: 256 sessions of T = 2^16 a node at the main cell's
+           protocol (n = 64, c = 4, ring, r = 3, global masking), batches
+           of 16 rows, 4 GiB of contributions, sealed and pumped through
+           the admission queue at depth 2 (the launch counts are read on
+           this run: 1 / 15 / 1 a batch), then at depth 1 and on the
+           plain versions -- every session equal across the three, a
+           sample equal to a one-shot ``allreduce`` of its payload and
+           seed, wire bytes equal to ``cost`` times the rows; sessions/s,
+           the stage means of the obs registry, peak memory and the busy
+           share of one profiled batch.  (b) mixed traffic: T in {1,000;
+           5,000; 2^16; 2^20} with rows of 2^16 (the 2^20 session chunks
+           across 16 rows and equals the monolithic allreduce bit for
+           bit), pairwise-masked and digest sessions under their own
+           batch keys, a Byzantine flip and an epoch advance while
+           sessions are queued.  (c) dispatch chaos at p = 0.35 under
+           seeds 0, 1, 2 and a poison session bisected out, at n = 8, T =
+           16, S = 8, on the card and on the CPU: equal dead letters,
+           quarantines and TickClock trace sha256, every revealed session
+           equal to the fault-free run
   mesh     the distributed transports: 16 rank processes on the card over
            a gloo group (every wire staged through pinned host memory,
            the kernels in every rank), after the parent's port sim on the
@@ -47,7 +67,13 @@ with a non-zero exit code:
            absorbs), equal to the sim under the same flips and unequal
            to the honest sum, which shows the flips reach the ranks; (d)
            ``allreduce_batched`` of S = 16 sessions of T = 2^16 by the
-           distributed reveal.  Medians of 5 warm runs of (a) and (b) as
+           distributed reveal; (e) the service on the mesh transport,
+           every rank its own copy over the same calls: 4 batches of 16
+           sessions of T = 2^16 at depth 2, every rank's rows equal to the
+           parent's sim service by sha256, a hop fault recovered bit for
+           bit, and dispatch chaos on the mesh tripping the breaker so the
+           batch runs degraded on the sim; the slowest rank's seconds a
+           batch.  Medians of 5 warm runs of (a) and (b) as
            the slowest rank's wall ms, each rank's wire ms and profiled
            kernel ms, peak memory per rank
   paillier threshold Paillier at full width (1024-bit n, fixed committed
@@ -81,7 +107,8 @@ with a non-zero exit code:
 The last lines are the card's name and power limit, one JSON object
 describing every kernel (``max_abs_err`` from the kernels phase,
 ``launches`` on its phase's path, ``mesh_launches_per_rank`` in the mesh
-phase's (a); each null where its phase did not run), and ``{"ok": true, "device": {...}}``.  Without
+phase's (a), ``service_launches`` on the service phase's depth-2 stream;
+each null where its phase did not run), and ``{"ok": true, "device": {...}}``.  Without
 a CUDA device the script fails before printing any result.  Imports
 nothing of JAX or of the JAX package.
 """
@@ -106,8 +133,8 @@ import torch
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
 
-PHASES = ("device", "build", "kernels", "main", "batched", "mesh",
-          "paillier", "serve", "timing")
+PHASES = ("device", "build", "kernels", "main", "batched", "service",
+          "mesh", "paillier", "serve", "timing")
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 # 32-bit lane operations issued per second: 132 SMs x 128 lanes x
 # 1.98 GHz, half the 67 TFLOP/s float32 FMA rate (an FMA counts two FLOPs)
@@ -128,7 +155,8 @@ N_MAIN, C_MAIN, T_MAIN = 64, 4, 1 << 22
 # members a cluster, which it cannot
 N_MESH = 16
 MESH_SHAPE = {"T": 1 << 22, "chunk": 1 << 16, "S": 16, "T_batch": 1 << 16,
-              "runs": 5}
+              "runs": 5, "svc_S": 16, "svc_T": 1 << 16, "svc_batches": 4,
+              "svc_pool": 1 << 22}
 MESH_FLIP = (0, 4, 8, 12)
 MESH_FLIP_OVER = (0, 1, 4, 5, 8, 9, 12, 13)
 SPLITMIX_OPS = 9              # add, 3 shifts, 3 xors, 2 multiplies
@@ -698,6 +726,331 @@ def phase_batched(rng, dev) -> dict:
             "bytes_sent": agg.stats()["bytes_sent"]}
 
 
+# service: (a) the steady stream at the main cell's protocol, (b) mixed
+# traffic with a chunked 2^20 session, (c) resilience at the reference
+# grid's small size, on the card and on the CPU
+SERVICE_SHAPE = {"sessions": 256, "T": 1 << 16, "max_batch": 16,
+                 "mixed_T": (1000, 5000, 1 << 16, 1 << 20),
+                 "row": 1 << 16, "pool": 1 << 25}
+SERVICE_CHAOS_SEEDS = (0, 1, 2)
+
+
+def _pool(seed: int, size: int) -> np.ndarray:
+    """A seeded float32 pool that sessions take their payloads from as
+    views (distinct offsets per session and slot): the stream's 4 GiB of
+    contributions without 4 GiB of draws."""
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal(size, np.float32) * 0.3).clip(-0.95, 0.95)
+
+
+def _payload(pool: np.ndarray, key: int, T: int) -> np.ndarray:
+    off = (key * 40_009) % (pool.shape[0] - T)
+    return pool[off:off + T]
+
+
+def _open_sessions(svc, pool, count: int, T: int, *, params=None,
+                   first_key: int = 0, now=None) -> list:
+    n = (params or svc.default_params).n_nodes
+    out = []
+    for i in range(count):
+        s = svc.open(params=params, now=now)
+        for slot in range(n):
+            s.contribute(slot, _payload(pool, (first_key + i) * n + slot, T))
+        svc.seal(s.sid, now=now)
+        out.append(s)
+    return out
+
+
+def _stream_service(dev, depth: int, T: int, max_batch: int, impl=None):
+    """(a)'s service: the main cell's protocol, sessions of T."""
+    from repro_torch.service import (AggregationService, BatchingConfig,
+                                     SessionParams, StreamConfig)
+    params = SessionParams(n_nodes=N_MAIN, elems=T, cluster_size=C_MAIN,
+                           redundancy=3, schedule="ring", masking="global")
+    return AggregationService(
+        params, kernel_impl=impl, device=dev,
+        batching=BatchingConfig(max_batch=max_batch),
+        stream=StreamConfig(depth=depth))
+
+
+def _run_stream(dev, pool, shape: dict, depth: int, impl=None) -> tuple:
+    """(a)'s stream through a fresh service: every session opened and
+    sealed, then one pump flushes the backlog as full batches (size
+    watermark), ``depth`` slots in flight.  (sessions, seconds, service)."""
+    svc = _stream_service(dev, depth, shape["T"], shape["max_batch"], impl)
+    ss = _open_sessions(svc, pool, shape["sessions"], shape["T"])
+    _sync(dev)
+    t0 = time.perf_counter()
+    ran = svc.pump()
+    _sync(dev)
+    secs = time.perf_counter() - t0
+    check(ran == shape["sessions"], f"service (a): {ran} sessions ran")
+    return ss, secs, svc
+
+
+def _stage_means(svc) -> dict:
+    from repro_torch.obs import metrics as M
+    hist = svc.metrics.snapshot()["histograms"]
+    return {st: hist.get(f"{M.H_STAGE}{{stage={st}}}", {}).get("mean")
+            for st in M.STAGES}
+
+
+def phase_service(dev, seed: int, shape: Optional[dict] = None
+                  ) -> tuple[dict, dict]:
+    """The multi-session service on the card: (a) the steady stream,
+    (b) mixed traffic, (c) resilience against the CPU.  Returns the
+    phase's line and the kernel launches of (a)'s depth-2 stream."""
+    from repro_torch import SecureAggregator, Security, Topology
+    from repro_torch.kernels import backend
+    shape = dict(SERVICE_SHAPE if shape is None else shape)
+    pool = _pool(seed, shape["pool"])
+    on_card = dev.type == "cuda"
+    # warm-up: one batch builds the kernels' library, the round index and
+    # the pinned pools, so the timed runs see a running service
+    warm = dict(shape, sessions=shape["max_batch"])
+    _run_stream(dev, pool, warm, 2)
+
+    # (a) the steady stream: depth 2 (the path the counts are read on),
+    # then depth 1, then the plain versions
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    backend.reset_launch_counts()
+    ss2, secs2, svc2 = _run_stream(dev, pool, shape, 2)
+    launches = backend.launch_counts()
+    peak = torch.cuda.max_memory_allocated() if on_card else None
+    batches = svc2.executor.batches_run
+    check(batches == shape["sessions"] // shape["max_batch"],
+          f"service (a): {batches} batches")
+    per_batch = {k.name: launches[k.name] / batches
+                 for k in backend.SECURE_AGG}
+    rounds = N_MAIN // C_MAIN - 1
+    if on_card:
+        check(per_batch == {"mask_encrypt": 1, "unmask_decrypt": 1,
+                            "vote_combine": rounds},
+              f"service (a): launches per batch {per_batch}")
+    cost = SecureAggregator(**_main_cfg(), device=dev).cost(shape["T"])
+    wire = svc2.executor.wire_bytes
+    check(wire == cost["bytes_total"] * shape["sessions"],
+          f"service (a): wire bytes {wire} != cost x rows")
+    stages = _stage_means(svc2)
+    ss1, secs1, _ = _run_stream(dev, pool, shape, 1)
+    before = backend.launch_counts()
+    ssp, secsp, _ = _run_stream(dev, pool, shape, 2, impl="torch")
+    check(backend.launch_counts() == before,
+          "service (a): the plain-version stream launched a kernel")
+    for a, b, c in zip(ss2, ss1, ssp):
+        check(torch.equal(a.result, b.result),
+              f"service (a): session {a.sid} depth 2 != depth 1")
+        check(torch.equal(a.result, c.result),
+              f"service (a): session {a.sid} kernels != plain versions")
+    del ss1, ssp
+    sample = ss2[::max(1, len(ss2) // 4)][:4]
+    for s in sample:
+        one = SecureAggregator(**_main_cfg(security={"seed": s.seed}),
+                               device=dev)
+        xs = torch.stack([torch.from_numpy(_payload(pool, s.sid * N_MAIN + i,
+                                                    shape["T"]))
+                          for i in range(N_MAIN)]).to(dev)
+        check(torch.equal(one.allreduce(xs)[0].cpu(), s.result),
+              f"service (a): session {s.sid} != one-shot allreduce")
+    del ss2, svc2
+
+    # one profiled warm batch: the device's busy share
+    svc = _stream_service(dev, 2, shape["T"], shape["max_batch"])
+    _open_sessions(svc, pool, shape["max_batch"], shape["T"])
+    svc.pump()
+    _open_sessions(svc, pool, shape["max_batch"], shape["T"])
+    prof = (profile_device(lambda: svc.pump(), parts=(
+        "::mask_kernel", "::vote_kernel", "::unmask_kernel", "Memcpy"))
+        if on_card else None)
+    del svc
+
+    mixed = _phase_service_mixed(dev, pool, shape)
+    chaos = _phase_service_chaos(dev)
+    T, S = shape["T"], shape["sessions"]
+    line = {"phase": "service", "n_nodes": N_MAIN, "T": T, "sessions": S,
+            "max_batch": shape["max_batch"],
+            "contribution_bytes": 4 * S * N_MAIN * T,
+            "sessions_per_s": {"depth2": S / secs2, "depth1": S / secs1,
+                               "plain_depth2": S / secsp},
+            "pump_s": {"depth2": secs2, "depth1": secs1,
+                       "plain_depth2": secsp},
+            "stage_mean_s": stages, "launches_per_batch": per_batch,
+            "wire_bytes": wire, "peak_mem_bytes": peak,
+            "equal_plain": True, "equal_depth1": True,
+            "equal_one_shot": [s.sid for s in sample],
+            "profiled_batch": None if prof is None else {
+                "wall_ms": prof["profiled_wall_s"] * 1e3,
+                "device_busy_ms": prof["device_busy_ms"],
+                "device_busy_share": prof["device_busy_share"],
+                "by_part": prof["by_part"],
+                "by_kernel_ms": prof["by_kernel_ms"][:8]},
+            "mixed": mixed, "chaos": chaos}
+    return line, {k.name: launches[k.name] for k in backend.KERNELS}
+
+
+def _phase_service_mixed(dev, pool, shape: dict) -> dict:
+    """(b): sessions of every length in ``mixed_T`` (the longest chunked
+    across rows of ``row``), pairwise-masked and digest-transport
+    sessions under their own batch keys, a Byzantine flip injected into
+    a session in flight and an epoch advance (joins) while sessions are
+    queued.  Every session ends revealed within the quantization bound
+    of its plain sum; the chunked session equals the monolithic one-shot
+    allreduce bit for bit."""
+    import dataclasses as dc
+    from repro_torch import SecureAggregator
+    from repro_torch.core.masking import quantization_error_bound
+    from repro_torch.core.overlay import build_overlay
+    from repro_torch.runtime.fault import SessionFaultPlan
+    from repro_torch.service import (AggregationService, BatchingConfig,
+                                     EpochManager, SessionParams,
+                                     StreamConfig)
+    em = EpochManager(build_overlay(1024, 0.2, seed=3), cluster_size=C_MAIN,
+                      n_clusters=N_MAIN // C_MAIN)
+    base = SessionParams(n_nodes=N_MAIN, elems=shape["mixed_T"][0],
+                         cluster_size=C_MAIN, redundancy=3)
+    svc = AggregationService(
+        base, epochs=em, device=dev, stream=StreamConfig(depth=2),
+        batching=BatchingConfig(max_batch=shape["max_batch"],
+                                max_row_elems=shape["row"],
+                                pad_buckets=(1024, 4096, 16384, 65536)))
+    kinds = []
+    for T in shape["mixed_T"]:
+        kinds.append(("global", dc.replace(base, elems=T)))
+    kinds.append(("pairwise", dc.replace(base, elems=shape["mixed_T"][1],
+                                         masking="pairwise", clip=1.0)))
+    kinds.append(("digest", dc.replace(base, elems=shape["mixed_T"][2],
+                                       transport="digest")))
+    sessions, key = [], 0
+    epoch0 = em.current().epoch
+    for rep in range(2):
+        for name, params in kinds:
+            (s,) = _open_sessions(svc, pool, 1, params.elems, params=params,
+                                  first_key=key)
+            key += 1
+            sessions.append((name, s))
+        if rep == 0:
+            # in flight: a Byzantine flip on one member of one cluster of
+            # a sealed session, then an epoch advance
+            sessions[0][1].inject_fault(SessionFaultPlan(byzantine_slots=(1,)))
+            em.churn(joins=8)
+    check(em.current().epoch == epoch0 + 1, "service (b): epoch advance")
+    check(sessions[-1][1].epoch.epoch == epoch0 + 1
+          and sessions[0][1].epoch.epoch == epoch0,
+          "service (b): sessions pinned to their epochs")
+    _sync(dev)
+    t0 = time.perf_counter()
+    ran = svc.drain()
+    _sync(dev)
+    secs = time.perf_counter() - t0
+    check(ran == len(sessions), f"service (b): {ran} of {len(sessions)} ran")
+    errs = {}
+    for name, s in sessions:
+        check(s.state.value == "revealed", f"service (b): {name} {s.sid}")
+        n = s.params.n_nodes
+        xs = np.stack([_payload(pool, s.sid * n + i, s.params.elems)
+                       for i in range(n)])
+        mcfg = s.params.agg_config().mask_cfg()
+        err = float(np.abs(s.result.numpy().astype(np.float64)
+                           - xs.astype(np.float64).sum(0)).max())
+        check(err <= 4 * quantization_error_bound(mcfg),
+              f"service (b): {name} session {s.sid} err {err}")
+        errs[f"{name}:{s.params.elems}"] = max(errs.get(
+            f"{name}:{s.params.elems}", 0.0), err)
+    big = [s for name, s in sessions if s.params.elems == max(
+        shape["mixed_T"])]
+    rows = big[0].n_rows(shape["row"])
+    for s in big:
+        one = SecureAggregator(**_main_cfg(security={"seed": s.seed}),
+                               device=dev)
+        xs = torch.stack([torch.from_numpy(_payload(
+            pool, s.sid * N_MAIN + i, s.params.elems))
+            for i in range(N_MAIN)]).to(dev)
+        check(torch.equal(one.allreduce(xs)[0].cpu(), s.result),
+              f"service (b): chunked session {s.sid} != monolithic")
+    return {"sessions": len(sessions), "seconds": secs,
+            "chunked_rows": rows, "chunked_equal_monolithic": True,
+            "batch_sizes": list(svc.queue.batch_sizes),
+            "flip_absorbed": True, "epochs": [epoch0, epoch0 + 1],
+            "max_err_by_kind": errs}
+
+
+def _chaos_service(dev, seed: Optional[int], poison: bool, sink):
+    """(c)'s service at the reference grid's size, traced under a
+    TickClock into ``sink``."""
+    from repro_torch.obs import TickClock, TraceRecorder
+    from repro_torch.runtime.chaos import ChaosConfig
+    from repro_torch.runtime.resilience import RetryPolicy
+    from repro_torch.service import (AggregationService, BatchingConfig,
+                                     SessionParams)
+    chaos = None
+    if poison:
+        chaos = ChaosConfig(mode="dispatch", poison_sids=(3,))
+    elif seed is not None:
+        chaos = ChaosConfig(mode="dispatch", p=0.35, seed=seed)
+    return AggregationService(
+        SessionParams(n_nodes=8, elems=16, cluster_size=4, redundancy=3),
+        batching=BatchingConfig(max_batch=4, max_age=1e9),
+        retry=RetryPolicy(max_attempts=2, base_backoff_s=0),
+        chaos=chaos, device=dev,
+        recorder=TraceRecorder(clock=TickClock(), sink=sink))
+
+
+def _phase_service_chaos(dev) -> dict:
+    """(c): dispatch chaos at p = 0.35 under seeds 0, 1, 2 and a poison
+    session bisected out, each on the card and on the CPU: the dead
+    letters, the quarantines and the TickClock JSONL's sha256 equal, and
+    every revealed session equal to the fault-free run."""
+    import io
+    from repro_torch.runtime.chaos import ChaosError
+    vals = (np.random.default_rng(23).standard_normal((8, 8, 16), np.float32)
+            * 0.3)
+
+    def run(d, seed, poison):
+        buf = io.StringIO()
+        svc = _chaos_service(d, seed, poison, buf)
+        ss = []
+        for i in range(8):
+            s = svc.open(now=0.0)
+            for slot in range(8):
+                s.contribute(slot, vals[i, slot])
+            svc.seal(s.sid, now=0.0)
+            ss.append(s)
+        try:
+            svc.drain()
+        except ChaosError:
+            pass
+        svc.recorder.close()
+        return (ss, svc.executor.dead_letter,
+                svc.stats["resilience"]["quarantined"],
+                hashlib.sha256(buf.getvalue().encode()).hexdigest())
+
+    cpu = torch.device("cpu")
+    clean, _, _, _ = run(dev, None, False)
+    out = {}
+    for seed, poison in [(s, False) for s in SERVICE_CHAOS_SEEDS] + \
+            [(None, True)]:
+        card = run(dev, seed, poison)
+        host = run(cpu, seed, poison)
+        name = "poison" if poison else f"seed{seed}"
+        check(card[1] == host[1], f"service (c) {name}: dead letters")
+        check(card[2] == host[2], f"service (c) {name}: quarantines")
+        check(card[3] == host[3], f"service (c) {name}: trace sha256")
+        for a, b, c in zip(card[0], host[0], clean):
+            check(a.state.value == b.state.value,
+                  f"service (c) {name}: states")
+            if a.state.value == "revealed":
+                check(torch.equal(a.result, c.result)
+                      and torch.equal(b.result, c.result),
+                      f"service (c) {name}: session {a.sid} != fault-free")
+        if poison:
+            check([sid for sid, _ in card[1]] == [3],
+                  "service (c): the poison session alone quarantined")
+        out[name] = {"dead_letter": [sid for sid, _ in card[1]],
+                     "quarantined": card[2], "trace_sha256": card[3]}
+    return out
+
+
 def _sync(dev) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -852,10 +1205,81 @@ def _mesh_rank(rank: int, seed: int, job_dir: str, shape: dict) -> None:
     out["d_launches"] = launches()
     check(sha(got) == want["d"], f"rank {rank} (d) batched")
     del got
+    out["e"] = _mesh_service_rank(rank, mesh, dev, seed, shape, want["e"])
     out["peak_mem_bytes"] = (torch.cuda.max_memory_allocated(dev)
                              if on_card else None)
     with open(pathlib.Path(job_dir) / f"rank{rank}.json", "w") as f:
         json.dump(out, f)
+
+
+def _mesh_service(dev, shape: dict, **kw):
+    """(e)'s service: n = N_MESH, S sessions of T a batch, depth 2."""
+    from repro_torch.service import (AggregationService, BatchingConfig,
+                                     SessionParams, StreamConfig)
+    params = SessionParams(n_nodes=N_MESH, elems=shape["svc_T"],
+                           cluster_size=C_MAIN, redundancy=3)
+    return AggregationService(
+        params, device=dev, stream=StreamConfig(depth=2),
+        batching=BatchingConfig(max_batch=shape["svc_S"]), **kw)
+
+
+def _mesh_service_rank(rank: int, mesh, dev, seed: int, shape: dict,
+                       want: list) -> dict:
+    """(e) in one rank: the service on the mesh transport, every rank
+    its own copy over the same calls, its rows held to the parent's sim
+    service by sha256; a hop fault recovered; dispatch chaos on the mesh
+    tripping the breaker onto the sim."""
+    import torch.distributed as dist
+    from repro_torch.runtime.chaos import ChaosConfig
+    from repro_torch.runtime.resilience import CircuitBreaker, RetryPolicy
+    pool = _pool(seed + 1, shape["svc_pool"])
+    S, T, B = shape["svc_S"], shape["svc_T"], shape["svc_batches"]
+    mkw = dict(transport="mesh", mesh=mesh)
+
+    def rows_equal(ss, what):
+        for s in ss:
+            check(s.state.value == "revealed" and sha(s.result) == want[s.sid],
+                  f"rank {rank} (e) {what}: session {s.sid} != sim")
+
+    svc = _mesh_service(dev, shape, **mkw)
+    ss = _open_sessions(svc, pool, S * B, T)
+    dist.barrier()
+    _sync(dev)
+    t0 = time.perf_counter()
+    ran = svc.pump()
+    _sync(dev)
+    secs = time.perf_counter() - t0
+    check(ran == S * B, f"rank {rank} (e): {ran} sessions ran")
+    rows_equal(ss, "stream")
+    stream = {"seconds": secs, "seconds_per_batch": secs / B,
+              "stages": _stage_means(svc)}
+    del ss, svc
+
+    retry = RetryPolicy(max_attempts=3, base_backoff_s=0.0)
+    svc = _mesh_service(dev, shape, retry=retry, **mkw,
+                        chaos=ChaosConfig(mode="hop", hop_k=0, times=1))
+    ss = _open_sessions(svc, pool, S, T)
+    svc.pump()
+    rows_equal(ss, "hop fault")
+    res = svc.stats["resilience"]
+    check(res["chaos_injected"] == 1 and res["retries"] == 1
+          and res["quarantined"] == 0, f"rank {rank} (e) hop: {res}")
+    del ss, svc
+
+    brk = CircuitBreaker(k=2, cooloff_s=1e9)
+    svc = _mesh_service(dev, shape, retry=retry, breaker=brk, **mkw,
+                        chaos=ChaosConfig(mode="dispatch",
+                                          only_backend="mesh"))
+    ss = _open_sessions(svc, pool, S, T)
+    svc.pump()
+    rows_equal(ss, "degraded")
+    res = svc.stats["resilience"]
+    check(brk.state == "open" and brk.trips == 1
+          and res["degraded_batches"] == 1 and res["retries"] == 2,
+          f"rank {rank} (e) breaker: {res}")
+    return {"stream": stream, "hop": {"retries": 1},
+            "breaker": res["breaker"],
+            "degraded_batches": res["degraded_batches"]}
 
 
 def phase_mesh(dev, seed: int, shape: Optional[dict] = None
@@ -900,7 +1324,14 @@ def phase_mesh(dev, seed: int, shape: Optional[dict] = None
             "b_rows": [_tree_sha({k: v[i] for k, v in rb.items()})
                        for i in range(N_MESH)],
             "c_bytes": flip_cost, "d": sha(sim.allreduce_batched(xd))}
-    del xa, xb, xd, ra, rb, over
+    # (e)'s sessions through the sim service on the card
+    svc = _mesh_service(dev, shape)
+    ss = _open_sessions(svc, _pool(seed + 1, shape["svc_pool"]),
+                        shape["svc_S"] * shape["svc_batches"],
+                        shape["svc_T"])
+    svc.pump()
+    want["e"] = [sha(s.result) for s in ss]
+    del xa, xb, xd, ra, rb, over, ss, svc
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     job = pathlib.Path(tempfile.mkdtemp(prefix="mesh-phase-"))
@@ -940,7 +1371,15 @@ def phase_mesh(dev, seed: int, shape: Optional[dict] = None
             "b_slowest_rank_ms": slowest("b"), "sim_a_ms": sim_ms,
             "a_split": split("a"), "b_split": split("b"),
             "peak_mem_bytes": [r["peak_mem_bytes"] for r in ranks],
-            "spawn_to_end_s": spawn_s}
+            "spawn_to_end_s": spawn_s,
+            "e_service": {
+                "sessions": shape["svc_S"] * shape["svc_batches"],
+                "T": shape["svc_T"], "depth": 2, "equal_sim": True,
+                "hop_fault_recovered": True,
+                "breaker": ranks[0]["e"]["breaker"],
+                "slowest_rank_s_per_batch": max(
+                    r["e"]["stream"]["seconds_per_batch"] for r in ranks),
+                "rank0_stage_mean_s": ranks[0]["e"]["stream"]["stages"]}}
     return line, ranks[0]["a_launches"]
 
 
@@ -1618,6 +2057,10 @@ def main() -> int:
         emit(line)
     if "batched" in phases:
         emit(phase_batched(rng, dev))
+    service_launches = None
+    if "service" in phases:
+        line, service_launches = phase_service(dev, args.seed)
+        emit(line)
     mesh_launches = None
     if "mesh" in phases:
         line, mesh_launches = phase_mesh(dev, args.seed)
@@ -1648,7 +2091,9 @@ def main() -> int:
             "bound_by": t.get("bound_by"),
             "library_ms": t.get("library_ms"),
             "mesh_launches_per_rank": (None if mesh_launches is None
-                                       else mesh_launches[k.name])})
+                                       else mesh_launches[k.name]),
+            "service_launches": (None if service_launches is None
+                                 else service_launches[k.name])})
     print(smi_line(), flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

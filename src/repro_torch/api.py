@@ -4,7 +4,9 @@ Counterpart of ``repro/api.py``: :meth:`~SecureAggregator.allreduce`
 aggregates per-node payloads (a tensor, or a dict / list / tuple of
 tensors, each with leading axis ``n_nodes``),
 :meth:`~SecureAggregator.allreduce_batched` runs S independent sessions
-in one pass, and :meth:`~SecureAggregator.cost` is the analytic wire
+in one pass, :meth:`~SecureAggregator.open_session` opens one query of
+the multi-session service (``seal`` / ``pump`` / ``drain`` / ``result``
+delegate to it), and :meth:`~SecureAggregator.cost` is the analytic wire
 account, equal to the engine's executed bytes.  The ``Runtime`` section
 picks the backend: the single-device oracle (``sim``), a process group
 with one rank per node where every rank passes the global payloads
@@ -23,6 +25,7 @@ card the three tensor stages launch the CUDA kernels;
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Optional
 
@@ -34,13 +37,13 @@ from repro_torch.core.plan import (AggConfig, AggPlan, ConfigError, Runtime,
                                    compile_plan, plan_cache_stats, words)
 from repro_torch.core.schedules import schedule_cost
 from repro_torch.kernels.backend import resolve_device
+from repro_torch.obs import metrics as _obs
 
 __all__ = ["AggConfig", "ConfigError", "Runtime", "SecureAggregator",
            "Security", "SessionMeta", "Topology", "Wire", "compile_plan",
            "plan_cache_stats"]
 
 _LATER = {
-    "service": "the service slice (ROADMAP Queue 1 item 6)",
     "funcs": "the tuner and secure-function slice (ROADMAP Queue 1 item 7)",
 }
 
@@ -55,13 +58,24 @@ class SecureAggregator:
     the composable config model: pass a ready :class:`AggConfig` or the
     sections (``topology`` required, ``security`` / ``wire`` optional).
     ``runtime`` picks the backend and the kernel engine; ``device`` where
-    the run lives (``None`` = the card; on a mesh, each rank's device)."""
+    the run lives (``None`` = the card; on a mesh, each rank's device).
+
+    ``batching`` / ``epochs`` configure the session service behind
+    :meth:`open_session`; ``retry`` / ``breaker`` / ``chaos`` its
+    resilience layer (a ``RetryPolicy``, a ``CircuitBreaker`` for the
+    mesh->sim degrade ladder, a ``ChaosConfig`` for deterministic fault
+    injection); ``stream`` its pipeline (a ``StreamConfig``).
+    ``metrics`` shares a :class:`~repro_torch.obs.MetricsRegistry`
+    (default: a private one) and ``recorder`` attaches a
+    :class:`~repro_torch.obs.TraceRecorder`; both reach the service."""
 
     def __init__(self, cfg: Optional[AggConfig] = None, *,
                  topology: Optional[Topology] = None,
                  security: Optional[Security] = None,
                  wire: Optional[Wire] = None,
                  runtime: Optional[Runtime] = None,
+                 batching=None, epochs=None, retry=None, breaker=None,
+                 chaos=None, metrics=None, recorder=None, stream=None,
                  device=None, tune=None):
         if cfg is None:
             if topology is None:
@@ -87,8 +101,17 @@ class SecureAggregator:
         self._batched = None       # the batch-reveal callable, any (S, T)
         self._mesh_tp: Optional[_engine.MeshTransport] = None
         self._node_mesh = None     # the manual backend's default mesh
-        self._bytes = 0
         self._wire_s = _engine.wire_seconds()
+        self.metrics = _obs.registry_or_default(metrics)
+        self.recorder = recorder
+        self._c_bytes = self.metrics.counter(_obs.M_FACADE_BYTES)
+        self._batching = batching
+        self._epochs = epochs
+        self._retry = retry
+        self._breaker = breaker
+        self._chaos = chaos
+        self._stream = stream
+        self._svc = None
 
     # -- config / plan ------------------------------------------------------
 
@@ -138,7 +161,7 @@ class SecureAggregator:
             out = _engine.tree_allreduce(
                 rebuild(leaves), self.cfg, self._manual_mesh(),
                 self.runtime.dp_axes, account=account)
-            self._bytes += account["bytes_sent"]
+            self._c_bytes.inc(account["bytes_sent"])
             self._add_wire(account["wire_s"])
             return out
         n = self.cfg.n_nodes
@@ -159,12 +182,12 @@ class SecureAggregator:
         if self.backend == "mesh":
             mt = self._mesh_transport()
             out = mt.execute(self.plan(), xs, meta)
-            self._bytes += mt.last_bytes
+            self._c_bytes.inc(mt.last_bytes)
             self._add_wire(mt.last_wire_s)
         else:
             out, tp = _engine.sim_batch(self.plan(), xs, meta,
                                         index=self._round_index())
-            self._bytes += tp.bytes_sent
+            self._c_bytes.inc(tp.bytes_sent)
         out = out[0]
         outs, off = [], 0
         for leaf, size in zip(leaves, sizes):
@@ -234,26 +257,99 @@ class SecureAggregator:
         seeds = words([self.cfg.seed] * S, self.device)
         offsets = words([0] * S, self.device)
         out = fn(xs.reshape(S, n, T).to(torch.float32), seeds, offsets, {})
-        self._bytes += fn.last_bytes
+        self._c_bytes.inc(fn.last_bytes)
         self._add_wire(fn.last_wire_s)
         return out.reshape((S,) + tail).to(xs.dtype)
 
+    # -- session service ----------------------------------------------------
+    @property
+    def service(self):
+        """The lazily-built :class:`~repro_torch.service.AggregationService`
+        behind :meth:`open_session` (None until the first session)."""
+        return self._svc
+
+    def open_session(self, elems: Optional[int] = None, *, fn=None,
+                     params=None, now=None, ttl=None, **kw):
+        """Open one aggregation query of ``elems`` elements per node.
+
+        ``params`` (a ``SessionParams``) overrides the defaults derived
+        from the shared config via ``SessionParams.from_config``.  A
+        static ``Security.byzantine`` fault model is injected into the
+        session (as a ``SessionFaultPlan``), so both facade verbs honor
+        the same config.  ``ttl`` (default ``BatchingConfig.session_ttl``)
+        sets the session deadline on the open/seal/pump clock.  Returns
+        the :class:`~repro_torch.service.Session`; drive it with
+        ``contribute(...)`` then :meth:`seal` / :meth:`pump` /
+        :meth:`result`.  ``fn=`` (a secure-function session) comes with
+        the funcs slice."""
+        from repro_torch.service import SessionParams
+        if fn is not None or kw:
+            raise _later("open_session(fn=...)", "funcs")
+        if elems is None:
+            raise ConfigError(
+                "open_session needs elems (additive aggregation) or "
+                "fn= (a secure function)")
+        if params is None:
+            params = SessionParams.from_config(self.cfg, elems)
+        svc = self._service(params)
+        session = svc.open(params=params, now=now, ttl=ttl)
+        byz = self.cfg.byzantine
+        if byz.corrupt_ranks:
+            from repro_torch.runtime.fault import SessionFaultPlan
+            session.inject_fault(SessionFaultPlan(
+                byzantine_slots=tuple(byz.corrupt_ranks),
+                byzantine_mode=byz.mode))
+        return session
+
+    def _service(self, default_params):
+        if self._svc is None:
+            from repro_torch.service import (AggregationService,
+                                             BatchingConfig)
+            backend = self.backend
+            if backend == "manual":
+                raise ConfigError(
+                    "sessions run on the batched executor, which has no "
+                    "'manual' backend — use Runtime(backend='sim') or "
+                    "Runtime(backend='mesh', mesh=...) for open_session "
+                    "(manual is the rank-local allreduce path)")
+            batching = self._batching or BatchingConfig()
+            if batching.tuned is None:
+                batching = dataclasses.replace(batching, tuned={})
+            self._svc = AggregationService(
+                default_params,
+                epochs=self._epochs,
+                batching=batching,
+                kernel_impl=self.cfg.kernel_impl,
+                base_seed=self.cfg.seed,
+                transport="mesh" if backend == "mesh" else "sim",
+                mesh=self.runtime.mesh, dp_axes=self.runtime.dp_axes,
+                retry=self._retry, breaker=self._breaker,
+                chaos=self._chaos, metrics=self.metrics,
+                recorder=self.recorder, stream=self._stream,
+                device=self.device)
+        return self._svc
+
+    def seal(self, sid: int, now=None) -> None:
+        self._require_service().seal(sid, now=now)
+
+    def pump(self, now=None, force: bool = False) -> int:
+        """Flush ready service batches; returns sessions revealed."""
+        return self._require_service().pump(now=now, force=force)
+
+    def drain(self) -> int:
+        """Force-flush everything pending."""
+        return self._require_service().drain()
+
+    def result(self, sid: int, evict: bool = False):
+        return self._require_service().result(sid, evict=evict)
+
+    def _require_service(self):
+        if self._svc is None:
+            raise ConfigError("no session opened yet — call "
+                              "open_session(elems) first")
+        return self._svc
+
     # -- later slices ---------------------------------------------------------
-    def open_session(self, *a, **kw):
-        raise _later("open_session", "service")
-
-    def seal(self, *a, **kw):
-        raise _later("seal", "service")
-
-    def pump(self, *a, **kw):
-        raise _later("pump", "service")
-
-    def drain(self, *a, **kw):
-        raise _later("drain", "service")
-
-    def result(self, *a, **kw):
-        raise _later("result", "service")
-
     def histogram(self, *a, **kw):
         raise _later("histogram", "funcs")
 
@@ -295,12 +391,21 @@ class SecureAggregator:
         which is the whole run's), and on the ``mesh`` / ``manual``
         backends the host seconds this rank spent on the wire (staging
         copies and waits on transfers), by kind: the hops, the cluster
-        sums and the gathers of results."""
-        return {
+        sums and the gathers of results.  ``metrics`` is the registry
+        snapshot the service shares; once a session has been opened,
+        ``service`` holds the service's stats and ``degraded`` flags a
+        service running on the sim fallback (open circuit breaker)."""
+        out = {
             "backend": self.backend,
             "device": str(self.device),
             "plan_cache": plan_cache_stats(),
-            "bytes_sent": self._bytes,
+            "bytes_sent": self._c_bytes.value,
             "wire_s": dict(self._wire_s),
+            "metrics": self.metrics.snapshot(),
         }
+        if self._svc is not None:
+            out["service"] = self._svc.stats
+            brk = self._svc.executor.breaker
+            out["degraded"] = brk is not None and brk.state == "open"
+        return out
 

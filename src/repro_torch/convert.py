@@ -26,6 +26,12 @@ from repro_torch.core.plan import AggConfig, SessionMeta, words
 from repro_torch.crypto.paillier import (PublicKey, ThresholdPublic,
                                          ThresholdShare)
 from repro_torch.kernels.backend import IMPLS
+from repro_torch.runtime.chaos import ChaosConfig
+from repro_torch.runtime.fault import SessionFaultPlan
+from repro_torch.runtime.resilience import RetryPolicy
+from repro_torch.service.epochs import EpochSnapshot
+from repro_torch.service.executor import BatchingConfig, StreamConfig
+from repro_torch.service.session import SessionParams
 
 
 def config_from_fields(d: dict) -> AggConfig:
@@ -148,3 +154,59 @@ def model_params_from_numpy(cfg: ModelConfig, params_np: dict,
     out["units"] = [tensors(params_np["units"], u)
                     for u in range(cfg.n_units)]
     return out
+
+
+def _from_fields(cls, d: dict, tuples: tuple = ()):
+    """``cls`` from ``dataclasses.asdict`` of the reference's class of the
+    same name and fields; ``tuples`` name the fields asdict may hand
+    back as lists."""
+    fields = {f.name for f in dataclasses.fields(cls)}
+    unknown = set(d) - fields
+    if unknown:
+        raise ValueError(f"unknown {cls.__name__} fields {sorted(unknown)}")
+    kw = dict(d)
+    for name in tuples:
+        if kw.get(name) is not None:
+            kw[name] = tuple(kw[name])
+    return cls(**kw)
+
+
+def session_params_from_fields(d: dict) -> SessionParams:
+    """The reference's ``SessionParams`` fields -> the port's."""
+    return _from_fields(SessionParams, d)
+
+
+def batching_from_fields(d: dict) -> BatchingConfig:
+    """The reference's ``BatchingConfig`` fields -> the port's (a
+    ``tuned`` pad map is copied, not shared)."""
+    kw = dict(d)
+    if kw.get("tuned") is not None:
+        kw["tuned"] = dict(kw["tuned"])
+    return _from_fields(BatchingConfig, kw, tuples=("pad_buckets",))
+
+
+def stream_from_fields(d: dict) -> StreamConfig:
+    """The reference's ``StreamConfig`` fields -> the port's."""
+    return _from_fields(StreamConfig, d)
+
+
+def retry_from_fields(d: dict) -> RetryPolicy:
+    """The reference's ``RetryPolicy`` fields -> the port's (its
+    ``sleep`` callable carried as it is)."""
+    return _from_fields(RetryPolicy, d)
+
+
+def chaos_from_fields(d: dict) -> ChaosConfig:
+    """The reference's ``ChaosConfig`` fields -> the port's."""
+    return _from_fields(ChaosConfig, d, tuples=("poison_sids",))
+
+
+def fault_plan_from_fields(d: dict) -> SessionFaultPlan:
+    """The reference's ``SessionFaultPlan`` fields -> the port's."""
+    return _from_fields(SessionFaultPlan, d,
+                        tuples=("crashed_slots", "byzantine_slots"))
+
+
+def epoch_snapshot_from_fields(d: dict) -> EpochSnapshot:
+    """The reference's ``EpochSnapshot`` fields -> the port's."""
+    return _from_fields(EpochSnapshot, d, tuples=("slot_uids", "honest"))

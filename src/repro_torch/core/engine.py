@@ -46,6 +46,7 @@ from repro_torch.kernels.secure_agg import (mask_encrypt_batch_fn,
                                             unmask_decrypt_batch_fn,
                                             vote_combine_batch_fn)
 from repro_torch.kernels.secure_agg.secure_agg import narrow, wide
+from repro_torch.runtime.compat import TAG_SPACE
 
 _ENC_MODE = {"global": "mask", "pairwise": "pairwise", "none": "quantize"}
 
@@ -553,7 +554,8 @@ def tree_allreduce(tree, cfg, mesh, dp_axes: Sequence[str] = ("data",),
         return tree
     plan = compile_plan(cfg)
     dev = chunks[0].device
-    tp = ManualTransport(plan, mesh, dp_axes, device=dev)
+    tp = ManualTransport(plan, mesh, dp_axes, device=dev,
+                         chunks=len(chunks))
     outs = execute_chunks(plan, tp, [ch[None] for ch in chunks],
                           SessionMeta.single(cfg.seed, device=dev))
     if account is not None:
@@ -671,6 +673,16 @@ class _Link:
         self.seconds[kind] += time.perf_counter() - t0
 
 
+def plan_wires(plan: AggPlan) -> int:
+    """Wires one chunk of ``plan`` posts per rank: r payload copies a
+    round on the full transport; one payload, r digests and the backup
+    on the digest transport."""
+    cfg = plan.cfg
+    per_round = (cfg.redundancy if cfg.transport == "full"
+                 else 1 + cfg.redundancy + int(cfg.digest_backup))
+    return per_round * len(plan.rounds)
+
+
 def _pair_of(perm, nid: int) -> tuple:
     """(node ``nid`` sends to, ``nid`` receives from) in one copy stream,
     None where it does not.  Each stream is a partial permutation --
@@ -692,11 +704,15 @@ class ManualTransport(Transport):
 
     Every rank runs the same engine code over the same plan, so every
     rank makes the same wires in the same order; a wire's tag is its
-    sequence number in this transport's run.  That gives each wire its
-    own tag -- payload stream s, digest stream s, the backup and the
-    chunk -- which matters where two of them share a (src, dst) pair and
-    are in flight at once: digest stream 1 and the backup stream (both
-    shift 1), or the hops of chunks k and k+1.  ``hop`` posts a round's
+    sequence number in this transport's run, past a base the mesh
+    reserves for the transport (``NodeMesh.reserve_tags``: the plan's
+    wires for ``chunks`` chunks).  That gives each wire its own tag --
+    payload stream s, digest stream s, the backup and the chunk -- which
+    matters where two of them share a (src, dst) pair and are in flight
+    at once: digest stream 1 and the backup stream (both shift 1), or
+    the hops of chunks k and k+1.  The base never repeats on a mesh, so
+    a retried run cannot receive a wire that a failed run posted and
+    left unmatched.  ``hop`` posts a round's
     wires and returns them with the copies they fill; ``vote`` waits on
     the wires it is handed before it reads a received buffer, so a
     wrapper (``MeshTransport.wrap_inner``) may hold, reorder or re-issue
@@ -707,7 +723,7 @@ class ManualTransport(Transport):
 
     def __init__(self, plan: AggPlan, mesh, dp_axes: Sequence[str] = ("data",),
                  S: int = 1, impl: Optional[str] = None,
-                 shard_reveal: bool = False, *, device):
+                 shard_reveal: bool = False, *, device, chunks: int = 1):
         self.plan = plan
         self.mesh = mesh
         self.dp_axes = tuple(dp_axes)
@@ -739,6 +755,8 @@ class ManualTransport(Transport):
                     _pair_of(rnd.backup_perm, self.node_id),
                     rnd.participates[self.node_id])
         self.link = _Link(mesh, self.device)
+        self._tags = plan_wires(plan) * chunks
+        self._tag0 = mesh.reserve_tags(self._tags)
         self._tag = 0
         self._wires = None          # the wires of the hop being posted
 
@@ -772,7 +790,11 @@ class ManualTransport(Transport):
 
     def _exchange(self, x: torch.Tensor, pair: tuple) -> torch.Tensor:
         send_to, recv_from = pair
-        tag = self._tag
+        if self._tag >= self._tags:
+            raise ConfigError(
+                f"wire {self._tag} past the {self._tags} tags reserved for "
+                "this transport: pass chunks= for every chunk it runs")
+        tag = (self._tag0 + self._tag) % TAG_SPACE
         self._tag += 1
         if send_to == self.node_id:
             # a self-pair (src == dst): no schedule compiles one today,

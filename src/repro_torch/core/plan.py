@@ -13,8 +13,7 @@ digest transport's shift-1 backup stream), the intra-cluster groups and
 the static fault model.  Everything per session (pad keys, counter
 offsets, runtime fault masks) rides in :class:`SessionMeta` as tensors.
 
-The secure-function plans (``FuncPlan``) and the epoch / session-fault
-arguments of ``compile_plan`` come with the service and funcs slices.
+The secure-function plans (``FuncPlan``) come with the funcs slice.
 """
 from __future__ import annotations
 
@@ -437,14 +436,27 @@ def clear_plan_cache() -> None:
     _PLAN_STATS.update(hits=0, misses=0)
 
 
-def compile_plan(cfg: AggConfig) -> AggPlan:
-    """AggConfig -> executable AggPlan, memoised per config."""
-    hit = _PLAN_CACHE.get(cfg)
-    if hit is not None:
-        _PLAN_STATS["hits"] += 1
-        return hit
-    _PLAN_STATS["misses"] += 1
+def compile_plan(cfg: AggConfig, *, epoch=None, fault=None) -> AggPlan:
+    """AggConfig + overlay snapshot + fault plan -> executable AggPlan,
+    memoised per config when neither of the two is given.
+
+    ``epoch`` (optional): an object with ``n_nodes`` / ``cluster_size``
+    (e.g. ``service.epochs.EpochSnapshot``) pinning the committee layout
+    this plan aggregates over -- validated against ``cfg``.  ``fault``
+    (optional): a ``runtime.fault.SessionFaultPlan`` whose crash /
+    Byzantine slots are folded into the plan's static fault model (the
+    service instead passes *runtime* masks via :class:`SessionMeta`)."""
+    cacheable = epoch is None and fault is None
+    if cacheable:
+        hit = _PLAN_CACHE.get(cfg)
+        if hit is not None:
+            _PLAN_STATS["hits"] += 1
+            return hit
+        _PLAN_STATS["misses"] += 1
     n, c, g, r = cfg.n_nodes, cfg.cluster_size, cfg.n_clusters, cfg.redundancy
+    if epoch is not None:
+        assert epoch.n_nodes == n, (epoch.n_nodes, n)
+        assert epoch.cluster_size == c, (epoch.cluster_size, c)
 
     rounds = []
     for rnd in SCH.get_schedule(cfg.schedule, g):
@@ -471,9 +483,23 @@ def compile_plan(cfg: AggConfig) -> AggPlan:
             backup_perm=tuple(_hop_perm(g, c, rnd.recv_from, 1)),
             backup_src=tuple(int(v) for v in backup_src)))
 
-    faults = (cfg.byzantine,) if cfg.byzantine.corrupt_ranks else ()
+    faults = []
+    if cfg.byzantine.corrupt_ranks:
+        faults.append(cfg.byzantine)
+    if fault is not None:
+        faults.extend(fault.specs())
+    # a rank may appear under at most one static spec: disjointness keeps
+    # the sequential spec application order-independent, so every
+    # transport corrupts identically (the bit-equality contract)
+    seen: set[int] = set()
+    for sp in faults:
+        overlap = seen & set(sp.corrupt_ranks)
+        assert not overlap, f"rank(s) {sorted(overlap)} in multiple specs"
+        seen |= set(sp.corrupt_ranks)
+
     groups = tuple(tuple(range(cl * c, (cl + 1) * c)) for cl in range(g))
     plan = AggPlan(cfg=cfg, groups=groups, rounds=tuple(rounds),
-                   faults=faults)
-    _PLAN_CACHE[cfg] = plan
+                   faults=tuple(faults))
+    if cacheable:
+        _PLAN_CACHE[cfg] = plan
     return plan

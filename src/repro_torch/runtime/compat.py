@@ -30,6 +30,9 @@ import torch.distributed as dist
 from repro_torch.core.schedules import ConfigError
 
 DEFAULT_TIMEOUT_S = 300.0
+# point-to-point tags are C ints on the gloo side: the wire tags of a mesh
+# run through [0, 2^31) and then wrap
+TAG_SPACE = 1 << 31
 
 
 class NodeMesh:
@@ -60,6 +63,18 @@ class NodeMesh:
         self.backend = dist.get_backend(self.group)
         self.rank = dist.get_rank()
         self.groups: dict = {}       # subgroups built on this mesh
+        self._next_tag = 0
+
+    def reserve_tags(self, count: int) -> int:
+        """The first of ``count`` wire tags no earlier transport on this
+        mesh was given.  Every rank reserves the same counts in the same
+        order (one reservation a transport, sized from the plan before
+        any wire is posted), so the ranks agree on every tag, and a wire
+        that a failed run posted and nobody received can never match a
+        later run's receive."""
+        base = self._next_tag
+        self._next_tag = (base + count) % TAG_SPACE
+        return base
 
     def coords(self, rank: Optional[int] = None) -> tuple[int, ...]:
         """Coordinates of ``rank`` (default: this rank), one per axis."""

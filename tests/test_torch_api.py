@@ -141,13 +141,23 @@ def test_no_device_means_the_card(monkeypatch):
 
 def test_later_slices_raise_config_error():
     agg = P.SecureAggregator(topology=P.Topology(n_nodes=8), device="cpu")
-    for verb in ("open_session", "seal", "pump", "drain", "result",
-                 "histogram", "quantile", "median", "minimum", "maximum",
+    for verb in ("histogram", "quantile", "median", "minimum", "maximum",
                  "topk"):
         with pytest.raises(P.ConfigError, match="not ported yet"):
             getattr(agg, verb)()
     with pytest.raises(P.ConfigError, match="not ported yet"):
         agg.cost(fn="histogram")
+    with pytest.raises(P.ConfigError, match="Queue 1 item 7"):
+        agg.open_session(fn="histogram", bins=4)
+    # the service is ported: its verbs want an open session first
+    with pytest.raises(P.ConfigError, match="needs elems"):
+        agg.open_session()
+    for verb in ("seal", "result"):
+        with pytest.raises(P.ConfigError, match="no session opened yet"):
+            getattr(agg, verb)(0)
+    for verb in ("pump", "drain"):
+        with pytest.raises(P.ConfigError, match="no session opened yet"):
+            getattr(agg, verb)()
     # the distributed backends are ported: 'mesh' needs a mesh, as in the
     # reference; 'manual' needs a started process group (none here) and
     # never falls back to the sim oracle; it has no batched verb

@@ -160,7 +160,7 @@ def run_reorder(case, inputs, mesh) -> dict:
     leaves, rebuild = E.tree_flatten(local)
     chunks = E.pack_chunks(leaves, cfg.chunk_elems)
     tp = Reorder(E.ManualTransport(plan, mesh, case["dp_axes"],
-                                   device="cpu"))
+                                   device="cpu", chunks=len(chunks)))
     outs = E.execute_chunks(plan, tp, [ch[None] for ch in chunks],
                             E.SessionMeta.single(cfg.seed, device="cpu"))
     got = rebuild(E.unpack_chunks([o[0] for o in outs], leaves))
@@ -241,9 +241,129 @@ def run_wrong_world(case, inputs, mesh) -> dict:
     raise AssertionError("a mesh of the wrong size was accepted")
 
 
+class SendThenRaise:
+    """A ``wrap_inner`` wrapper whose first voted hop posts this rank's
+    sends of every copy stream -- of corrupted words -- and raises before
+    any receive is posted: a failed attempt that leaves wires in flight
+    that nobody will receive."""
+
+    def __init__(self, inner):
+        self.inner = inner
+
+    def hop(self, rnd, rnd_idx, meta, acc):
+        from repro_torch.runtime.chaos import ChaosError
+        tp = self.inner
+        bad = torch.bitwise_xor(acc, torch.tensor(0x5A5A5A5A,
+                                                  dtype=torch.int32))
+        tp._wires = []                 # post, never wait
+        for send_to, _ in tp._pairs[rnd][0]:
+            tp._exchange(bad, (send_to, None))
+        tp._wires = None
+        raise ChaosError("chaos: sends posted, receives never")
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+
+def _sha(a) -> str:
+    import hashlib
+    a = a.numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def run_stale_wire(case, inputs, mesh) -> dict:
+    """An attempt that posts a hop's sends and fails before receiving,
+    then the retry on the same mesh: the retry equals the sim by
+    sha256 (its wire tags never meet the failed attempt's)."""
+    from repro_torch.runtime.chaos import ChaosError
+    cfg = config_from_fields(case["cfg"])
+    plan = compile_plan(cfg)
+    xs = torch.from_numpy(inputs[case["xs"]])
+    meta = _meta(case, inputs)
+    try:
+        E.MeshTransport(mesh, case["dp_axes"], wrap_inner=SendThenRaise
+                        ).execute(plan, xs, meta, reveal_only=True)
+        raise AssertionError("the failing attempt did not raise")
+    except ChaosError:
+        pass
+    retry = E.MeshTransport(mesh, case["dp_axes"]).execute(
+        plan, xs, meta, reveal_only=True)
+    sim, _ = E.sim_batch(plan, xs, meta, reveal_only=True)
+    assert _sha(retry) == _sha(sim), case["name"]
+    return {"reveal": retry.numpy()}
+
+
+def _svc_knobs(case):
+    """The service knobs of a case, from the reference's fields."""
+    from repro_torch import convert as C
+    from repro_torch.runtime.resilience import CircuitBreaker
+    kw = {}
+    for name, fn in (("batching", C.batching_from_fields),
+                     ("stream", C.stream_from_fields),
+                     ("retry", C.retry_from_fields),
+                     ("chaos", C.chaos_from_fields)):
+        if case.get(name) is not None:
+            kw[name] = fn(case[name])
+    return kw, (CircuitBreaker(**case["breaker"])
+                if case.get("breaker") else None)
+
+
+def run_service(case, inputs, mesh) -> dict:
+    """The service on the ``mesh`` transport, every rank its own copy
+    over the same calls, against the port's sim service over the same
+    sessions: each block of sessions is fed, pumped and its revealed
+    rows held to the sim's by sha256.  ``clock`` sets the breaker's
+    logical time before each block."""
+    from repro_torch import convert as C
+    from repro_torch.service import AggregationService
+    params = C.session_params_from_fields(case["params"])
+    vals = inputs[case["vals"]]
+    kw, breaker = _svc_knobs(case)
+    clk = {"t": 0.0}
+    if breaker is not None:
+        breaker.clock = lambda: clk["t"]
+    svc = AggregationService(params, transport="mesh", mesh=mesh,
+                             dp_axes=case["dp_axes"], breaker=breaker,
+                             device="cpu", **kw)
+    sim = AggregationService(params, device="cpu",
+                             batching=kw.get("batching"))
+    out, states = [], []
+    for b, (lo, hi) in enumerate(case["blocks"]):
+        clk["t"] = (case["clock"] or [0.0] * len(case["blocks"]))[b]
+        got = []
+        for s_vals in (svc, sim):
+            ss = []
+            for i in range(lo, hi):
+                s = s_vals.open(now=0.0)
+                for slot in range(params.n_nodes):
+                    s.contribute(slot, vals[i, slot])
+                s_vals.seal(s.sid, now=0.0)
+                ss.append(s)
+            s_vals.pump(force=True)
+            got.append(ss)
+        for sm, ss in zip(*got):
+            states.append(sm.state.value)
+            if sm.state.value == "revealed":
+                assert _sha(sm.result) == _sha(ss.result), (case["name"],
+                                                            sm.sid)
+                out.append(sm.result.numpy())
+            else:
+                out.append(np.full(params.elems, np.nan, np.float32))
+    res = svc.stats["resilience"]
+    return {"rows": np.stack(out), "states": np.array(states),
+            "counts": np.array([res[k] for k in (
+                "retries", "bisections", "quarantined", "deadline_hits",
+                "degraded_batches", "chaos_injected")], np.int64),
+            "breaker": np.array([] if res["breaker"] is None else [
+                res["breaker"][k] for k in ("trips", "probes")], np.int64),
+            "depth": np.float64(svc.metrics.snapshot()["gauges"].get(
+                "executor.pipeline_depth", 0.0))}
+
+
 RUN = {"execute": run_execute, "tree": run_tree, "reorder": run_reorder,
        "host_mesh": run_host_mesh, "cluster_sum": run_cluster_sum,
-       "facade": run_facade, "wrong_world": run_wrong_world}
+       "facade": run_facade, "wrong_world": run_wrong_world,
+       "stale_wire": run_stale_wire, "service": run_service}
 
 
 def worker(rank: int, job_dir: str) -> None:
