@@ -53,6 +53,31 @@ with a non-zero exit code:
            16, S = 8, on the card and on the CPU: equal dead letters,
            quarantines and TickClock trace sha256, every revealed session
            equal to the fault-free run
+  funcs    the secure functions and the tuner on the card.  (a) the verbs
+           at the main cell's protocol (n = 64, values from the seed):
+           ``histogram`` at 4,096 bins, ``median`` / ``minimum`` /
+           ``maximum`` / ``quantile(q=0.9)`` on 65,536 grid steps (16
+           bisection rounds) and ``topk(k=8)`` on 4,096 steps (12 rounds
+           and a 4,096-wide readout), each equal to the numpy oracle on
+           the quantized domain and to the plain-version run, executed
+           bytes equal to ``cost(fn=...)``; ms and launches a round (the
+           launch counts are read on these verbs).  (b) the polling
+           deployment of ``launch.secure_polling``: 256 concurrent median
+           polls on 1,024 steps and 64 histograms of 4,096 bins over
+           ``build_overlay(256, 0.2, seed=42)`` in batches of 16 rows, 8
+           joins and 8 leaves after the second round, on the card and on
+           the CPU: every result equal to the oracle and to the CPU's,
+           the same shared batches; function sessions/s, stage means, one
+           profiled round.  (c) the tuner: the three decision signatures
+           of ``BENCH_secure_agg.json`` through the service tuned and on
+           the ring / full default (bytes equal to the rows and to the
+           executed account; the digest vote's share of a tuned
+           dispatch), the main cell's workload tuned (bytes equal to
+           ``cost``, the sum equal to the plain reference sum) beside the
+           untuned one, and ``tune="probe"`` at one signature.  (d)
+           ``launch.secure_polling`` at its defaults and ``launch.serve_agg
+           --fn median`` / ``--tune auto`` in this process, each with its
+           own checks
   mesh     the distributed transports: 16 rank processes on the card over
            a gloo group (every wire staged through pinned host memory,
            the kernels in every rank), after the parent's port sim on the
@@ -73,7 +98,9 @@ with a non-zero exit code:
            parent's sim service by sha256, a hop fault recovered bit for
            bit, and dispatch chaos on the mesh tripping the breaker so the
            batch runs degraded on the sim; the slowest rank's seconds a
-           batch.  Medians of 5 warm runs of (a) and (b) as
+           batch; (f) a ``median`` on 1,024 steps and a ``histogram`` of 64
+           bins on the ``mesh`` backend, every rank's result equal to the
+           parent's sim on the card.  Medians of 5 warm runs of (a) and (b) as
            the slowest rank's wall ms, each rank's wire ms and profiled
            kernel ms, peak memory per rank
   paillier threshold Paillier at full width (1024-bit n, fixed committed
@@ -107,8 +134,9 @@ with a non-zero exit code:
 The last lines are the card's name and power limit, one JSON object
 describing every kernel (``max_abs_err`` from the kernels phase,
 ``launches`` on its phase's path, ``mesh_launches_per_rank`` in the mesh
-phase's (a), ``service_launches`` on the service phase's depth-2 stream;
-each null where its phase did not run), and ``{"ok": true, "device": {...}}``.  Without
+phase's (a), ``service_launches`` on the service phase's depth-2 stream,
+``funcs_launches`` on the funcs phase's verbs; each null where its phase
+did not run), and ``{"ok": true, "device": {...}}``.  Without
 a CUDA device the script fails before printing any result.  Imports
 nothing of JAX or of the JAX package.
 """
@@ -134,7 +162,7 @@ import torch
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
 
 PHASES = ("device", "build", "kernels", "main", "batched", "service",
-          "mesh", "paillier", "serve", "timing")
+          "funcs", "mesh", "paillier", "serve", "timing")
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 # 32-bit lane operations issued per second: 132 SMs x 128 lanes x
 # 1.98 GHz, half the 67 TFLOP/s float32 FMA rate (an FMA counts two FLOPs)
@@ -156,7 +184,7 @@ N_MAIN, C_MAIN, T_MAIN = 64, 4, 1 << 22
 N_MESH = 16
 MESH_SHAPE = {"T": 1 << 22, "chunk": 1 << 16, "S": 16, "T_batch": 1 << 16,
               "runs": 5, "svc_S": 16, "svc_T": 1 << 16, "svc_batches": 4,
-              "svc_pool": 1 << 22}
+              "svc_pool": 1 << 22, "f_steps": 1024, "f_bins": 64}
 MESH_FLIP = (0, 4, 8, 12)
 MESH_FLIP_OVER = (0, 1, 4, 5, 8, 9, 12, 13)
 SPLITMIX_OPS = 9              # add, 3 shifts, 3 xors, 2 multiplies
@@ -1051,6 +1079,482 @@ def _phase_service_chaos(dev) -> dict:
     return out
 
 
+# funcs: (a) the function verbs at the main cell's protocol, (b) polling
+# at the paper's scale, (c) the tuner, (d) the launchers
+FUNCS_SHAPE = {"bins": 4096, "steps": 1 << 16, "topk_steps": 4096, "k": 8,
+               "q": 0.9, "poll_n": 256, "poll_tau": 0.2, "polls": 256,
+               "poll_steps": 1024, "hists": 64, "hist_bins": 4096,
+               "batch": 16, "main_T": T_MAIN, "probe": (16, 1024, 8),
+               "launch_sessions": 32}
+SECURE_AGG_PARTS = ("::mask_kernel", "::vote_kernel", "::unmask_kernel")
+
+
+def _same(got, want) -> bool:
+    """One function result on two runs: equal bit for bit, same dtype."""
+    a, b = np.asarray(got), np.asarray(want)
+    return a.dtype == b.dtype and a.shape == b.shape and np.array_equal(a, b)
+
+
+def _quantized(dom, vals) -> np.ndarray:
+    """The values on ``dom``'s grid, ascending: the numpy oracle."""
+    return np.sort([dom.value(int(i)) for i in dom.indices(vals)])
+
+
+def _launch_delta(before: dict) -> dict:
+    from repro_torch.kernels import backend
+    now = backend.launch_counts()
+    return {k.name: now[k.name] - before[k.name] for k in backend.SECURE_AGG}
+
+
+def phase_funcs(dev, seed: int, shape: Optional[dict] = None
+                ) -> tuple[dict, dict]:
+    """The secure functions and the tuner on the card: (a) the verbs at
+    the main cell's protocol, (b) polling at the paper's scale against
+    the CPU, (c) the tuner's decisions through the service and on the
+    main cell's workload, and its probe, (d) the launchers.  Returns the
+    phase's line and the launches of (a)'s verbs."""
+    shape = dict(FUNCS_SHAPE if shape is None else shape)
+    verbs, launches = _funcs_verbs(dev, seed, shape)
+    line = {"phase": "funcs", "verbs": verbs,
+            "polling": _funcs_polling(dev, seed, shape),
+            "tuner": _funcs_tuner(dev, seed, shape),
+            "launchers": _funcs_launchers(dev, shape)}
+    return line, launches
+
+
+def _funcs_verbs(dev, seed: int, shape: dict) -> tuple[dict, dict]:
+    """(a): histogram, median, minimum, maximum, quantile and top-k at
+    n = 64 through the facade on the card, each equal to the numpy oracle
+    on the quantized domain and to the same verb on the plain versions,
+    its executed bytes equal to ``cost(fn=...)``.  After a warm call of
+    each, the counts are set to 0 and read after the verbs' run (the
+    plain runs between are checked to launch nothing).  Returns the
+    per-verb lines and those counts."""
+    from repro_torch import Runtime, SecureAggregator
+    from repro_torch.funcs import ValueDomain
+    from repro_torch.funcs.run import quantile_rank
+    from repro_torch.kernels import backend
+    vals = np.random.default_rng(seed + 7).random(N_MAIN)
+    agg = SecureAggregator(**_main_cfg(), device=dev)
+    plain = SecureAggregator(**_main_cfg(runtime=Runtime(
+        kernel_impl="torch")), device=dev)
+    dom = ValueDomain(0.0, 1.0, shape["steps"])
+    tdom = ValueDomain(0.0, 1.0, shape["topk_steps"])
+    qs, tq = _quantized(dom, vals), _quantized(tdom, vals)
+    q, k = shape["q"], shape["k"]
+    cases = [
+        ("histogram", dict(bins=shape["bins"]),
+         lambda a: a.histogram(vals, bins=shape["bins"]),
+         np.histogram(vals, bins=shape["bins"], range=(0.0, 1.0))[0]),
+        ("median", dict(domain=dom), lambda a: a.median(vals, domain=dom),
+         qs[quantile_rank(0.5, N_MAIN) - 1]),
+        ("minimum", dict(domain=dom),
+         lambda a: a.minimum(vals, domain=dom), qs[0]),
+        ("maximum", dict(domain=dom),
+         lambda a: a.maximum(vals, domain=dom), qs[-1]),
+        ("quantile", dict(domain=dom, q=q),
+         lambda a: a.quantile(vals, q, domain=dom),
+         qs[quantile_rank(q, N_MAIN) - 1]),
+        ("topk", dict(domain=tdom, k=k),
+         lambda a: a.topk(vals, k, domain=tdom), tq[::-1][:k])]
+    # warm: the callables of every payload width, and the kernels' library
+    for _, _, call, _ in cases:
+        call(agg)
+    out = {}
+    backend.reset_launch_counts()
+    for name, kw, call, want in cases:
+        cost = agg.cost(fn=name, **kw)
+        before, sent0 = backend.launch_counts(), agg.stats()["bytes_sent"]
+        _sync(dev)
+        t0 = time.perf_counter()
+        got = call(agg)
+        _sync(dev)
+        secs = time.perf_counter() - t0
+        launched = _launch_delta(before)
+        sent = agg.stats()["bytes_sent"] - sent0
+        check(_same(got, want), f"funcs (a) {name}: {got} != oracle {want}")
+        check(sent == cost["bytes_total"],
+              f"funcs (a) {name}: bytes {sent} != cost {cost['bytes_total']}")
+        before = backend.launch_counts()
+        _sync(dev)
+        t0 = time.perf_counter()
+        got_plain = call(plain)
+        _sync(dev)
+        plain_secs = time.perf_counter() - t0
+        check(backend.launch_counts() == before,
+              f"funcs (a) {name}: the plain-version run launched a kernel")
+        check(_same(got, got_plain), f"funcs (a) {name}: kernels != plain")
+        rounds = cost["allreduces"]
+        out[name] = {"rounds": rounds, "round_elems": sorted(set(
+            cost["round_elems"])), "ms": secs * 1e3,
+            "ms_per_round": secs * 1e3 / rounds, "plain_ms": plain_secs * 1e3,
+            "bytes": sent, "launches": launched,
+            "launches_per_round": {k2: v / rounds
+                                   for k2, v in launched.items()},
+            "result": np.asarray(got).tolist() if name != "histogram"
+            else {"sum": int(np.sum(got)), "nonzero": int(np.count_nonzero(
+                got))}}
+    return out, backend.launch_counts()
+
+
+def _poll_run(d, seed: int, shape: dict, profile: bool = False) -> dict:
+    """(b)'s deployment on device ``d``: ``polls`` median polls and
+    ``hists`` histogram sessions, sealed, two forced pumps (the second
+    profiled when ``profile``), the churn, then the drain."""
+    from repro_torch import SecureAggregator, Security, Topology
+    from repro_torch.core.overlay import build_overlay
+    from repro_torch.service import BatchingConfig, EpochManager
+    em = EpochManager(build_overlay(shape["poll_n"], shape["poll_tau"],
+                                    seed=42), cluster_size=4)
+    n = em.current().n_nodes
+    agg = SecureAggregator(topology=Topology(n_nodes=n, cluster_size=4),
+                           security=Security(redundancy=3), epochs=em,
+                           batching=BatchingConfig(max_batch=shape["batch"],
+                                                   max_age=1e9),
+                           device=d)
+    rng = np.random.default_rng(seed + 11)
+    polls, hists = [], []
+    for kind, count, kw in (
+            ("median", shape["polls"],
+             dict(domain=(0.0, 1.0, shape["poll_steps"]))),
+            ("histogram", shape["hists"], dict(bins=shape["hist_bins"]))):
+        for _ in range(count):
+            fs = agg.open_session(fn=kind, now=0.0, **kw)
+            vals = rng.random(n)
+            for slot in range(n):
+                fs.contribute(slot, float(vals[slot]))
+            fs.seal(now=0.0)
+            (polls if kind == "median" else hists).append((fs, vals))
+    _sync(d)
+    t0 = time.perf_counter()
+    agg.pump(now=0.0, force=True)
+    prof = None
+    if profile:
+        prof = profile_device(lambda: agg.pump(now=0.0, force=True),
+                              parts=(*SECURE_AGG_PARTS, "Memcpy"))
+    else:
+        agg.pump(now=0.0, force=True)
+    em.churn(joins=8, leaves=8, honest_join_frac=1.0)
+    agg.drain()
+    _sync(d)
+    secs = time.perf_counter() - t0
+    st = agg.stats()["service"]
+    return {"n": n, "seconds": secs, "polls": polls, "hists": hists,
+            "sizes": list(st["batches"]["sizes"]),
+            "batches": st["batches"]["run"], "epoch": st["epoch"],
+            "stages": _stage_means(agg.service), "profile": prof,
+            "done": all(fs.done for fs, _ in polls + hists)}
+
+
+def _funcs_polling(dev, seed: int, shape: dict) -> dict:
+    """(b): the polling deployment of ``secure_polling`` (an overlay of
+    ``build_overlay(256, 0.2, seed=42)`` with clusters of 4): concurrent
+    median polls and histogram sessions in batches of 16 rows, a churn
+    of 8 joins and 8 leaves after the second round, on the card and on
+    the CPU.  Every result equals the numpy oracle and the CPU's, each
+    bisection round runs as shared batches, as many as on the CPU."""
+    from repro_torch.funcs import ValueDomain
+    from repro_torch.funcs.run import quantile_rank
+    card = _poll_run(dev, seed, shape)
+    host = _poll_run(torch.device("cpu"), seed, shape)
+    check(card["done"] and host["done"], "funcs (b): sessions not done")
+    n = card["n"]
+    dom = ValueDomain(0.0, 1.0, shape["poll_steps"])
+    for (fs, vals), (hs, _) in zip(card["polls"], host["polls"]):
+        want = _quantized(dom, vals)[quantile_rank(0.5, n) - 1]
+        check(fs.result == want == hs.result,
+              f"funcs (b): poll {fs.fid} {fs.result} != {want}")
+    for (fs, vals), (hs, _) in zip(card["hists"], host["hists"]):
+        want = np.histogram(vals, bins=shape["hist_bins"],
+                            range=(0.0, 1.0))[0]
+        check(_same(fs.result, want) and _same(hs.result, want),
+              f"funcs (b): histogram {fs.fid}")
+    rows = shape["batch"]
+    rounds = dom.bisect_rounds
+    want_batches = (rounds * -(-shape["polls"] // rows)
+                    + -(-shape["hists"] // rows))
+    check(card["batches"] == host["batches"] == want_batches
+          and card["sizes"] == host["sizes"],
+          f"funcs (b): batches {card['batches']} / {host['batches']} "
+          f"(want {want_batches})")
+    prof = None
+    if dev.type == "cuda":
+        prof = _poll_run(dev, seed, shape, profile=True)["profile"]
+    sessions = shape["polls"] + shape["hists"]
+    return {"n_slots": n, "polls": shape["polls"],
+            "poll_steps": shape["poll_steps"], "rounds": rounds,
+            "histograms": shape["hists"], "hist_bins": shape["hist_bins"],
+            "batch_rows": rows, "batches": card["batches"],
+            "epochs": card["epoch"], "equal_oracle": True,
+            "equal_cpu": True,
+            "seconds": card["seconds"], "cpu_seconds": host["seconds"],
+            "func_sessions_per_s": sessions / card["seconds"],
+            "stage_mean_s": card["stages"],
+            "profiled_round": None if prof is None else {
+                "wall_ms": prof["profiled_wall_s"] * 1e3,
+                "device_busy_ms": prof["device_busy_ms"],
+                "device_busy_share": prof["device_busy_share"],
+                "by_part": prof["by_part"],
+                "by_kernel_ms": prof["by_kernel_ms"][:8]}}
+
+
+def _tuner_rows() -> list:
+    """The decision signatures of ``benchmarks/tune.py`` and their byte
+    rows, read from ``BENCH_secure_agg.json`` as data."""
+    import re
+    rows = json.loads((pathlib.Path(__file__).resolve().parent
+                       / "BENCH_secure_agg.json").read_text())
+    out = []
+    for key in sorted(rows):
+        m = re.fullmatch(r"tuner_decision_n(\d+)_T(\d+)_S(\d+)_bytes", key)
+        if m:
+            n, T, S = map(int, m.groups())
+            out.append((n, T, S, int(rows[key]),
+                        int(rows[f"tuner_default_n{n}_T{T}_S{S}_bytes"])))
+    check(len(out) == 3, f"funcs (c): {len(out)} tuner rows")
+    return out
+
+
+def _service_batch(agg, vals: np.ndarray) -> tuple:
+    """One batch of ``S`` sessions through the facade's service: (the
+    revealed rows, seconds of the drain, executed wire bytes)."""
+    S, n, _ = vals.shape
+    wire0 = (agg.service.stats["wire"]["bytes_sent"]
+             if agg.service is not None else 0)
+    ss = []
+    for i in range(S):
+        s = agg.open_session(vals.shape[2], now=0.0)
+        for slot in range(n):
+            s.contribute(slot, vals[i, slot])
+        agg.seal(s.sid, now=0.0)
+        ss.append(s)
+    _sync(agg.device)
+    t0 = time.perf_counter()
+    ran = agg.drain()
+    _sync(agg.device)
+    secs = time.perf_counter() - t0
+    check(ran == S, f"funcs (c): {ran} of {S} sessions ran")
+    return (torch.stack([s.result for s in ss]), secs,
+            agg.service.stats["wire"]["bytes_sent"] - wire0)
+
+
+def _digest_share(run) -> dict:
+    """One more call of ``run`` (a tuned dispatch) with CUDA events
+    around every digest vote (``digest_vote_combine``) and every digest
+    hash (``digest_rows``) the engine calls, and around the whole call:
+    each region's stream time (its kernels and the gaps between their
+    launches) and its share of the dispatch."""
+    from repro_torch.core import engine
+    spans = {"digest_vote_combine": [], "digest_rows": []}
+    originals = {name: getattr(engine, name) for name in spans}
+
+    def timed(name):
+        def call(*a, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = originals[name](*a, **kw)
+            end.record()
+            spans[name].append((start, end))
+            return out
+        return call
+
+    whole = (torch.cuda.Event(enable_timing=True),
+             torch.cuda.Event(enable_timing=True))
+    for name in spans:
+        setattr(engine, name, timed(name))
+    try:
+        torch.cuda.synchronize()
+        whole[0].record()
+        run()
+        whole[1].record()
+        torch.cuda.synchronize()
+    finally:
+        for name, fn in originals.items():
+            setattr(engine, name, fn)
+    total = whole[0].elapsed_time(whole[1])
+    out = {"dispatch_ms": total}
+    for name, evs in spans.items():
+        ms = sum(a.elapsed_time(b) for a, b in evs)
+        out[name] = {"calls": len(evs), "ms": ms, "share": ms / total}
+    return out
+
+
+def _funcs_tuner(dev, seed: int, shape: dict) -> dict:
+    """(c): the three decision signatures of ``benchmarks/tune.py``, each
+    through the service tuned and on the ring / full default (bytes
+    equal to the committed rows and to the executed account, sums within
+    the reference test's 1e-3 of each other); the main cell's workload
+    tuned (executed bytes equal to ``cost``, the sum equal to the plain
+    reference sum); ``tune="probe"`` at one signature."""
+    from repro_torch import AggConfig, SecureAggregator, Topology
+    from repro_torch.core.masking import (quantization_error_bound,
+                                          reference_aggregate)
+    from repro_torch.service import BatchingConfig
+    from repro_torch.tune import Tuner, clear_tuner_cache
+    on_card = dev.type == "cuda"
+    rng = np.random.default_rng(seed + 13)
+    out = {"signatures": []}
+    for n, T, S, want_pred, want_base in _tuner_rows():
+        aggs = {mode: SecureAggregator(
+            topology=Topology(n_nodes=n, cluster_size=4), tune=mode,
+            batching=BatchingConfig(max_batch=S, max_age=1e9), device=dev)
+            for mode in ("auto", None)}
+        vals = rng.integers(0, 2, size=(S, n, T)).astype(np.float32)
+        runs = {}
+        for mode, agg in aggs.items():
+            _service_batch(agg, vals)                   # warm
+            runs[mode] = _service_batch(agg, vals)
+        d = aggs["auto"]._tune_decision(T, S)
+        check(d.predicted_bytes == want_pred and d.baseline_bytes
+              == want_base, f"funcs (c) n{n} T{T} S{S}: decision bytes")
+        check(runs["auto"][2] == d.predicted_bytes,
+              f"funcs (c) n{n} T{T} S{S}: executed {runs['auto'][2]} != "
+              f"predicted {d.predicted_bytes}")
+        check(runs[None][2] == d.baseline_bytes,
+              f"funcs (c) n{n} T{T} S{S}: default bytes")
+        tuned, default = runs["auto"][0], runs[None][0]
+        err = float((tuned.double() - default.double()).abs().max())
+        check(err <= 1e-3, f"funcs (c) n{n} T{T} S{S}: tuned vs default "
+              f"err {err}")
+        truth = torch.from_numpy(vals.sum(1))
+        check(float((tuned.double() - truth.double()).abs().max()) <= 1e-3,
+              f"funcs (c) n{n} T{T} S{S}: tuned vs plain sum")
+        c = d.config
+        sig = {"n": n, "T": T, "S": S,
+               "pick": f"{c.schedule}/{c.transport} w{c.digest_words} "
+                       f"backup={c.digest_backup} pad={d.padded_elems}",
+               "predicted_bytes": d.predicted_bytes,
+               "baseline_bytes": d.baseline_bytes,
+               "executed_bytes": runs["auto"][2],
+               "tuned_ms": runs["auto"][1] * 1e3,
+               "default_ms": runs[None][1] * 1e3,
+               "bit_equal_default": bool(torch.equal(tuned, default)),
+               "max_abs_diff_default": err}
+        if on_card and c.transport == "digest":
+            sig["digest_share"] = _digest_share(
+                lambda: _service_batch(aggs["auto"], vals))
+        out["signatures"].append(sig)
+        del aggs, runs, tuned, default
+
+    # the main cell's own workload, tuned: n = 64, T = 2^22, S = 1
+    T = shape["main_T"]
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 17)
+    xs = (torch.rand((N_MAIN, T), generator=g, device=dev) * 2 - 1) * 0.9
+    tagg = SecureAggregator(**_main_cfg(), tune="auto", device=dev)
+    agg = SecureAggregator(**_main_cfg(), device=dev)
+    ref = reference_aggregate(agg.cfg.mask_cfg(), xs)
+    times = {}
+    for name, a in (("tuned", tagg), ("untuned", agg)):
+        got, sent, _ = _run_on(a, xs)                       # warm
+        want = a.cost(T)["bytes_total"]
+        check(sent == want, f"funcs (c) main {name}: bytes {sent} != {want}")
+        check(torch.equal(got, ref.expand_as(got)),
+              f"funcs (c) main {name}: != the plain reference sum")
+        times[name] = [_run_on(a, xs)[2] * 1e3 for _ in range(3)]
+        del got
+    d = tagg._tune_decision(T)
+    c = d.config
+    share = prof = None
+    if on_card:
+        share = _digest_share(lambda: tagg.allreduce(xs))
+        p = profile_device(lambda: tagg.allreduce(xs),
+                           parts=SECURE_AGG_PARTS)
+        prof = {"wall_ms": p["profiled_wall_s"] * 1e3,
+                "device_busy_ms": p["device_busy_ms"],
+                "device_busy_share": p["device_busy_share"],
+                "by_part": p["by_part"], "by_kernel_ms": p["by_kernel_ms"]}
+    out["main"] = {
+        "n": N_MAIN, "T": T, "S": 1,
+        "pick": f"{c.schedule}/{c.transport} w{c.digest_words} "
+                f"backup={c.digest_backup} chunk={c.chunk_elems}",
+        "executed_bytes": tagg.cost(T)["bytes_total"],
+        "untuned_bytes": agg.cost(T)["bytes_total"],
+        "predicted_bytes": d.predicted_bytes,
+        "equal_reference": True,
+        "quantization_bound": quantization_error_bound(agg.cfg.mask_cfg()),
+        "tuned_ms": times["tuned"], "untuned_ms": times["untuned"],
+        "tuned_median_ms": statistics.median(times["tuned"]),
+        "untuned_median_ms": statistics.median(times["untuned"]),
+        "digest_share": share, "tuned_profile": prof}
+    del xs, ref, tagg, agg
+
+    # tune="probe" at one signature: each finalist's measured seconds
+    n, T, S = shape["probe"]
+    cfg = AggConfig(n_nodes=n, cluster_size=4)
+    clear_tuner_cache()
+    byte_pick = Tuner().resolve(cfg, T, S)
+    clear_tuner_cache()
+    prober = Tuner(probe=True, device=dev)
+    probed = prober.resolve(cfg, T, S)
+    clear_tuner_cache()
+    check(probed.probed and prober.stats()["probes"]
+          == len(prober.last_probe) >= 2, "funcs (c) probe: no probes")
+    out["probe"] = {
+        "signature": [n, T, S], "finalists": prober.last_probe,
+        "byte_winner_chunk_elems": byte_pick.config.chunk_elems,
+        "probe_pick_chunk_elems": probed.config.chunk_elems,
+        "pick_is_byte_winner": (probed.config == byte_pick.config
+                                and probed.padded_elems
+                                == byte_pick.padded_elems)}
+    return out
+
+
+def _run_on(agg, xs) -> tuple:
+    """One allreduce on the facade's device: (result, executed bytes,
+    seconds)."""
+    before = agg.stats()["bytes_sent"]
+    _sync(agg.device)
+    t0 = time.perf_counter()
+    out = agg.allreduce(xs)
+    _sync(agg.device)
+    return out, agg.stats()["bytes_sent"] - before, time.perf_counter() - t0
+
+
+def _funcs_launchers(dev, shape: dict) -> dict:
+    """(d): ``repro_torch.launch.secure_polling`` at its defaults and
+    ``serve_agg --fn median`` / ``--tune auto`` at small sizes, in this
+    process on the card; each completes with its own checks."""
+    import contextlib
+    import io
+    from repro_torch.launch import secure_polling, serve_agg
+    from repro_torch.obs import MetricsRegistry
+    d = str(dev)
+    out = {}
+    for name, run in (
+            ("secure_polling", lambda: secure_polling.main(["--device", d])),
+            ("serve_agg_median", lambda: serve_agg.main(
+                ["--fn", "median", "--sessions",
+                 str(shape["launch_sessions"]), "--batch", "16",
+                 "--max-age", "1e9", "--device", d],
+                metrics=MetricsRegistry())),
+            ("serve_agg_tune", lambda: serve_agg.main(
+                ["--tune", "auto", "--sessions",
+                 str(shape["launch_sessions"]), "--batch", "16",
+                 "--max-age", "1e9", "--device", d],
+                metrics=MetricsRegistry()))):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            res = run()
+        secs = time.perf_counter() - t0
+        if name == "secure_polling":
+            check(res["da"] is not None and res["da"]["output"]
+                  == res["da"]["expected"], "funcs (d): polling DA")
+        else:
+            check(res["revealed"] == res["exact"]
+                  == shape["launch_sessions"], f"funcs (d) {name}: {res}")
+        if name == "serve_agg_tune":
+            batches = res["stats"]["batches"]["run"]
+            check(res["stats"]["wire"]["bytes_sent"]
+                  == batches * res["decision"].predicted_bytes,
+                  "funcs (d) serve_agg --tune: bytes")
+        out[name] = {"seconds": secs,
+                     "last_lines": buf.getvalue().strip().splitlines()[-3:]}
+    return out
+
+
 def _sync(dev) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -1206,6 +1710,7 @@ def _mesh_rank(rank: int, seed: int, job_dir: str, shape: dict) -> None:
     check(sha(got) == want["d"], f"rank {rank} (d) batched")
     del got
     out["e"] = _mesh_service_rank(rank, mesh, dev, seed, shape, want["e"])
+    out["f"] = _mesh_funcs_rank(rank, rt, dev, seed, shape, want["f"])
     out["peak_mem_bytes"] = (torch.cuda.max_memory_allocated(dev)
                              if on_card else None)
     with open(pathlib.Path(job_dir) / f"rank{rank}.json", "w") as f:
@@ -1282,6 +1787,42 @@ def _mesh_service_rank(rank: int, mesh, dev, seed: int, shape: dict,
             "degraded_batches": res["degraded_batches"]}
 
 
+def _mesh_funcs(rt, dev, seed: int, shape: dict) -> dict:
+    """(f)'s two functions through a facade on ``rt``: a median on
+    ``f_steps`` grid steps and a histogram of ``f_bins`` bins of N_MESH
+    values drawn from ``seed``, with each one's seconds (``rt`` None:
+    the sim)."""
+    from repro_torch import SecureAggregator
+    vals = np.random.default_rng(seed + 19).random(N_MESH)
+    agg = SecureAggregator(_mesh_cfg(), runtime=rt, device=dev)
+    out = {}
+    for name, call in (
+            ("median", lambda: agg.median(
+                vals, domain=(0.0, 1.0, shape["f_steps"]))),
+            ("histogram", lambda: agg.histogram(vals,
+                                                bins=shape["f_bins"]))):
+        t0 = time.perf_counter()
+        got = call()
+        out[name] = {"result": np.asarray(got).tolist(),
+                     "seconds": time.perf_counter() - t0}
+    out["bytes"] = agg.stats()["bytes_sent"]
+    return out
+
+
+def _mesh_funcs_rank(rank: int, rt, dev, seed: int, shape: dict,
+                     want: dict) -> dict:
+    """(f) in one rank: the median and the histogram on the ``mesh``
+    backend, each equal to the parent's sim on the card."""
+    import torch.distributed as dist
+    dist.barrier()
+    got = _mesh_funcs(rt, dev, seed, shape)
+    for name in ("median", "histogram"):
+        check(got[name]["result"] == want[name]["result"],
+              f"rank {rank} (f) {name}: {got[name]['result']} != sim")
+    check(got["bytes"] == want["bytes"], f"rank {rank} (f) bytes")
+    return {name: got[name]["seconds"] for name in ("median", "histogram")}
+
+
 def phase_mesh(dev, seed: int, shape: Optional[dict] = None
                ) -> tuple[dict, dict]:
     """The distributed transports on one card: N_MESH rank processes over
@@ -1331,6 +1872,8 @@ def phase_mesh(dev, seed: int, shape: Optional[dict] = None
                         shape["svc_T"])
     svc.pump()
     want["e"] = [sha(s.result) for s in ss]
+    # (f)'s functions on the sim, on the card
+    want["f"] = _mesh_funcs(None, dev, seed, shape)
     del xa, xb, xd, ra, rb, over, ss, svc
     if dev.type == "cuda":
         torch.cuda.empty_cache()
@@ -1379,7 +1922,15 @@ def phase_mesh(dev, seed: int, shape: Optional[dict] = None
                 "breaker": ranks[0]["e"]["breaker"],
                 "slowest_rank_s_per_batch": max(
                     r["e"]["stream"]["seconds_per_batch"] for r in ranks),
-                "rank0_stage_mean_s": ranks[0]["e"]["stream"]["stages"]}}
+                "rank0_stage_mean_s": ranks[0]["e"]["stream"]["stages"]},
+            "f_funcs": {
+                "median_steps": shape["f_steps"],
+                "histogram_bins": shape["f_bins"], "equal_sim": True,
+                "median": want["f"]["median"]["result"],
+                "sim_s": {k: want["f"][k]["seconds"]
+                          for k in ("median", "histogram")},
+                "slowest_rank_s": {k: max(r["f"][k] for r in ranks)
+                                   for k in ("median", "histogram")}}}
     return line, ranks[0]["a_launches"]
 
 
@@ -2061,6 +2612,10 @@ def main() -> int:
     if "service" in phases:
         line, service_launches = phase_service(dev, args.seed)
         emit(line)
+    funcs_launches = None
+    if "funcs" in phases:
+        line, funcs_launches = phase_funcs(dev, args.seed)
+        emit(line)
     mesh_launches = None
     if "mesh" in phases:
         line, mesh_launches = phase_mesh(dev, args.seed)
@@ -2093,7 +2648,9 @@ def main() -> int:
             "mesh_launches_per_rank": (None if mesh_launches is None
                                        else mesh_launches[k.name]),
             "service_launches": (None if service_launches is None
-                                 else service_launches[k.name])})
+                                 else service_launches[k.name]),
+            "funcs_launches": (None if funcs_launches is None
+                               else funcs_launches[k.name])})
     print(smi_line(), flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -22,9 +22,11 @@ from repro_torch.configs.base import (LayerSpec, ModelConfig, MoEConfig,
                                       SSMConfig)
 from repro_torch.core.byzantine import ByzantineSpec
 from repro_torch.core.overlay import MsgStats, Node, Overlay
-from repro_torch.core.plan import AggConfig, SessionMeta, words
+from repro_torch.core.plan import (AggConfig, FuncPlan, SessionMeta,
+                                   compile_func_plan, words)
 from repro_torch.crypto.paillier import (PublicKey, ThresholdPublic,
                                          ThresholdShare)
+from repro_torch.funcs.domain import ValueDomain
 from repro_torch.kernels.backend import IMPLS
 from repro_torch.runtime.chaos import ChaosConfig
 from repro_torch.runtime.fault import SessionFaultPlan
@@ -32,6 +34,7 @@ from repro_torch.runtime.resilience import RetryPolicy
 from repro_torch.service.epochs import EpochSnapshot
 from repro_torch.service.executor import BatchingConfig, StreamConfig
 from repro_torch.service.session import SessionParams
+from repro_torch.tune.signature import WorkloadSignature
 
 
 def config_from_fields(d: dict) -> AggConfig:
@@ -210,3 +213,45 @@ def fault_plan_from_fields(d: dict) -> SessionFaultPlan:
 def epoch_snapshot_from_fields(d: dict) -> EpochSnapshot:
     """The reference's ``EpochSnapshot`` fields -> the port's."""
     return _from_fields(EpochSnapshot, d, tuples=("slot_uids", "honest"))
+
+
+def func_plan_from_fields(d: dict) -> FuncPlan:
+    """The reference's ``FuncPlan`` fields (``cfg`` nested as a dict) ->
+    the port's, through the port's memo so the same plan object comes
+    back as ``compile_func_plan`` would give."""
+    kw = dict(d)
+    cfg = kw.pop("cfg")
+    if isinstance(cfg, dict):
+        cfg = config_from_fields(cfg)
+    fp = compile_func_plan(cfg, kw["fn"], bins=kw["bins"], lo=kw["lo"],
+                           hi=kw["hi"], steps=kw["steps"], q=kw["q"],
+                           k=kw["k"])
+    got = dataclasses.asdict(fp)
+    got.pop("cfg")
+    kw["round_elems"] = tuple(kw["round_elems"])
+    if got != kw:
+        raise ValueError(f"FuncPlan fields {kw} compile to {got}")
+    return fp
+
+
+def value_domain_from_fields(d: dict) -> ValueDomain:
+    """The reference's ``ValueDomain`` fields -> the port's."""
+    return _from_fields(ValueDomain, d)
+
+
+def signature_from_fields(d: dict) -> WorkloadSignature:
+    """The reference's ``WorkloadSignature`` fields -> the port's."""
+    return _from_fields(WorkloadSignature, d)
+
+
+def decision_fields(decision) -> dict:
+    """Plain fields of a ``TuneDecision`` of either package: its
+    signature and config as dicts (the config's ``kernel_impl`` left
+    out: the two packages name their engines differently), the pad, the
+    three byte accounts, the candidate count and ``probed``."""
+    out = {f.name: getattr(decision, f.name)
+           for f in dataclasses.fields(decision)}
+    out["signature"] = dataclasses.asdict(decision.signature)
+    out["config"] = dataclasses.asdict(decision.config)
+    out["config"].pop("kernel_impl")
+    return out

@@ -12,8 +12,9 @@ and gather maps per redundant copy stream, the participation mask, the
 digest transport's shift-1 backup stream), the intra-cluster groups and
 the static fault model.  Everything per session (pad keys, counter
 offsets, runtime fault masks) rides in :class:`SessionMeta` as tensors.
-
-The secure-function plans (``FuncPlan``) come with the funcs slice.
+``compile_func_plan`` compiles a secure function (histogram, quantile,
+top-k) into a :class:`FuncPlan`: its static round schedule of
+allreduces.
 """
 from __future__ import annotations
 
@@ -420,6 +421,118 @@ def hop_wire_words(cfg: AggConfig, rnd: HopRound, T: int) -> dict:
     return {"payload": len(rnd.perms[0]) * T,
             "digest": sum(len(p) for p in rnd.perms) * cfg.digest_words,
             "backup": len(rnd.backup_perm) * T if cfg.digest_backup else 0}
+
+
+# ---------------------------------------------------------------------------
+# Multi-round secure functions (repro_torch.funcs): the static round schedule
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class FuncPlan:
+    """Compiled form of one secure function: a non-additive aggregation
+    (histogram / quantile / top-k) as a static sequence of engine
+    allreduces over derived {0, 1} payloads.
+
+    ``round_elems[i]`` is the payload length T of allreduce ``i`` in
+    execution order (every bisection round ships a 1-element threshold
+    count); ``bisect_rounds`` is ``ceil(log2(steps))``, a function of the
+    value domain, never of the data.  The state of a run (the bisection
+    interval, the revealed counts) lives in ``repro_torch.funcs.FuncRun``.
+    :meth:`wire_bytes` sums the additive plan's own account over the
+    rounds, so a function's cost equals its executed bytes.
+
+    Counts are sums of {0, 1} indicators, at most n_nodes: the
+    fixed-point headroom rule (``MaskConfig.frac_bits``) makes them exact
+    when ``clip >= 1.0``, which :func:`compile_func_plan` checks."""
+    cfg: AggConfig
+    fn: str                     # histogram | quantile | topk
+    bins: int = 0               # histogram width (payload elems)
+    lo: float = 0.0             # value range [lo, hi]
+    hi: float = 1.0
+    steps: int = 0              # value-domain width (bisection grid)
+    q: float = 0.5              # quantile (0 -> minimum, 1 -> maximum)
+    k: int = 0                  # top-k
+    bisect_rounds: int = 0      # static: ceil(log2(steps))
+    round_elems: tuple[int, ...] = ()   # payload T per engine allreduce
+
+    @property
+    def n_allreduces(self) -> int:
+        return len(self.round_elems)
+
+    def wire_bytes(self, S: int = 1) -> int:
+        """Exact wire bytes of one full function run (``S`` concurrent
+        runs): the additive plan's account summed over the rounds."""
+        plan = compile_plan(self.cfg)
+        return sum(plan.wire_bytes(T, S=S) for T in self.round_elems)
+
+
+FUNC_NAMES = ("histogram", "quantile", "topk")
+
+
+def _bisect_rounds(steps: int) -> int:
+    """Static bisection depth of a ``steps``-wide value domain: the
+    number of halvings that pin the search interval to one value."""
+    rounds = 0
+    while (1 << rounds) < steps:
+        rounds += 1
+    return rounds
+
+
+_FUNC_PLAN_CACHE: dict = {}
+
+
+def compile_func_plan(cfg: AggConfig, fn: str, *, bins: int = 0,
+                      lo: float = 0.0, hi: float = 1.0, steps: int = 0,
+                      q: float = 0.5, k: int = 0) -> FuncPlan:
+    """Validate and compile one secure function onto ``cfg``'s additive
+    engine (memoised module-wide like :func:`compile_plan`).
+
+    ``fn='histogram'`` wants ``bins`` (and the ``[lo, hi]`` range);
+    ``fn='quantile'`` the value domain (``lo`` / ``hi`` / ``steps``) and
+    ``q`` (0 = minimum, 1 = maximum, 0.5 = median); ``fn='topk'`` the
+    domain and ``k``: the bisection for the k-th largest threshold, then
+    one full-domain thresholded histogram."""
+    _require(fn in FUNC_NAMES,
+             f"unknown secure function {fn!r}; pick one of "
+             f"{list(FUNC_NAMES)}")
+    _require(cfg.clip >= 1.0,
+             f"secure functions ship {{0, 1}} count payloads, which need "
+             f"clip >= 1.0 to quantize exactly — got clip={cfg.clip}; "
+             "use Security(clip=1.0) (or larger) for function configs")
+    key = (cfg, fn, bins, lo, hi, steps, q, k)
+    hit = _FUNC_PLAN_CACHE.get(key)
+    if hit is not None:
+        return hit
+    if fn == "histogram":
+        _require(bins >= 1, f"histogram needs bins >= 1, got {bins}")
+        _require(hi > lo, f"histogram range needs hi > lo, got "
+                 f"[{lo}, {hi}]")
+        rounds, round_elems = 0, (bins,)
+    else:
+        _require(steps >= 1,
+                 f"fn={fn!r} needs a value domain with steps >= 1, got "
+                 f"{steps} (pass domain=ValueDomain(lo, hi, steps))")
+        _require(steps == 1 or hi > lo,
+                 f"value domain needs hi > lo for steps > 1, got "
+                 f"[{lo}, {hi}] with steps={steps}")
+        rounds = _bisect_rounds(steps)
+        if fn == "quantile":
+            _require(0.0 <= q <= 1.0,
+                     f"quantile q must be in [0, 1], got {q}")
+            round_elems = (1,) * rounds
+        else:
+            _require(1 <= k <= cfg.n_nodes,
+                     f"topk needs 1 <= k <= n_nodes={cfg.n_nodes}, "
+                     f"got {k}")
+            # the threshold gates the one-hot rows, never the width
+            round_elems = (1,) * rounds + (steps,)
+    fp = FuncPlan(cfg=cfg, fn=fn, bins=bins, lo=lo, hi=hi, steps=steps,
+                  q=q, k=k, bisect_rounds=rounds, round_elems=round_elems)
+    if len(_FUNC_PLAN_CACHE) > 256:
+        _FUNC_PLAN_CACHE.clear()
+    _FUNC_PLAN_CACHE[key] = fp
+    return fp
 
 
 _PLAN_CACHE: dict[AggConfig, AggPlan] = {}

@@ -17,17 +17,18 @@ Counterpart of ``repro/obs``:
 Everything is off the hot path (events are recorded host-side at
 dispatch boundaries, never between the engine's launches) and
 deterministic under an injected clock, so traced runs replay
-byte-identically.  (The reference's ``record_func_round`` comes with the
-secure-function slice.)
+byte-identically.
 """
 from repro_torch.obs.metrics import (DEFAULT_REGISTRY, MetricsRegistry,
                                      SVC_STATS_DEPRECATED, SVC_STATS_KEYS,
                                      SVC_STATS_VERSION)
-from repro_torch.obs.trace import TickClock, TraceRecorder, record_batch_trace
+from repro_torch.obs.trace import (TickClock, TraceRecorder,
+                                   record_batch_trace, record_func_round)
 from repro_torch.obs.export import prometheus_text, stats_table
 
 __all__ = [
     "DEFAULT_REGISTRY", "MetricsRegistry", "SVC_STATS_DEPRECATED",
     "SVC_STATS_KEYS", "SVC_STATS_VERSION", "TickClock", "TraceRecorder",
-    "prometheus_text", "record_batch_trace", "stats_table",
+    "prometheus_text", "record_batch_trace", "record_func_round",
+    "stats_table",
 ]

@@ -176,6 +176,24 @@ def record_batch_trace(rec: TraceRecorder, plan: AggPlan, *, padded: int,
                   fault_population=active)
 
 
+def record_func_round(rec: TraceRecorder, *, fn: str, rnd: int,
+                      rounds: int, elems: int, bytes: int, backend: str,
+                      fid=None, sid=None) -> None:
+    """Emit one ``func_round`` event: one span a protocol round of a
+    secure function (``repro_torch.funcs``), a bisection halving or the
+    one-hot round of a histogram / top-k readout.
+
+    The engine dispatch under it already emitted its ``batch`` and
+    ``round`` events; this span ties those hops to the function round
+    that caused them.  ``bytes`` is the round's analytic account
+    (``AggPlan.wire_bytes`` at the round's payload length), the same
+    arithmetic ``cost(fn=...)`` sums.  ``fid`` tags the function session
+    (service path), ``sid`` the inner session the round rode on (None on
+    the one-shot verbs)."""
+    rec.event("func_round", fn=fn, round=rnd, rounds=rounds, elems=elems,
+              bytes=bytes, backend=backend, fid=fid, sid=sid)
+
+
 def read_jsonl(path_or_file) -> list:
     """Parse a JSONL event stream back into dicts (replay tooling)."""
     if isinstance(path_or_file, (str, bytes)):

@@ -140,15 +140,26 @@ def test_no_device_means_the_card(monkeypatch):
 
 
 def test_later_slices_raise_config_error():
+    """What is not in the port raises ``ConfigError`` and names what to
+    do instead; the tuner and the function verbs are ported, so their
+    refusals are now the reference's argument checks."""
     agg = P.SecureAggregator(topology=P.Topology(n_nodes=8), device="cpu")
-    for verb in ("histogram", "quantile", "median", "minimum", "maximum",
-                 "topk"):
-        with pytest.raises(P.ConfigError, match="not ported yet"):
-            getattr(agg, verb)()
-    with pytest.raises(P.ConfigError, match="not ported yet"):
+    for verb, args in (("histogram", (np.zeros(8),)),
+                       ("quantile", (np.zeros(8), 0.5)),
+                       ("median", (np.zeros(8),)),
+                       ("minimum", (np.zeros(8),)),
+                       ("maximum", (np.zeros(8),)),
+                       ("topk", (np.zeros(8), 2))):
+        with pytest.raises(TypeError):
+            getattr(agg, verb)()                    # missing arguments
+        if verb != "histogram":
+            with pytest.raises(TypeError, match="domain"):
+                getattr(agg, verb)(*args)
+    with pytest.raises(P.ConfigError, match="bins"):
         agg.cost(fn="histogram")
-    with pytest.raises(P.ConfigError, match="Queue 1 item 7"):
-        agg.open_session(fn="histogram", bins=4)
+    with pytest.raises(P.ConfigError, match="needs bins"):
+        agg.open_session(fn="histogram")
+    assert agg.cost(fn="histogram", bins=4)["allreduces"] == 1
     # the service is ported: its verbs want an open session first
     with pytest.raises(P.ConfigError, match="needs elems"):
         agg.open_session()
@@ -160,7 +171,8 @@ def test_later_slices_raise_config_error():
             getattr(agg, verb)()
     # the distributed backends are ported: 'mesh' needs a mesh, as in the
     # reference; 'manual' needs a started process group (none here) and
-    # never falls back to the sim oracle; it has no batched verb
+    # never falls back to the sim oracle; it has no batched verb and no
+    # function verbs
     with pytest.raises(P.ConfigError, match="needs a mesh"):
         P.Runtime(backend="mesh")
     manual = P.SecureAggregator(topology=P.Topology(n_nodes=8), device="cpu",
@@ -170,14 +182,49 @@ def test_later_slices_raise_config_error():
         manual.allreduce(torch.zeros(4))
     with pytest.raises(P.ConfigError, match="'manual' backend"):
         manual.allreduce_batched(torch.zeros(2, 8, 4))
-    with pytest.raises(P.ConfigError, match="not ported yet"):
+    with pytest.raises(P.ConfigError, match="'manual'"):
+        manual.median(np.zeros(8), domain=(0.0, 1.0, 8))
+    with pytest.raises(P.ConfigError, match="unknown tune mode"):
         P.SecureAggregator(topology=P.Topology(n_nodes=8), device="cpu",
-                           tune="auto")
+                           tune="fastest")
+    tuned = P.SecureAggregator(topology=P.Topology(n_nodes=8), device="cpu",
+                               tune="auto")
+    assert tuned.stats()["tuner"]["decisions"] == 0
     with pytest.raises(P.ConfigError, match="needs a config"):
         P.SecureAggregator(device="cpu")
     d = agg.derive(n_nodes=6)
     assert (d.cfg.cluster_size, d.cfg.redundancy, d.device.type) == \
         (3, 3, "cpu")
+    from repro_torch.launch import serve_agg
+    with pytest.raises(P.ConfigError, match="Queue 1 item 9"):
+        serve_agg.main(["--transport", "mesh", "--device", "cpu"])
+
+
+def test_tuned_facade_runs_each_shape_on_its_own_plan():
+    """A tuned facade keeps one callable a payload shape, each built on
+    the plan the tuner picked for that shape: the bytes of each call
+    equal that shape's ``cost``, and a repeated shape is a cache hit."""
+    from repro_torch.core.plan import compile_plan
+    agg = P.SecureAggregator(topology=P.Topology(n_nodes=16), device="cpu",
+                             tune="auto")
+    plans = {}
+    for T in (8, 70000, 8, 70000):
+        xs = torch.from_numpy((RNG.normal(size=(16, T)) * 0.3)
+                              .astype(np.float32))
+        before = agg.stats()["bytes_sent"]
+        agg.allreduce(xs)
+        sent = agg.stats()["bytes_sent"] - before
+        plan = compile_plan(agg._tune_decision(T).config)
+        assert sent == agg.cost(T)["bytes_total"] == plan.wire_bytes(T)
+        plans[T] = plan
+    assert plans[8].cfg != plans[70000].cfg
+    assert {fn.plan.cfg for fn in agg._fns.values()} \
+        == {plans[8].cfg, plans[70000].cfg}
+    assert agg.stats()["fn_cache"] == {"hits": 2, "misses": 2, "size": 2}
+    xs = torch.zeros((4, 16, 8))
+    agg.allreduce_batched(xs)
+    fn = agg._fns[("batched", "sim", 4, 8)]
+    assert fn.plan is compile_plan(agg._tune_decision(8, 4).config)
 
 
 def test_import_leaves_jax_and_repro_out():

@@ -335,3 +335,67 @@ def test_chaos_trace_has_the_reference_sha256(tmp_path, seed):
         assert sp.state.value == sj.state.value
         if sp.state is SessionState.REVEALED:
             assert np.array_equal(sp.result.numpy(), np.asarray(sj.result))
+
+
+def _facade_mix(mod, agg):
+    """One fixed mix of one-shot calls of several shapes on a facade of
+    package ``mod`` (the reference or the port)."""
+    rng = np.random.default_rng(5)
+    xs = (rng.normal(size=(16, 96)) * 0.3).astype(np.float32)
+    tree = {"w": xs[:, :32].reshape(16, 4, 8), "b": xs[:, 32:]}
+    batch = (rng.normal(size=(3, 16, 40)) * 0.3).astype(np.float32)
+    wrap = (lambda a: a) if mod == "jax" else torch.from_numpy
+    outs = [agg.allreduce(wrap(xs)), agg.allreduce(wrap(xs)),
+            agg.allreduce({k: wrap(v) for k, v in tree.items()}),
+            agg.allreduce(wrap(xs[:, :7])),
+            agg.allreduce_batched(wrap(batch)),
+            agg.allreduce_batched(wrap(batch)),
+            agg.allreduce_batched(wrap(batch[:2])),
+            agg.allreduce({k: wrap(v) for k, v in tree.items()})]
+    return outs
+
+
+@pytest.mark.parametrize("transport", ["full", "digest"])
+def test_one_shot_trace_and_fn_cache_equal_reference(transport):
+    """The facade's one-shot verbs emit the reference's ``batch`` and
+    ``round`` events (``padded=T``, ``rows`` 1 or S, ``fresh`` as the
+    reference books it) and count its callable cache's hits and misses:
+    under a TickClock the JSONL hashes the same, and the registry and
+    ``stats()["fn_cache"]`` equal the reference's counter for counter."""
+    import io
+    from repro import api as J
+    from repro.obs import TickClock as JTickClock
+    from repro.obs import TraceRecorder as JTraceRecorder
+    from repro_torch import api as P
+    jcfg = AggConfig(n_nodes=16, cluster_size=4, redundancy=3, clip=2.0,
+                     transport=transport)
+    bufs = (io.StringIO(), io.StringIO())
+    jreg, preg = JRegistry(), MetricsRegistry()
+    ja = J.SecureAggregator(jcfg, metrics=jreg, recorder=JTraceRecorder(
+        clock=JTickClock(), sink=bufs[0]))
+    pa = P.SecureAggregator(C.config_from_fields(dataclasses.asdict(jcfg)),
+                            device="cpu", metrics=preg,
+                            recorder=TraceRecorder(clock=TickClock(),
+                                                   sink=bufs[1]))
+    want = _facade_mix("jax", ja)
+    got = _facade_mix("torch", pa)
+    for w, g in zip(want, got):
+        if isinstance(w, dict):
+            assert all(np.array_equal(g[k].numpy(), np.asarray(w[k]))
+                       for k in w)
+        else:
+            assert np.array_equal(g.numpy(), np.asarray(w))
+    ja.recorder.close(), pa.recorder.close()
+    events = pa.recorder.events()
+    assert [e["kind"] for e in events if e["kind"] == "batch"] \
+        == ["batch"] * 8
+    assert [e["fresh"] for e in pa.recorder.events("batch")] \
+        == [False] * 4 + [True, False, True, False]
+    sha = [hashlib.sha256(b.getvalue().encode()).hexdigest() for b in bufs]
+    assert bufs[1].getvalue() == bufs[0].getvalue() and sha[1] == sha[0]
+    assert preg.snapshot() == jreg.snapshot()
+    assert preg.snapshot()["counters"]["facade.fn_cache.hits"] == 3
+    assert preg.snapshot()["counters"]["facade.fn_cache.misses"] == 5
+    assert pa.stats()["fn_cache"] == ja.stats()["fn_cache"] \
+        == {"hits": 3, "misses": 5, "size": 5}
+    assert prometheus_text(preg) == j_prometheus_text(jreg)

@@ -360,10 +360,78 @@ def run_service(case, inputs, mesh) -> dict:
                 "executor.pipeline_depth", 0.0))}
 
 
+def run_funcs(case, inputs, mesh) -> dict:
+    """The secure-function verbs, ``cost(fn=...)``, function sessions
+    through the service and a tuned one-shot, all on the ``mesh``
+    backend, each against the same call on the sim backend."""
+    from repro_torch import SecureAggregator
+    from repro_torch.service import BatchingConfig
+    cfg = config_from_fields(case["cfg"])
+    rt = Runtime(backend="mesh", mesh=mesh, dp_axes=case["dp_axes"])
+    vals = inputs[case["vals"]]
+    dom = tuple(case["domain"])
+    calls = {
+        "hist": lambda a: a.histogram(vals, bins=13),
+        "median": lambda a: a.median(vals, domain=dom),
+        "q90": lambda a: a.quantile(vals, 0.9, domain=dom),
+        "min": lambda a: a.minimum(vals, domain=dom),
+        "max": lambda a: a.maximum(vals, domain=dom),
+        "topk": lambda a: a.topk(vals, 3, domain=dom)}
+    dist = SecureAggregator(cfg, runtime=rt, device="cpu")
+    sim = SecureAggregator(cfg, runtime=Runtime(backend="sim"),
+                           device="cpu")
+    out = {}
+    for name, call in calls.items():
+        got, want = np.asarray(call(dist)), np.asarray(call(sim))
+        assert got.dtype == want.dtype and np.array_equal(got, want), name
+        out[name] = got
+    assert dist.stats()["bytes_sent"] == sim.stats()["bytes_sent"]
+    assert dist.stats()["fn_cache"] == sim.stats()["fn_cache"]
+    assert dist.cost(fn="median", domain=dom) == sim.cost(fn="median",
+                                                          domain=dom)
+    out["bytes"] = np.int64(dist.stats()["bytes_sent"])
+
+    polls = {}
+    for name, rtm in (("mesh", rt), ("sim", Runtime(backend="sim"))):
+        agg = SecureAggregator(cfg, runtime=rtm, device="cpu",
+                               batching=BatchingConfig(max_batch=8,
+                                                       max_age=1e9))
+        fss = [agg.open_session(fn="median", domain=dom, now=0.0)
+               for _ in range(3)]
+        fss.append(agg.open_session(fn="histogram", bins=13, now=0.0))
+        for i, fs in enumerate(fss):
+            for slot in range(cfg.n_nodes):
+                fs.contribute(slot, float(vals[(slot + i) % cfg.n_nodes]))
+            fs.seal(now=0.0)
+        agg.drain()
+        assert all(fs.done for fs in fss), name
+        polls[name] = ([fs.result for fs in fss[:3]], fss[3].result,
+                       agg.stats()["service"]["batches"]["sizes"])
+    assert polls["mesh"][0] == polls["sim"][0]
+    assert np.array_equal(polls["mesh"][1], polls["sim"][1])
+    assert polls["mesh"][2] == polls["sim"][2]
+    out["poll_medians"] = np.asarray(polls["mesh"][0])
+    out["poll_hist"] = polls["mesh"][1]
+    out["poll_batches"] = np.asarray(polls["mesh"][2])
+
+    xs = torch.from_numpy(inputs[case["xs"]])
+    tuned = SecureAggregator(cfg, runtime=rt, device="cpu", tune="auto")
+    tsim = SecureAggregator(cfg, runtime=Runtime(backend="sim"),
+                            device="cpu", tune="auto")
+    got = tuned.allreduce(xs)
+    assert torch.equal(got, tsim.allreduce(xs))
+    assert tuned.stats()["bytes_sent"] == tsim.stats()["bytes_sent"] \
+        == tuned.cost(xs.shape[1])["bytes_total"]
+    out["tuned"] = got.numpy()
+    out["tuned_bytes"] = np.int64(tuned.stats()["bytes_sent"])
+    return out
+
+
 RUN = {"execute": run_execute, "tree": run_tree, "reorder": run_reorder,
        "host_mesh": run_host_mesh, "cluster_sum": run_cluster_sum,
        "facade": run_facade, "wrong_world": run_wrong_world,
-       "stale_wire": run_stale_wire, "service": run_service}
+       "stale_wire": run_stale_wire, "service": run_service,
+       "funcs": run_funcs}
 
 
 def worker(rank: int, job_dir: str) -> None:
