@@ -120,6 +120,35 @@ with a non-zero exit code:
            logits within LOGIT_TOL_F32); the bf16 run on the plain
            versions (its logit error and token agreement); the config
            widths against the reference's config files
+  train    training on the card.  (a) the flash backward kernel against
+           ``attention_bwd_ref`` on the same q, k, v, dO, o and L, the
+           forward kernel's L against the plain L, and autograd through
+           both kernels against autograd of ``attention_ref``, in float32
+           and bf16 over GQA groups 1, 2 and 8, causal or not, window
+           128, ragged Sq = Skv = 77, Sq = Skv in {512, 2048}, Sq != Skv
+           and qwen3's training shape, within FLASH_BWD_TOL, each
+           output's largest error beside its plain version's mean and
+           largest |entry|.  (b) ``train_loop`` on qwen3-1.7b at full
+           width (bf16 compute, float32 weights and AdamW moments,
+           remat), batch 4 x 2,048 tokens: 4 plain steps, then 4 secure
+           steps from the same init on a one-rank mesh (train_loop's
+           default sync, the reference's single-device secure mode: n =
+           4, clip 8, derived to n = 1; chunks of 2^22), each step's loss
+           and seconds, tokens/s, each run's launches (a step: flash
+           forward 56 with remat, backward 28, mask and unmask one a
+           chunk) and peak memory, the secure losses within
+           TRAIN_LOSS_TOL of the plain ones, one more secure step
+           profiled (busy share, top kernels, the sync's share of the
+           step from their record_function spans on the device, no
+           device-to-host copy of gradient size), and one step's local
+           gradients synced through the kernels and through the plain
+           versions, bit for bit.  (c) ``launch.byzantine_training`` at 8
+           gloo ranks on the card (olmo-1b smoke, clusters of 4, r = 3,
+           ranks 1 and 5 corrupt): the secure losses within 5e-3 of the
+           baseline with ``vote_combine`` launched, the r = 1 control
+           printed.  (d) the qwen3 smoke crashed at step 10 after a
+           checkpoint at 8 and resumed: the last loss equal to the
+           uninterrupted run's within 1e-5 relative
   timing   CUDA-event medians of each kernel and its plain version at
            the main paths' shapes (the Montgomery multiply at the
            decryption's rows x 128 limbs and at 1056 x 128; the ladder at
@@ -128,15 +157,19 @@ with a non-zero exit code:
            turns, and its plain version once, held equal to it; flash
            attention and the SSD scan at the two models' prefill shapes,
            with ``scaled_dot_product_attention`` timed beside flash
-           attention as the library yardstick), and the end-to-end
-           allreduce time
+           attention as the library yardstick, the forward also with L
+           written, and the flash backward at qwen3's training shape
+           beside SDPA's backward), and the end-to-end allreduce time
 
 The last lines are the card's name and power limit, one JSON object
 describing every kernel (``max_abs_err`` from the kernels phase,
 ``launches`` on its phase's path, ``mesh_launches_per_rank`` in the mesh
 phase's (a), ``service_launches`` on the service phase's depth-2 stream,
-``funcs_launches`` on the funcs phase's verbs; each null where its phase
-did not run), and ``{"ok": true, "device": {...}}``.  Without
+``funcs_launches`` on the funcs phase's verbs,
+``train_launches_per_secure_step`` on one secure step of the train
+phase's (b); each null where its phase did not run; the flash
+backward's ``launches`` and ``max_abs_err`` come from the train phase),
+and ``{"ok": true, "device": {...}}``.  Without
 a CUDA device the script fails before printing any result.  Imports
 nothing of JAX or of the JAX package.
 """
@@ -147,6 +180,7 @@ import dataclasses
 import hashlib
 import json
 import math
+import os
 import pathlib
 import shutil
 import statistics
@@ -162,7 +196,7 @@ import torch
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
 
 PHASES = ("device", "build", "kernels", "main", "batched", "service",
-          "funcs", "mesh", "paillier", "serve", "timing")
+          "funcs", "mesh", "paillier", "serve", "train", "timing")
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 # 32-bit lane operations issued per second: 132 SMs x 128 lanes x
 # 1.98 GHz, half the 67 TFLOP/s float32 FMA rate (an FMA counts two FLOPs)
@@ -221,6 +255,20 @@ REFERENCE_WIDTHS = {
                         tie_embeddings=True, dtype="bfloat16"),
 }
 SERVE_KERNEL = {"qwen3-1.7b": "flash_attention", "mamba2-370m": "ssd"}
+# train: qwen3-1.7b at full width on the serve phase's batch x tokens,
+# train_loop for TRAIN_STEPS plain steps then as many secure ones from the
+# same init; the secure sync is train_loop's default, the reference's
+# single-device secure mode (n = 4, clip 8, derived to one node: mask,
+# quantize and unmask active) in chunks of 2^22 elements; the secure
+# losses within TRAIN_LOSS_TOL of the plain ones (the reference's
+# tolerance, tests/test_train_e2e.py); (c) the
+# byzantine training at BYZ_RANKS gloo ranks for BYZ_STEPS steps; (d) a
+# crash at step 10 after a checkpoint at 8, resumed within RESTART_RTOL
+TRAIN_STEPS = 4
+TRAIN_OPT = dict(lr=3e-4, warmup_steps=2, total_steps=100)
+TRAIN_LOSS_TOL = 2e-3
+BYZ_RANKS, BYZ_STEPS = 8, 8
+RESTART_RTOL = 1e-5
 # Tolerances of the float kernels against their plain versions on the
 # card (max |a - b| <= atol + rtol |b|).  Flash attention: 1e-5 in float32
 # -- both compute in float32, but the kernel's online softmax rescales its
@@ -454,6 +502,113 @@ def _check_flash(rng, dev, errs: dict) -> int:
                   f"K={K} hd={hd} causal={causal} window={window}: max err "
                   f"{max_abs_err(got.float(), want.float())}")
             checks += 1
+    return checks
+
+
+# (B, Sq, Skv, H, K, hd, causal, window) of the backward: GQA groups 1, 2
+# and 8, causal or not, window 128, ragged Sq = Skv = 77, Sq = Skv in
+# {512, 2048}, each head dim, Sq != Skv with rows that have no allowed key,
+# and qwen3-1.7b's training shape
+FLASH_BWD_CASES = [
+    (2, 77, 77, 8, 8, 128, True, 0), (2, 77, 77, 8, 4, 64, False, 0),
+    (1, 77, 77, 8, 1, 32, True, 16), (1, 256, 256, 8, 8, 16, True, 0),
+    (2, 512, 512, 16, 16, 128, False, 0), (2, 512, 512, 16, 8, 128, True, 128),
+    (1, 512, 512, 16, 2, 64, True, 0), (1, 2048, 2048, 16, 8, 128, True, 0),
+    (1, 2048, 2048, 8, 1, 128, False, 0), (2, 200, 77, 4, 2, 64, True, 64),
+    (4, 2048, 2048, 16, 8, 128, True, 0),
+]
+# The backward's tolerances, (atol, atol as a share of the output's
+# largest |entry|, rtol): max |a - b| <= atol + share max|b| + rtol |b|.
+# float32 1e-4 -- both compute in float32, but the kernel sums dQ over the
+# kv tiles (its workspace, summed in tile order) and dK, dV over up to
+# G x Sq rows in another order than the plain einsums, sums of up to 16,384
+# terms of unit scale.  bf16: the kernel and ``attention_bwd_ref`` compute
+# in float32 from the same bf16 values and round each output once, so two
+# bf16 ulps (rtol 2^-6) over a floor of 2^-10 of the largest entry (float32
+# sums near zero).  L is float32 in both dtypes and takes the float32
+# tolerance.  Autograd of ``attention_ref`` in bf16 is another function:
+# the FA-2 backward (the reference's too) takes delta from O rounded to
+# bf16, the softmax's autograd from O in float32 -- up to 5.3e-3 of the
+# largest |dQ| at qwen3-1.7b's shape between the plain versions on the CPU
+# -- so those rows take a floor of 2^-7 of the largest entry.
+FLASH_BWD_TOL = {torch.float32: (1e-4, 0.0, 1e-4),
+                 torch.bfloat16: (0.0, 2 ** -10, 2 ** -6)}
+FLASH_BWD_AUTOGRAD_TOL_BF16 = (0.0, 2 ** -7, 2 ** -6)
+
+
+def _check_flash_bwd(rng, dev, errs: dict) -> int:
+    """The flash backward on the card: (1) the kernel against
+    ``attention_bwd_ref`` on the same q, k, v, dO and the plain forward's
+    o and L; (2) the forward kernel's L against the plain L; (3) autograd
+    through both kernels against torch autograd of ``attention_ref``.
+    Each within FLASH_BWD_TOL (autograd's bf16 rows within
+    FLASH_BWD_AUTOGRAD_TOL_BF16); for each output the largest error is
+    kept by dtype, with the mean and largest |entry| of that case's plain
+    output beside it."""
+    from repro_torch.kernels.flash_attention import (attention_bwd_ref,
+                                                     attention_fwd_ref,
+                                                     attention_ref,
+                                                     flash_attention)
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention_bwd_cuda, flash_attention_cuda)
+    from repro_torch.kernels.flash_attention.ref import attention_mask
+    checks = 0
+    by = errs.setdefault("flash_attention_bwd_by_output", {})
+    for B, Sq, Skv, H, K, hd, causal, window in FLASH_BWD_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (torch.from_numpy(rng.standard_normal(
+                (B, S, n, hd), np.float32)).to(dev, dtype)
+                for S, n in ((Sq, H), (Skv, K), (Skv, K)))
+            do = torch.from_numpy(rng.standard_normal(
+                (B, Sq, H, hd), np.float32)).to(dev, dtype)
+            what = (f"{dtype} B={B} Sq={Sq} Skv={Skv} H={H} K={K} hd={hd} "
+                    f"causal={causal} window={window}")
+            o, L = attention_fwd_ref(q, k, v, causal=causal, window=window)
+            got = flash_attention_bwd_cuda(q, k, v, o, do, L, causal, window)
+            want = attention_bwd_ref(q, k, v, o, do, L, causal=causal,
+                                     window=window)
+            _, Lk = flash_attention_cuda(q, k, v, causal, window, lse=True)
+            qkv = (q, k, v)
+            for t in qkv:
+                t.requires_grad_(True)
+            grads = torch.autograd.grad(
+                flash_attention(q, k, v, causal=causal, window=window), qkv,
+                do)
+            auto = torch.autograd.grad(
+                attention_ref(q, k, v, causal=causal, window=window), qkv,
+                do)
+            for t in qkv:
+                t.requires_grad_(False)
+            tol = FLASH_BWD_TOL[dtype]
+            rows = [(f"d{n}", g, w, tol) for n, g, w in zip("qkv", got, want)]
+            # a row with no allowed key (a window chunk past Skv): the
+            # FA-2 backward, the reference's too, takes P = 1 there (L =
+            # -1e30 absorbs log Skv) where the softmax's autograd has
+            # 1 / Skv, so only rows with a key are held to autograd
+            if bool(attention_mask(Sq, Skv, causal, window, dev).any(1)
+                    .all()):
+                auto_tol = (FLASH_BWD_AUTOGRAD_TOL_BF16
+                            if dtype == torch.bfloat16 else tol)
+                rows += [(f"autograd_d{n}", g, w, auto_tol)
+                         for n, g, w in zip("qkv", grads, auto)]
+            rows.append(("L", Lk, L, FLASH_BWD_TOL[torch.float32]))
+            for name, g, w, (atol, share, rtol) in rows:
+                err = max_abs_err(g.float(), w.float())
+                w_abs = w.float().abs()
+                top = float(w_abs.max())
+                key = f"{dtype}:{name}"
+                if err >= by.get(key, {}).get("max_abs_err", -1.0):
+                    by[key] = {"max_abs_err": err,
+                               "mean_abs_ref": float(w_abs.mean()),
+                               "max_abs_ref": top}
+                if name != "L":
+                    errs["flash_attention_bwd"] = max(
+                        errs["flash_attention_bwd"], err)
+                check(g.dtype == w.dtype and
+                      within(g, w, atol + share * top, rtol),
+                      f"flash_attention_bwd {name} {what}: max err {err}, "
+                      f"max |ref| {top}")
+                checks += 1
     return checks
 
 
@@ -2208,6 +2363,191 @@ def _serve_prompts(cfg, batch: int, prompt: int, seed: int, dev):
     return torch.from_numpy(stream.global_batch(0)["tokens"]).to(dev)
 
 
+def phase_train(dev, seed: int, errs: dict) -> tuple[list, dict]:
+    """The training path on the card: (a) the flash backward kernel
+    against its plain version; (b) qwen3-1.7b at full width, plain then
+    secure steps; (c) the byzantine training across gloo ranks; (d) a
+    crash and restart.  Returns one JSON line a sub-run and the launch
+    counts of the secure run of (b)."""
+    n = _check_flash_bwd(np.random.default_rng(seed), dev, errs)
+    lines = [{"phase": "train", "part": "a_flash_bwd", "checks": n,
+              "tol_atol_share_rtol": {
+                  **{str(k): v for k, v in FLASH_BWD_TOL.items()},
+                  "autograd torch.bfloat16": FLASH_BWD_AUTOGRAD_TOL_BF16},
+              "max_abs_err": errs["flash_attention_bwd"],
+              "max_abs_err_by_output": errs["flash_attention_bwd_by_output"]}]
+    line, launches = _train_full(dev, seed)
+    lines.append(line)
+    lines.append(_train_byzantine(dev))
+    lines.append(_train_restart(dev))
+    return lines, launches
+
+
+def _train_full(dev, seed: int) -> tuple[dict, dict]:
+    """(b): ``train_loop`` for TRAIN_STEPS plain steps, then as many
+    secure steps from the same seeded init, each run's step seconds,
+    peak memory and launches (counted from 0 just before the run); one
+    more secure step profiled; the sync of one step's local gradients
+    through the kernels and through the plain versions, bit for bit."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.engine import tree_flatten
+    from repro_torch.data.pipeline import DataConfig, SyntheticStream
+    from repro_torch.kernels import backend
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.mesh import dp_axes_of, single_rank_mesh
+    from repro_torch.launch.train import default_agg, train_loop
+    from repro_torch.optim import adamw
+    cfg = get_config("qwen3-1.7b")
+    check_widths("qwen3-1.7b", cfg)
+    B, S = SERVE_BATCH, SERVE_PROMPT
+    sh = ShapeConfig("chip_train", S, B, "train")
+    opt = adamw.OptConfig(state_dtype=cfg.opt_state_dtype, **TRAIN_OPT)
+    agg = default_agg(1)
+
+    def run(secure: bool):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        backend.reset_launch_counts()
+        out = train_loop(cfg, steps=TRAIN_STEPS, shape=sh, secure=secure,
+                         opt_cfg=opt, seed=seed, device=dev)
+        counts = backend.launch_counts()
+        warm = statistics.median(out["step_s"][1:])
+        line = {"losses": out["losses"], "step_s": out["step_s"],
+                "step_s_median_warm": warm, "tokens_per_s": B * S / warm,
+                "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                "launches": counts,
+                "launches_per_step": {k: v / TRAIN_STEPS
+                                      for k, v in counts.items()}}
+        return out, line
+
+    out, plain = run(False)
+    del out
+    torch.cuda.empty_cache()
+    counts = plain["launches"]
+    check(counts["flash_attention_bwd"] == TRAIN_STEPS * cfg.n_layers and
+          counts["flash_attention"] ==
+          TRAIN_STEPS * cfg.n_layers * (1 + cfg.remat)
+          and counts["mask_encrypt"] == 0, f"plain run launches {counts}")
+
+    out, secure = run(True)
+    params = out["params"]
+    del out
+    torch.cuda.empty_cache()
+    # the gradient elements the sync carries (the embedding's padded
+    # vocab rows included), in chunks of agg.chunk_elems
+    n_elems = sum(t.numel() for t in tree_flatten(params)[0])
+    n_chunks = -(-n_elems // agg.chunk_elems)
+    counts = secure["launches"]
+    check(counts["flash_attention_bwd"] == TRAIN_STEPS * cfg.n_layers and
+          counts["mask_encrypt"] == counts["unmask_decrypt"]
+          == TRAIN_STEPS * n_chunks,
+          f"secure run launches {counts}, want {n_chunks} chunks a step")
+    # one more secure step, from the run's weights, profiled: the step's
+    # and the sync's spans on the device (train_loop's and the secure
+    # step's record_function), the sync's share the ratio of the two, and
+    # the device's kernels in the step
+    prof = profile_device(
+        lambda: train_loop(cfg, steps=1, shape=sh, secure=True, opt_cfg=opt,
+                           seed=seed, device=dev, params=params),
+        ("flash_wgmma", "fa_bwd", "fa_delta", "fa_dq", *SECURE_AGG_PARTS,
+         "Memcpy DtoH", "Memcpy HtoD", "Memcpy DtoD", "nvjet",
+         "multi_tensor_apply", "elementwise"),
+        spans=("train_step", "secure_sync"))
+    step_ms, sync_ms = (prof["spans_ms"][k]["device"]
+                        for k in ("train_step", "secure_sync"))
+    prof["sync_share_of_step"] = sync_ms / step_ms
+    prof["step_busy_share"] = prof["device_busy_ms"] / step_ms
+    dtoh = prof["by_part"]["Memcpy DtoH"]
+    check(dtoh["ms"] < 5.0, f"device-to-host copies in a one-rank secure "
+          f"step: {dtoh}")
+    # one step's local gradients synced through the kernels and the
+    # plain versions: bit for bit
+    stream = SyntheticStream(DataConfig(seq_len=S, global_batch=B,
+                                        seed=seed), cfg)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in stream.global_batch(0).items()}
+    _, grads = ST.local_grads(cfg, params, batch, B * S)
+    del params
+    with single_rank_mesh() as mesh:
+        backend.reset_launch_counts()
+        a = tree_flatten(ST.tree_allreduce(grads, agg, mesh,
+                                           dp_axes_of(mesh)))[0]
+        ka = backend.launch_counts()
+        b = tree_flatten(ST.tree_allreduce(
+            grads, agg.replace(kernel_impl="torch"), mesh,
+            dp_axes_of(mesh)))[0]
+        check(backend.launch_counts() == ka and ka["mask_encrypt"] ==
+              n_chunks, f"sync launches {ka}")
+        equal = all(torch.equal(x, y) for x, y in zip(a, b))
+        check(equal, "the sync's kernels and plain versions differ")
+        del grads, a, b
+    torch.cuda.empty_cache()
+    diff = [x - y for x, y in zip(secure["losses"], plain["losses"])]
+    check(all(math.isfinite(x) for x in plain["losses"] + secure["losses"]),
+          "non-finite loss")
+    check(max(map(abs, diff)) <= TRAIN_LOSS_TOL,
+          f"secure - plain losses {diff} > {TRAIN_LOSS_TOL}")
+    return {"phase": "train", "part": "b_full_width", "arch": cfg.name,
+            "batch": B, "seq_len": S, "dtype": cfg.dtype,
+            "remat": cfg.remat, "params": cfg.param_count(),
+            "grad_elems": n_elems,
+            "opt": {**TRAIN_OPT, "state_dtype": opt.state_dtype},
+            "agg": {"n_nodes": agg.n_nodes, "chunk_elems": agg.chunk_elems,
+                    "chunks": n_chunks, "clip": agg.clip},
+            "plain": plain, "secure": secure, "secure_minus_plain": diff,
+            "tol": TRAIN_LOSS_TOL, "sync_bit_equal_plain": equal,
+            "profile_secure_step": prof}, counts
+
+
+def _train_byzantine(dev) -> dict:
+    """(c): ``launch.byzantine_training`` on the card."""
+    from repro_torch.launch import byzantine_training as BT
+    t0 = time.perf_counter()
+    out = BT.run(ranks=BYZ_RANKS, steps=BYZ_STEPS, device=str(dev))
+    check(out["max_dev_secure"] < BT.TOL,
+          f"byzantine: secure deviates {out['max_dev_secure']}")
+    sec = out["secure"]["launches"]
+    check(sec["vote_combine"] > 0 and sec["flash_attention_bwd"] > 0,
+          f"byzantine launches {sec}")
+    return {"phase": "train", "part": "c_byzantine", "seconds":
+            time.perf_counter() - t0, **out}
+
+
+def _train_restart(dev) -> dict:
+    """(d): the reference's crash / restart case on the card: qwen3
+    smoke, a crash at step 10 after a checkpoint at step 8."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.train import train_loop
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.fault import FailurePlan, InjectedCrash
+    cfg = get_smoke_config("qwen3-1.7b")
+    kw = dict(steps=16, shape=ShapeConfig("t", 64, 4, "train"),
+              opt_cfg=adamw.OptConfig(lr=1e-3, warmup_steps=5,
+                                      total_steps=100, grad_clip=1.0),
+              log_every=1000, device=dev)
+    ref = train_loop(cfg, **kw)
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = os.path.join(tmp, "ck")
+        try:
+            train_loop(cfg, ckpt_dir=ck, ckpt_every=8,
+                       failure_plan=FailurePlan(crash_at_steps=(10,)), **kw)
+            crashed = False
+        except InjectedCrash:
+            crashed = True
+        out = train_loop(cfg, ckpt_dir=ck, ckpt_every=8, **kw)
+    rel = abs(out["losses"][-1] - ref["losses"][-1]) / abs(ref["losses"][-1])
+    check(crashed and out["resumed_from"] == 8 and rel <= RESTART_RTOL,
+          f"restart: crashed {crashed}, resumed from {out['resumed_from']},"
+          f" last loss rel diff {rel}")
+    return {"phase": "train", "part": "d_restart", "arch": cfg.name,
+            "dtype": cfg.dtype, "resumed_from": out["resumed_from"],
+            "losses_uninterrupted": ref["losses"],
+            "losses_resumed": out["losses"], "last_rel_diff": rel,
+            "rtol": RESTART_RTOL}
+
+
 def _network_exchanges(r: int) -> int:
     return sum(len(range(p % 2, r - 1, 2)) for p in range(r))
 
@@ -2279,6 +2619,7 @@ def phase_timing(rng, dev, xs, decrypt: tuple[int, int]
     out["mont_mul"] = mm[f"{rows}x128"]
     out["mont_exp"] = time_mont_exp(rng, dev, rows, 128, nbits)
     out["flash_attention"] = time_flash(rng, dev)
+    out["flash_attention_bwd"] = time_flash_bwd(rng, dev)
     from repro_torch.kernels.ssd.ops import CHUNK
     Bsz, S, H, P, N = SERVE_BATCH, SERVE_PROMPT, 32, 64, 128
     # the chunk states, written, read and rewritten, read again
@@ -2435,6 +2776,7 @@ def time_flash(rng, dev) -> dict:
     ``scaled_dot_product_attention`` on the same inputs in its (B, H, S,
     hd) layout (timed here only; the port never calls it)."""
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention.ops import flash_attention_cuda
     B, S, H, K, hd = SERVE_BATCH, SERVE_PROMPT, 16, 8, 128
     q, k, v = (torch.from_numpy(rng.standard_normal((B, S, n, hd),
                                                     np.float32)
@@ -2442,6 +2784,9 @@ def time_flash(rng, dev) -> dict:
                for n in (H, K, K))
     kernel_ms = cuda_ms(lambda: flash_attention(q, k, v, causal=True),
                         reps=10)
+    # the training forward: the same kernel, also writing L
+    lse_ms = cuda_ms(lambda: flash_attention_cuda(q, k, v, True, 0,
+                                                  lse=True), reps=10)
     plain_ms = cuda_ms(lambda: flash_attention(q, k, v, causal=True,
                                                impl="torch"), reps=3)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
@@ -2454,10 +2799,55 @@ def time_flash(rng, dev) -> dict:
     # the causal pairs (i >= j) of two products, 2 FLOP a multiply-add
     flops = 4 * B * H * hd * S * (S + 1) // 2
     nbytes = 2 * (2 * B * S * H * hd + 2 * B * S * K * hd)
-    return {"ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+    return {"ms": kernel_ms, "ms_with_lse": lse_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms,
             "library": "scaled_dot_product_attention(is_causal=True, "
                        "enable_gqa=True)",
             "library_max_abs_err": lib_err,
+            "shape": [B, S, H, K, hd], **bound(nbytes, flops,
+                                                BF16_FLOPS_PER_S)}
+
+
+def time_flash_bwd(rng, dev) -> dict:
+    """The flash backward at qwen3-1.7b's training shape (B 4, S 2048, H
+    16, K 8, hd 128, causal, bf16) from the forward kernel's o and L, its
+    plain version, and the backward of ``scaled_dot_product_attention``
+    (causal, GQA) on the same inputs in its (B, H, S, hd) layout (timed
+    here only; the port never calls it)."""
+    from repro_torch.kernels.flash_attention import attention_bwd_ref
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention_bwd_cuda, flash_attention_cuda)
+    B, S, H, K, hd = SERVE_BATCH, SERVE_PROMPT, 16, 8, 128
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((B, S, n, hd),
+                                                        np.float32)
+                                    ).to(dev, torch.bfloat16)
+                   for n in (H, K, K, H))
+    o, L = flash_attention_cuda(q, k, v, True, 0, lse=True)
+    kernel_ms = cuda_ms(lambda: flash_attention_bwd_cuda(q, k, v, o, do, L,
+                                                         True, 0), reps=5)
+    plain_ms = cuda_ms(lambda: attention_bwd_ref(q, k, v, o, do, L,
+                                                 causal=True), reps=2)
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                  for t in (q, k, v))
+    ot = torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True)
+    dot = do.transpose(1, 2).contiguous()
+    library_ms = cuda_ms(lambda: torch.autograd.grad(
+        ot, (qt, kt, vt), dot, retain_graph=True), reps=5)
+    got = flash_attention_bwd_cuda(q, k, v, o, do, L, True, 0)
+    lib = torch.autograd.grad(ot, (qt, kt, vt), dot)
+    lib_err = max(max_abs_err(g.float(), w.transpose(1, 2).float())
+                  for g, w in zip(got, lib))
+    # five products over the causal pairs (i >= j), 2 FLOP a multiply-add
+    flops = 10 * B * H * hd * S * (S + 1) // 2
+    # q, k, v, o, dO and L read, dq, dk, dv written
+    nbytes = 2 * (3 * B * S * H * hd + 2 * B * S * K * hd) + 4 * B * H * S \
+        + 2 * (B * S * H * hd + 2 * B * S * K * hd)
+    return {"ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "library": "scaled_dot_product_attention(is_causal=True, "
+                       "enable_gqa=True) backward",
+            "library_max_abs_err": lib_err,
+            "dq_workspace_bytes": 4 * -(-S // 64) * B * S * H * hd,
             "shape": [B, S, H, K, hd], **bound(nbytes, flops,
                                                 BF16_FLOPS_PER_S)}
 
@@ -2536,10 +2926,14 @@ def _time_allreduce(xs, dev) -> dict:
             **profile_device(lambda: agg.allreduce(xs))}
 
 
-def profile_device(fn, parts: tuple = ()) -> dict:
+def profile_device(fn, parts: tuple = (), spans: tuple = ()) -> dict:
     """One profiled call of ``fn``: its wall time, device time by kernel
-    name, the device's busy share, and for each of ``parts`` the device
-    time and launches of the kernels whose names contain it."""
+    name, the device's busy share, for each of ``parts`` the device
+    time and launches of the kernels whose names contain it, and for each
+    of ``spans`` (``record_function`` ranges) the milliseconds of its
+    ranges on the host and on the device (from the first to the last
+    kernel launched inside it, idle gaps included); the ranges' device
+    rows are not kernels, and are kept out of the busy time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -2550,13 +2944,14 @@ def profile_device(fn, parts: tuple = ()) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rows = []
-    for ev in prof.key_averages():
+    averages = prof.key_averages()
+    for ev in averages:
         # operators repeat their kernels' device time; gloo's transfers
         # are host work that the profiler files under the device
-        if ev.device_type != DeviceType.CUDA or ev.key.startswith("gloo:"):
+        if ev.device_type != DeviceType.CUDA or ev.key.startswith("gloo:") \
+                or ev.key in spans:
             continue
-        dev_us = getattr(ev, "self_device_time_total",
-                         getattr(ev, "self_cuda_time_total", 0))
+        dev_us = _device_us(ev)
         if dev_us > 0:
             rows.append((ev.key[:80], dev_us / 1e3, ev.count))
     rows.sort(key=lambda r: -r[1])
@@ -2566,7 +2961,20 @@ def profile_device(fn, parts: tuple = ()) -> dict:
             "by_kernel_ms": rows[:12],
             "by_part": {p: {"ms": sum(r[1] for r in rows if p in r[0]),
                             "launches": sum(r[2] for r in rows if p in r[0])}
-                        for p in parts}}
+                        for p in parts},
+            "spans_ms": {n: {
+                "host": sum(ev.cpu_time_total for ev in averages
+                            if ev.key == n and
+                            ev.device_type == DeviceType.CPU) / 1e3,
+                "device": sum(_device_us(ev) for ev in averages
+                              if ev.key == n and
+                              ev.device_type == DeviceType.CUDA) / 1e3}
+                for n in spans}}
+
+
+def _device_us(ev) -> float:
+    return getattr(ev, "self_device_time_total",
+                   getattr(ev, "self_cuda_time_total", 0))
 
 
 def main() -> int:
@@ -2630,6 +3038,13 @@ def main() -> int:
         line, serve_launches = phase_serve(dev, args.seed)
         launches.update(serve_launches)
         emit(line)
+    train_launches = None
+    if "train" in phases:
+        lines, train_launches = phase_train(dev, args.seed, errs)
+        launches[backend.FLASH_ATTENTION_BWD.name] = \
+            train_launches[backend.FLASH_ATTENTION_BWD.name]
+        for line in lines:
+            emit(line)
     if "timing" in phases:
         line, timing = phase_timing(rng, dev, xs, decrypt)
         emit(line)
@@ -2637,10 +3052,12 @@ def main() -> int:
     kernels = []
     for k in backend.KERNELS:
         t = timing.get(k.name, {})
+        checked = "train" in phases if k is backend.FLASH_ATTENTION_BWD \
+            else "kernels" in phases
         kernels.append({
             "name": k.name, "route": "cuda", "source": k.source,
             "replaces": k.replaces, "launches": launches.get(k.name),
-            "max_abs_err": errs[k.name] if "kernels" in phases else None,
+            "max_abs_err": errs[k.name] if checked else None,
             "ms": t.get("ms"),
             "plain_ms": t.get("plain_ms"), "bound_ms": t.get("bound_ms"),
             "bound_by": t.get("bound_by"),
@@ -2650,7 +3067,10 @@ def main() -> int:
             "service_launches": (None if service_launches is None
                                  else service_launches[k.name]),
             "funcs_launches": (None if funcs_launches is None
-                               else funcs_launches[k.name])})
+                               else funcs_launches[k.name]),
+            "train_launches_secure_run": (
+                None if train_launches is None
+                else train_launches[k.name])})
     print(smi_line(), flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

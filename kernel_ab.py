@@ -1,17 +1,21 @@
-"""A/B timing of the port's SSD scan and Montgomery multiply across
-source trees, on one GPU, in turns.
+"""A/B timing of the port's SSD scan, Montgomery multiply and flash
+attention backward across source trees, on one GPU, in turns.
 
     python3 kernel_ab.py --tree parent=<checkout> --tree change=. \
-        --order parent,change,change,parent [--out build/ab.json]
+        --order parent,change,change,parent [--out build/ab.json] \
+        [--kernels ssd,mont_mul,flash_bwd]
 
 Each turn starts one Python process whose import path holds that tree's
 ``src/`` first; the process builds that tree's kernels (into the tree's
 own ``build/``) and times them with this checkout's ``chip_smoke.py``
 timing functions, so every tree gets one method and one input set:
-``time_ssd`` (``ssd_chunked`` at mamba2-370m's prefill) and
+``time_ssd`` (``ssd_chunked`` at mamba2-370m's prefill),
 ``time_mont_mul`` (``mont_mul_op`` at a threshold decryption's 58 rows x
-128 limbs).  The inputs come from one seed and are the same in every
-turn.  Prints one JSON line a turn, then the card's name and power limit
+128 limbs) and ``time_flash_bwd`` (the flash backward at qwen3-1.7b's
+training shape, beside ``scaled_dot_product_attention``'s backward);
+``--kernels`` picks among them (a tree older than the flash backward
+takes ``ssd,mont_mul``).  The inputs come from one seed and are the same
+in every turn.  Prints one JSON line a turn, then the card's name and power limit
 as ``nvidia-smi`` gives them, and exits non-zero without a card.
 """
 from __future__ import annotations
@@ -26,7 +30,7 @@ CHILD = r'''
 import json, pathlib, sys, time
 import numpy as np
 import torch
-here, src = sys.argv[1], sys.argv[2]
+here, src, kernels = sys.argv[1], sys.argv[2], sys.argv[3].split(",")
 sys.path.insert(0, here)
 import chip_smoke                      # puts this checkout's src/ first
 sys.path.insert(0, src)
@@ -38,10 +42,16 @@ dev = torch.device("cuda", 0)
 t0 = time.perf_counter()
 build.lib()
 build_s = time.perf_counter() - t0
-ssd = chip_smoke.time_ssd(np.random.default_rng(0), dev)
-mont = chip_smoke.time_mont_mul(np.random.default_rng(0), dev, [(58, 128)])
-print(json.dumps({"build_s": build_s, "ssd": ssd,
-                  "mont_mul": mont["58x128"]}))
+out = {"build_s": build_s}
+if "ssd" in kernels:
+    out["ssd"] = chip_smoke.time_ssd(np.random.default_rng(0), dev)
+if "mont_mul" in kernels:
+    out["mont_mul"] = chip_smoke.time_mont_mul(
+        np.random.default_rng(0), dev, [(58, 128)])["58x128"]
+if "flash_bwd" in kernels:
+    out["flash_bwd"] = chip_smoke.time_flash_bwd(np.random.default_rng(0),
+                                                 dev)
+print(json.dumps(out))
 '''
 
 
@@ -61,6 +71,8 @@ def main() -> int:
     ap.add_argument("--order", required=True,
                     help="comma-separated tree names, one turn each")
     ap.add_argument("--out", default=None, help="also write the turns here")
+    ap.add_argument("--kernels", default="ssd,mont_mul,flash_bwd",
+                    help="comma-separated subset of ssd,mont_mul,flash_bwd")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -72,7 +84,7 @@ def main() -> int:
     for name in args.order.split(","):
         root = pathlib.Path(trees[name]).resolve()
         proc = subprocess.run([sys.executable, "-c", CHILD, str(here),
-                               str(root / "src")], cwd=root,
+                               str(root / "src"), args.kernels], cwd=root,
                               capture_output=True, text=True, timeout=900)
         if proc.returncode != 0:
             print(proc.stdout, proc.stderr, file=sys.stderr)

@@ -3,7 +3,8 @@
 The aggregation system has no weights: its state is the protocol config,
 the per-session seeds and counter offsets, the fault masks, and for the
 paper's DA protocol the threshold key material and the overlay.  The
-model stack adds a model config and its weights.  These functions take
+model stack adds a model config and its weights, and training its
+optimizer config and state.  These functions take
 that state in plain Python / numpy form -- the JAX ``AggConfig``,
 ``ModelConfig``, ``ThresholdPublic`` and shares as ``dataclasses.asdict``
 output, numpy arrays for the session metadata and the weights, plain
@@ -28,6 +29,7 @@ from repro_torch.crypto.paillier import (PublicKey, ThresholdPublic,
                                          ThresholdShare)
 from repro_torch.funcs.domain import ValueDomain
 from repro_torch.kernels.backend import IMPLS
+from repro_torch.optim.adamw import OptConfig
 from repro_torch.runtime.chaos import ChaosConfig
 from repro_torch.runtime.fault import SessionFaultPlan
 from repro_torch.runtime.resilience import RetryPolicy
@@ -157,6 +159,22 @@ def model_params_from_numpy(cfg: ModelConfig, params_np: dict,
     out["units"] = [tensors(params_np["units"], u)
                     for u in range(cfg.n_units)]
     return out
+
+
+def opt_state_from_numpy(cfg: ModelConfig, state_np: dict,
+                         device="cpu") -> dict:
+    """The port's AdamW state from the reference's (``m`` and ``v`` trees
+    shaped as the params, ``step`` a 0-d integer), as numpy: the moments'
+    ``units`` axis split per unit as ``model_params_from_numpy`` does."""
+    return {"m": model_params_from_numpy(cfg, state_np["m"], device),
+            "v": model_params_from_numpy(cfg, state_np["v"], device),
+            "step": torch.tensor(int(np.asarray(state_np["step"])),
+                                 dtype=torch.int32, device=device)}
+
+
+def opt_config_from_fields(d: dict) -> OptConfig:
+    """The reference's ``OptConfig`` fields -> the port's."""
+    return _from_fields(OptConfig, d, tuples=("betas",))
 
 
 def _from_fields(cls, d: dict, tuples: tuple = ()):

@@ -47,6 +47,11 @@
 // float32 inputs because TF32 tensor cores keep about three decimal
 // digits, too few for the float32 gates.
 //
+// Both kernels can also write the row log-sum-exp L = m + log(l) in
+// float32, (B, H, Sq), which the backward (flash_attention_bwd.cu) reads
+// to recompute P = exp(S - L); inference passes a null pointer and writes
+// nothing more.
+//
 // Numerics shared by both: all softmax math in float32; masked scores are
 // the finite -1e30, never -inf, so a row whose first tiles are wholly
 // masked accumulates exp(0) garbage that the correction exp(-1e30 - m)
@@ -116,8 +121,9 @@ __device__ __forceinline__ void kv_range(int q0, int q_last, int Skv,
 template <int HD>
 __global__ void __launch_bounds__(NT)
 flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
-             const float* __restrict__ v, float* __restrict__ o, int H,
-             int K, int Sq, int Skv, int causal, int window, float scale) {
+             const float* __restrict__ v, float* __restrict__ o,
+             float* __restrict__ lse, int H, int K, int Sq, int Skv,
+             int causal, int window, float scale) {
   constexpr int VEC = 4;
   constexpr int CPT = HD / 16;            // output columns per thread
   extern __shared__ __align__(16) float smem[];
@@ -265,6 +271,8 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < CPT; ++c)
       ob[row * qrow + tx + 16 * c] = acc[i][c] / li;
+    if (lse != nullptr && tx == 0)
+      lse[(int64_t)bh * Sq + row] = m[i] + logf(li);
   }
 }
 
@@ -539,8 +547,9 @@ __global__ void __launch_bounds__(WG_THREADS)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                    const __grid_constant__ CUtensorMap kmap,
                    const __grid_constant__ CUtensorMap vmap,
-                   __nv_bfloat16* __restrict__ o, int H, int K, int Sq,
-                   int Skv, int causal, int window, float scale) {
+                   __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                   int H, int K, int Sq, int Skv, int causal, int window,
+                   float scale) {
   using Tl = Tiles<HD>;
   constexpr int SC = BKV / 2;         // score accumulators a thread
   constexpr int OC = HD / 2;          // output accumulators a thread
@@ -705,6 +714,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       *reinterpret_cast<__nv_bfloat162*>(ob + row * qrow + j * 8 + cpair) =
           val;
     }
+    if (lse != nullptr && lane % 4 == 0)
+      lse[(int64_t)bh * Sq + row] = m[r] + logf(l[r]);
   }
 }
 
@@ -714,9 +725,9 @@ constexpr size_t smem_bytes() {
 }
 
 template <int HD>
-int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
-               int H, int K, int Sq, int Skv, int causal, int window,
-               float scale, cudaStream_t stream) {
+int launch_f32(const void* q, const void* k, const void* v, void* o,
+               float* lse, int B, int H, int K, int Sq, int Skv, int causal,
+               int window, float scale, cudaStream_t stream) {
   const size_t shmem = smem_bytes<HD>();
   auto kernel = flash_kernel<HD>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -725,8 +736,8 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
   const dim3 grid((unsigned)(B * H), (unsigned)((Sq + BQ - 1) / BQ));
   kernel<<<grid, NT, shmem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), H, K, Sq, Skv,
-      causal, window, scale);
+      static_cast<const float*>(v), static_cast<float*>(o), lse, H, K, Sq,
+      Skv, causal, window, scale);
   return (int)cudaGetLastError();
 }
 
@@ -781,9 +792,9 @@ bool tensor_map(CUtensorMap* map, const void* ptr, int B, int S, int heads,
 }
 
 template <int HD>
-int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
-                int H, int K, int Sq, int Skv, int causal, int window,
-                float scale, cudaStream_t stream) {
+int launch_bf16(const void* q, const void* k, const void* v, void* o,
+                float* lse, int B, int H, int K, int Sq, int Skv, int causal,
+                int window, float scale, cudaStream_t stream) {
   if (encode_tiled() == nullptr) return 1005;
   CUtensorMap qmap, kmap, vmap;
   if (!tensor_map<HD>(&qmap, q, B, Sq, H, BQ) ||
@@ -797,37 +808,37 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)(B * H), (unsigned)((Sq + BQ - 1) / BQ));
   kernel<<<grid, WG_THREADS, shmem, stream>>>(
-      qmap, kmap, vmap, static_cast<__nv_bfloat16*>(o), H, K, Sq, Skv,
+      qmap, kmap, vmap, static_cast<__nv_bfloat16*>(o), lse, H, K, Sq, Skv,
       causal, window, scale);
   return (int)cudaGetLastError();
 }
 
 template <bool BF16, int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int H, int K, int Sq, int Skv, int causal, int window, float scale,
-           cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int H, int K, int Sq, int Skv, int causal, int window,
+           float scale, cudaStream_t stream) {
   if constexpr (BF16) {
-    return launch_bf16<HD>(q, k, v, o, B, H, K, Sq, Skv, causal, window,
-                           scale, stream);
+    return launch_bf16<HD>(q, k, v, o, lse, B, H, K, Sq, Skv, causal,
+                           window, scale, stream);
   } else {
-    return launch_f32<HD>(q, k, v, o, B, H, K, Sq, Skv, causal, window,
+    return launch_f32<HD>(q, k, v, o, lse, B, H, K, Sq, Skv, causal, window,
                           scale, stream);
   }
 }
 
 template <bool BF16>
-int dispatch(const void* q, const void* k, const void* v, void* o, int B,
-             int H, int K, int Sq, int Skv, int hd, int causal, int window,
-             float scale, cudaStream_t stream) {
+int dispatch(const void* q, const void* k, const void* v, void* o,
+             float* lse, int B, int H, int K, int Sq, int Skv, int hd,
+             int causal, int window, float scale, cudaStream_t stream) {
   switch (hd) {
-    case 16: return launch<BF16, 16>(q, k, v, o, B, H, K, Sq, Skv, causal,
-                                     window, scale, stream);
-    case 32: return launch<BF16, 32>(q, k, v, o, B, H, K, Sq, Skv, causal,
-                                     window, scale, stream);
-    case 64: return launch<BF16, 64>(q, k, v, o, B, H, K, Sq, Skv, causal,
-                                     window, scale, stream);
-    case 128: return launch<BF16, 128>(q, k, v, o, B, H, K, Sq, Skv, causal,
-                                       window, scale, stream);
+    case 16: return launch<BF16, 16>(q, k, v, o, lse, B, H, K, Sq, Skv,
+                                     causal, window, scale, stream);
+    case 32: return launch<BF16, 32>(q, k, v, o, lse, B, H, K, Sq, Skv,
+                                     causal, window, scale, stream);
+    case 64: return launch<BF16, 64>(q, k, v, o, lse, B, H, K, Sq, Skv,
+                                     causal, window, scale, stream);
+    case 128: return launch<BF16, 128>(q, k, v, o, lse, B, H, K, Sq, Skv,
+                                       causal, window, scale, stream);
     default: return 1001;
   }
 }
@@ -839,11 +850,12 @@ extern "C" {
 // Returns cudaGetLastError() after the launch (0 = launched); 1000 + k for
 // an argument the kernel does not take or a tensor map it cannot make.
 // is_bf16 selects the tensor-core kernel on __nv_bfloat16 inputs and
-// output, else the CUDA-core kernel on float.
+// output, else the CUDA-core kernel on float.  lse, where not null, is
+// the float32 (B, H, Sq) row log-sum-exp the backward reads.
 int fa_flash_attention(const void* q, const void* k, const void* v, void* o,
-                       int B, int H, int K, int Sq, int Skv, int hd,
-                       int causal, int window, float scale, int is_bf16,
-                       void* stream) {
+                       float* lse, int B, int H, int K, int Sq, int Skv,
+                       int hd, int causal, int window, float scale,
+                       int is_bf16, void* stream) {
   if (hd != 16 && hd != 32 && hd != 64 && hd != 128) return 1001;
   if (K < 1 || H < K || H % K != 0) return 1002;
   if (B < 1 || Sq < 1 || Skv < 1 || (int64_t)B * H > 0x7FFFFFFF ||
@@ -853,10 +865,10 @@ int fa_flash_attention(const void* q, const void* k, const void* v, void* o,
        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o)) % 16)
     return 1004;
   const cudaStream_t s = (cudaStream_t)stream;
-  return is_bf16 ? dispatch<true>(q, k, v, o, B, H, K, Sq, Skv, hd, causal,
-                                  window, scale, s)
-                 : dispatch<false>(q, k, v, o, B, H, K, Sq, Skv, hd, causal,
-                                   window, scale, s);
+  return is_bf16 ? dispatch<true>(q, k, v, o, lse, B, H, K, Sq, Skv, hd,
+                                  causal, window, scale, s)
+                 : dispatch<false>(q, k, v, o, lse, B, H, K, Sq, Skv, hd,
+                                   causal, window, scale, s);
 }
 
 }  // extern "C"

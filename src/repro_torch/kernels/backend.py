@@ -46,15 +46,14 @@ def resolve(impl: Optional[str], t: torch.Tensor) -> str:
 
 
 def resolve_device(device=None) -> torch.device:
-    """An entry point's device: ``None`` means the card, and raises when
-    there is none — nothing quietly runs on the CPU."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device: the port runs on the card unless the "
-                "caller asks for the CPU (device='cpu')")
-        device = "cuda"
-    return torch.device(device)
+    """An entry point's device: ``None`` (or ``"cuda"``) means the card,
+    and raises when there is none — nothing quietly runs on the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port runs on the card unless the "
+            "caller asks for the CPU (device='cpu')")
+    return dev
 
 
 # ---------------------------------------------------------------------------
@@ -96,7 +95,9 @@ def raise_on(rc: int, name: str,
 
 class Kernel:
     """Launch counter of one CUDA kernel.  ``replaces`` is the file:line of
-    the TPU kernel it ports; ``row_form``, where the TPU kernel has a
+    the TPU kernel it ports, or with ``pallas=False`` of the reference's
+    jnp function it replaces where that has no Pallas kernel (the flash
+    backward: a custom VJP); ``row_form``, where the TPU kernel has a
     single-row form beside its batched one, that form's file:line (the
     port runs it as the batched kernel with B = 1); ``loop``, where the
     kernel also runs the reference's host-side loop around the TPU kernel,
@@ -104,12 +105,13 @@ class Kernel:
 
     def __init__(self, name: str, source: str, replaces: str,
                  row_form: Optional[str] = None,
-                 loop: Optional[str] = None):
+                 loop: Optional[str] = None, pallas: bool = True):
         self.name = name
         self.source = source
         self.replaces = replaces
         self.row_form = row_form
         self.loop = loop
+        self.pallas = pallas
         self.launches = 0
 
 
@@ -130,8 +132,11 @@ FLASH_ATTENTION = Kernel(
     "src/repro/kernels/flash_attention/flash_attention.py:69")
 SSD = Kernel("ssd", "src/repro_torch/csrc/ssd.cu",
              "src/repro/kernels/ssd/ssd.py:74")
+FLASH_ATTENTION_BWD = Kernel(
+    "flash_attention_bwd", "src/repro_torch/csrc/flash_attention_bwd.cu",
+    "src/repro/models/layers.py:172", pallas=False)
 SECURE_AGG = (MASK, UNMASK, VOTE)     # the secure allreduce's kernels
-MODEL = (FLASH_ATTENTION, SSD)        # the model stack's prefill kernels
+MODEL = (FLASH_ATTENTION, SSD, FLASH_ATTENTION_BWD)   # the model stack's
 MODMUL = (MONT_MUL, MONT_EXP)        # threshold decryption's kernels
 KERNELS = (*SECURE_AGG, *MODMUL, *MODEL)
 

@@ -40,12 +40,19 @@ _SIGNATURES = {
     # base, bits, n, n0inv, one, out, batch, L, nbits, stream
     "mm_mont_exp": (_P, _P, _P, ctypes.c_uint32, _P, _P, _I64, ctypes.c_int,
                     ctypes.c_int, _P),
-    # q, k, v, o, B, H, K, Sq, Skv, hd, causal, window, scale, is_bf16,
-    # stream
-    "fa_flash_attention": (_P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
+    # q, k, v, o, lse (or null), B, H, K, Sq, Skv, hd, causal, window,
+    # scale, is_bf16, stream
+    "fa_flash_attention": (_P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
                            ctypes.c_int, ctypes.c_int, ctypes.c_int,
                            ctypes.c_int, ctypes.c_int, ctypes.c_int,
                            ctypes.c_float, ctypes.c_int, _P),
+    # q, k, v, o, do, lse, delta, dq_acc, dq, dk, dv, B, H, K, Sq, Skv,
+    # hd, causal, window, scale, is_bf16, stream
+    "fa_flash_attention_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                               ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                               ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                               ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                               ctypes.c_int, _P),
     # x, dt, a, Bm, Cm, y, state, scratch cum, cb, states, BH, H, S, P,
     # N, chunk, x strides (b, h, s), dt strides (b, h, s), B/C strides
     # (b, s), stream

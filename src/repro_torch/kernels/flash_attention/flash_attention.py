@@ -9,6 +9,14 @@ cores, float32 on the CUDA cores); a CPU tensor, or an explicit
 ``impl="torch"``, runs the plain version (``ref.attention_ref``).
 Unlike the Pallas wrapper, any Sq and Skv are taken: the kernel masks the
 ragged edge of its tiles itself.
+
+Where an input requires grad (training), the call is a
+``torch.autograd.Function``, the counterpart of the reference's custom
+VJP (``repro/models/layers.py:228``): the forward also keeps the row
+log-sum-exp L, and the backward is ``csrc/flash_attention_bwd.cu`` on a
+CUDA tensor (``ref.attention_bwd_ref`` on a CPU tensor or under
+``impl="torch"``).  Under activation checkpointing the forward runs
+again in the backward pass and saves a fresh L.
 """
 from __future__ import annotations
 
@@ -17,8 +25,38 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import backend
-from repro_torch.kernels.flash_attention.ops import flash_attention_cuda
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ops import (flash_attention_bwd_cuda,
+                                                     flash_attention_cuda)
+from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
+                                                     attention_fwd_ref,
+                                                     attention_ref)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Attention with a FlashAttention-2 backward from (q, k, v, o, L)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int,
+                impl: Optional[str]):
+        if backend.resolve(impl, q) == "cuda":
+            o, lse = flash_attention_cuda(q, k, v, causal, window, lse=True)
+        else:
+            o, lse = attention_fwd_ref(q, k, v, causal=causal, window=window)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.window, ctx.impl = causal, window, impl
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        do = do.contiguous()
+        if backend.resolve(ctx.impl, q) == "cuda":
+            grads = flash_attention_bwd_cuda(q, k, v, o, do, lse, ctx.causal,
+                                             ctx.window)
+        else:
+            grads = attention_bwd_ref(q, k, v, o, do, lse, causal=ctx.causal,
+                                      window=ctx.window)
+        return (*grads, None, None, None)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -26,7 +64,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     impl: Optional[str] = None) -> torch.Tensor:
     """Attention with the scale 1/sqrt(hd) applied to q in float32 inside,
     causal and chunked-window (``qpos // window == kpos // window``)
-    masks; returns (B, Sq, H, hd) in q's dtype."""
+    masks; returns (B, Sq, H, hd) in q's dtype.  Differentiable in q, k
+    and v."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal, window, impl)
     if backend.resolve(impl, q) == "cuda":
         return flash_attention_cuda(q, k, v, causal, window)
     return attention_ref(q, k, v, causal=causal, window=window)

@@ -1,11 +1,17 @@
-"""Launch of the CUDA flash attention kernels (``csrc/flash_attention.cu``):
-bf16 inputs run the tensor-core kernel (wgmma, tiles by TMA), float32
-inputs the CUDA-core kernel.
+"""Launch of the CUDA flash attention kernels.
 
-The wrapper checks device, dtype, shape and contiguity, allocates the
-output with ``torch.empty``, launches on the current stream, raises on a
-non-zero launch status and counts the launch on
-:data:`repro_torch.kernels.backend.FLASH_ATTENTION`.
+Forward (``csrc/flash_attention.cu``): bf16 inputs run the tensor-core
+kernel (wgmma, tiles by TMA), float32 inputs the CUDA-core kernel; with
+``lse=True`` either also writes the float32 row log-sum-exp the backward
+reads.  Backward (``csrc/flash_attention_bwd.cu``): the FlashAttention-2
+backward on the CUDA cores in float32, for both dtypes, deterministic
+(dQ's parts by kv tile go through a float32 workspace, not atomics).
+
+Each wrapper checks device, dtype, shape and contiguity, allocates its
+outputs and scratch with ``torch.empty``, launches on the current stream,
+raises on a non-zero launch status and counts the launch on
+:data:`repro_torch.kernels.backend.FLASH_ATTENTION` or
+:data:`~repro_torch.kernels.backend.FLASH_ATTENTION_BWD`.
 """
 from __future__ import annotations
 
@@ -14,7 +20,7 @@ import math
 import torch
 
 from repro_torch.kernels import backend, build
-from repro_torch.kernels.backend import FLASH_ATTENTION
+from repro_torch.kernels.backend import FLASH_ATTENTION, FLASH_ATTENTION_BWD
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128)      # the kernel's instantiations
@@ -30,15 +36,14 @@ _REFUSED = {1001: "head_dim is not one of the kernel's instantiations "
             1006: "cuTensorMapEncodeTiled refused a tensor map"}
 
 
-def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         causal: bool, window: int) -> torch.Tensor:
+def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               window: int) -> None:
     if q.dtype not in DTYPES:
         raise ValueError(f"q must be float32 or bfloat16, got {q.dtype}")
     backend.check_tensor(q, q.dtype, 4, "q")
     backend.check_tensor(k, q.dtype, 4, "k")
     backend.check_tensor(v, q.dtype, 4, "v")
     B, Sq, H, hd = q.shape
-    _, Skv, K, _ = k.shape
     if k.shape[0] != B or k.shape[3] != hd or v.shape != k.shape:
         raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} do not "
                          f"match q {tuple(q.shape)}")
@@ -46,17 +51,69 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("q, k and v must be on one device")
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
+    if k.shape[1] == 0 and q.numel():
+        raise ValueError("attention over an empty key sequence")
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         causal: bool, window: int, lse: bool = False):
+    """The output (B, Sq, H, hd) in q's dtype; with ``lse``, the pair
+    (output, float32 row log-sum-exp (B, H, Sq))."""
+    _check_qkv(q, k, v, window)
+    B, Sq, H, hd = q.shape
+    _, Skv, K, _ = k.shape
     dev = q.device
     out = torch.empty_like(q)
-    if out.numel() == 0:
-        return out
-    if Skv == 0:
-        raise ValueError("attention over an empty key sequence")
-    with torch.cuda.device(dev):
-        rc = build.lib().fa_flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, H, K, Sq, Skv, hd, int(bool(causal)), int(window),
-            1.0 / math.sqrt(hd), DTYPES[q.dtype], backend.stream(dev))
-    backend.raise_on(rc, FLASH_ATTENTION.name, _REFUSED)
-    FLASH_ATTENTION.launches += 1
-    return out
+    L = (torch.empty((B, H, Sq), dtype=torch.float32, device=dev) if lse
+         else None)
+    if out.numel():
+        with torch.cuda.device(dev):
+            rc = build.lib().fa_flash_attention(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                None if L is None else L.data_ptr(), B, H, K, Sq, Skv, hd,
+                int(bool(causal)), int(window), 1.0 / math.sqrt(hd),
+                DTYPES[q.dtype], backend.stream(dev))
+        backend.raise_on(rc, FLASH_ATTENTION.name, _REFUSED)
+        FLASH_ATTENTION.launches += 1
+    return (out, L) if lse else out
+
+
+def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, o: torch.Tensor,
+                             do: torch.Tensor, L: torch.Tensor,
+                             causal: bool, window: int
+                             ) -> tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """(dq, dk, dv) in the inputs' dtype from the forward's output ``o``
+    and row log-sum-exp ``L``; dq with respect to the unscaled q."""
+    _check_qkv(q, k, v, window)
+    backend.check_tensor(o, q.dtype, 4, "o")
+    backend.check_tensor(do, q.dtype, 4, "do")
+    backend.check_tensor(L, torch.float32, 3, "L")
+    B, Sq, H, hd = q.shape
+    _, Skv, K, _ = k.shape
+    if o.shape != q.shape or do.shape != q.shape or \
+            tuple(L.shape) != (B, H, Sq):
+        raise ValueError(f"o {tuple(o.shape)}, do {tuple(do.shape)} and L "
+                         f"{tuple(L.shape)} do not match q {tuple(q.shape)}")
+    dev = q.device
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if q.numel():
+        delta = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
+        # one part of dQ a 64-key tile, summed in tile order by the kernel
+        dq_part = torch.empty((-(-Skv // 64), *q.shape), dtype=torch.float32,
+                              device=dev)
+        with torch.cuda.device(dev):
+            rc = build.lib().fa_flash_attention_bwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                do.data_ptr(), L.data_ptr(), delta.data_ptr(),
+                dq_part.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                dv.data_ptr(), B, H, K, Sq, Skv, hd, int(bool(causal)),
+                int(window), 1.0 / math.sqrt(hd), DTYPES[q.dtype],
+                backend.stream(dev))
+        backend.raise_on(rc, FLASH_ATTENTION_BWD.name, _REFUSED)
+        FLASH_ATTENTION_BWD.launches += 1
+    else:
+        dk.zero_()
+        dv.zero_()
+    return dq, dk, dv

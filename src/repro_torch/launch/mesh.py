@@ -1,0 +1,56 @@
+"""Host meshes of the training driver.
+
+Counterpart of ``repro/launch/mesh.py`` over the port's ``NodeMesh`` (one
+process a node of a ``torch.distributed`` group).  The reference's
+``make_production_mesh`` waits for the sharded serve.  Nothing here
+touches a process group at import time.
+"""
+from __future__ import annotations
+
+import contextlib
+import os
+import shutil
+import tempfile
+
+import torch.distributed as dist
+
+from repro_torch.runtime import compat
+
+
+def make_host_mesh(data: int = 1, model: int = 1, pod: int = 0
+                   ) -> compat.NodeMesh:
+    """The ("pod", "data", "model") or ("data", "model") mesh over the
+    ranks of the started process group (``compat.host_mesh``)."""
+    return compat.host_mesh(data=data, model=model, pod=pod)
+
+
+def dp_axes_of(mesh: compat.NodeMesh) -> tuple[str, ...]:
+    return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+
+
+def dp_size(mesh: compat.NodeMesh) -> int:
+    n = 1
+    for a in dp_axes_of(mesh):
+        n *= mesh.shape[a]
+    return n
+
+
+@contextlib.contextmanager
+def single_rank_mesh():
+    """A one-rank ("data", "model") mesh: the counterpart of the
+    reference's one-device host mesh.  In a process with no process group
+    it starts a gloo group of world size 1 (a ``FileStore`` in a temporary
+    directory) and destroys it on exit; a process that already has a
+    one-rank group gets a mesh over it.  A one-rank secure sync makes no
+    collective call: its plan has no hops and its cluster sum is the
+    identity."""
+    if dist.is_initialized():
+        yield make_host_mesh()
+        return
+    tmp = tempfile.mkdtemp(prefix="repro-mesh-")
+    compat.init_node_group(0, 1, os.path.join(tmp, "store"))
+    try:
+        yield make_host_mesh()
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)

@@ -14,9 +14,10 @@ counterpart on one device and is left out.
 
 Not ported yet, each raising with the slice it waits for (see
 ``model.check_supported``): the MoE MLP, the cross-attention media path,
-the layernorm norms, the GELU MLP, QKV biases and logit soft-capping
-(later model slices), and the custom-VJP backward of the reference's jnp
-flash attention (the training slice).
+the GELU MLP, QKV biases and logit soft-capping (later model slices),
+and a Mamba2 backward on the card (an SSD backward kernel).  Training
+differentiates through everything here with autograd; attention's
+backward is the flash wrapper's own (a CUDA kernel on the card).
 """
 from __future__ import annotations
 
@@ -49,18 +50,32 @@ def _w(p: dict, name: str, dtype: torch.dtype) -> torch.Tensor:
 
 
 def make_norm_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
+    if cfg.norm == "nonparam_ln":
+        return {}
     return {"scale": torch.ones((cfg.d_model,), dtype=torch.float32,
                                 device=gen.device)}
 
 
 def apply_norm(cfg: ModelConfig, params: dict, x: torch.Tensor
                ) -> torch.Tensor:
-    """RMSNorm: statistics in float32, applied in x's dtype, as the
-    reference."""
+    """RMSNorm, LayerNorm or the parameter-free LayerNorm: statistics in
+    float32 (LayerNorm's variance as max(E[x^2] - mu^2, 0)), applied in
+    x's dtype, as the reference."""
     dt = x.dtype
-    ms = torch.mean(torch.square(x.float()), dim=-1, keepdim=True)
-    y = x * torch.rsqrt(ms + 1e-6).to(dt)
-    return (y * params["scale"].to(dt)).to(dt)
+    if cfg.norm == "rmsnorm":
+        ms = torch.mean(torch.square(x.float()), dim=-1, keepdim=True)
+        y = x * torch.rsqrt(ms + 1e-6).to(dt)
+        y = y * params["scale"].to(dt)
+    elif cfg.norm in ("layernorm", "nonparam_ln"):
+        mu = torch.mean(x.float(), dim=-1, keepdim=True)
+        ms = torch.mean(torch.square(x.float()), dim=-1, keepdim=True)
+        var = torch.clamp(ms - torch.square(mu), min=0.0)
+        y = (x - mu.to(dt)) * torch.rsqrt(var + 1e-5).to(dt)
+        if cfg.norm == "layernorm":
+            y = y * params["scale"].to(dt)
+    else:
+        raise ValueError(cfg.norm)
+    return y.to(dt)
 
 
 def rms_head_norm(scale: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -328,6 +343,14 @@ def mamba_forward(cfg: ModelConfig, p: dict, x: torch.Tensor,
         if state is not None:
             raise not_ported("a prefill from a carried SSD state",
                              "chunked prefill")
+        if torch.is_grad_enabled() and x.device.type != "cpu" and \
+                any(t.requires_grad for t in (xs, dt, A, Bm, Cm)):
+            # the CUDA scan has no backward, and autograd through the
+            # plain scan on the card would be a hidden fallback; the scan's
+            # own operands are tested, so a gradient that reaches only the
+            # mixer's weights (a frozen input) raises too
+            raise not_ported("a Mamba2 backward off the CPU",
+                             "SSD backward")
         y, new_ssd = ssd_chunked(xs.float().contiguous(), dt,
                                  A, Bm.float().contiguous(),
                                  Cm.float().contiguous(), min(s.chunk, S),

@@ -7,17 +7,20 @@ tensors in the reference's layout, except that the reference's
 ``init_params`` vmaps the unit init and its forward scans over that
 axis), while here ``params["units"]`` is a list of ``n_units`` unit dicts
 run by a Python loop; caches likewise.  ``constrain`` (sharding hints)
-and ``remat`` (rematerialisation for the backward pass) have no
-counterpart on one device in inference and are left out.  Every prefill
-reaches its kernels through ``impl``: ``None`` picks the CUDA kernel on a
-CUDA tensor and the plain version on a CPU tensor, ``"torch"`` the plain
-version anywhere.
+has no counterpart on one device and is left out; ``cfg.remat`` runs
+each unit of the training forward under ``torch.utils.checkpoint`` (the
+reference's ``jax.checkpoint``).  Every forward and prefill reaches its
+kernels through ``impl``: ``None`` picks the CUDA kernel on a CUDA tensor
+and the plain version on a CPU tensor, ``"torch"`` the plain version
+anywhere.  ``loss_fn`` is the training loss; its gradients come from
+autograd, attention's from the flash backward kernel on the card.
 """
 from __future__ import annotations
 
 from typing import Any, Optional
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import (ATTN_CHUNKED, CROSS_ATTN, DENSE, MAMBA2,
                                       MOE, NONE, ModelConfig)
@@ -51,12 +54,11 @@ def check_supported(cfg: ModelConfig) -> None:
                                "cross-attention and frontends")
         if spec.mlp == MOE:
             raise L.not_ported("the MoE MLP", "MoE")
-    if (cfg.norm != "rmsnorm" or cfg.attn_bias or not cfg.mlp_gated
-            or cfg.logit_softcap or not cfg.tie_embeddings
-            or cfg.embedding_multiplier != 1.0):
+    if (cfg.attn_bias or not cfg.mlp_gated or cfg.logit_softcap
+            or not cfg.tie_embeddings or cfg.embedding_multiplier != 1.0):
         raise L.not_ported(
-            "layernorm, a GELU MLP, QKV biases, soft-capping, an untied head "
-            "or an embedding multiplier", "other configs")
+            "a GELU MLP, QKV biases, soft-capping, an untied head or an "
+            "embedding multiplier", "other configs")
 
 
 # ---------------------------------------------------------------------------
@@ -158,12 +160,42 @@ def _unit_forward(cfg: ModelConfig, unit: dict, x: torch.Tensor,
 
 def forward(cfg: ModelConfig, params: Params, batch: dict,
             impl: Optional[str] = None) -> torch.Tensor:
-    """Returns logits (B, S, Vp)."""
+    """Returns logits (B, S, Vp).  Under autograd with ``cfg.remat`` each
+    unit keeps only its input and runs again in the backward pass."""
     x = embed_inputs(cfg, params, batch)
+    remat = cfg.remat and torch.is_grad_enabled()
     for unit in params["units"]:
-        x = _unit_forward(cfg, unit, x, impl)
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(
+                _unit_forward, cfg, unit, x, impl, use_reentrant=False)
+        else:
+            x = _unit_forward(cfg, unit, x, impl)
     x = L.apply_norm(cfg, params["final_norm"], x)
     return lm_head(cfg, params, x)
+
+
+def loss_fn(cfg: ModelConfig, params: Params, batch: dict,
+            total_tokens: Optional[int] = None) -> torch.Tensor:
+    """Cross-entropy over float32 logits, the padded vocab columns at
+    -1e30, positions with ``labels < 0`` masked out, normalized by the
+    *global* token count ``total_tokens`` so that the sum of per-replica
+    losses and gradients over data-parallel ranks is the global mean (the
+    secure sync is then a plain modular sum), else by the local count."""
+    logits = forward(cfg, params, batch).float()
+    labels = batch["labels"]
+    Vp, V = logits.shape[-1], cfg.vocab_size
+    if Vp != V:
+        # in place on the float32 copy: the cast's backward keeps nothing
+        logits.masked_fill_(torch.arange(Vp, device=logits.device) >= V,
+                            -1e30)
+    lse = torch.logsumexp(logits, dim=-1)
+    lbl = labels.clamp(0, V - 1).long()
+    picked = logits.gather(-1, lbl[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    ce = (lse - picked) * mask
+    denom = total_tokens if total_tokens is not None else \
+        mask.sum().clamp(min=1.0)
+    return ce.sum() / denom
 
 
 # ---------------------------------------------------------------------------

@@ -1,19 +1,38 @@
-"""Mid-session fault injection for the multi-session aggregation service.
+"""Failure injection: at the training driver, and mid-session for the
+multi-session aggregation service.
 
-Counterpart of the session half of ``repro/runtime/fault.py``:
-``SessionFaultPlan`` names protocol slots that crash (their forwarded
-ring copies drop to zeros) or turn Byzantine (copies are flipped) while
-the session is in flight.  Both lower to the vote path's
-``ByzantineSpec`` -- a dropped or corrupted contribution is out-voted by
-the r-redundant majority, never retried.  (The reference's driver-level
-``FailurePlan`` / ``StepGuard`` belong to its training driver, which the
-port does not carry.)
+Counterpart of ``repro/runtime/fault.py``:
+
+  * ``FailurePlan`` -- deterministic injected failures for the training
+    driver (``launch/train.py``): a process crash at given steps
+    (``InjectedCrash``, handled by restart from the last checkpoint) and
+    Byzantine gradient corruption from a step on (handled inside the
+    step by the paper's vote);
+  * ``StepGuard`` -- a wall-clock deadline a step: a step that overruns
+    raises ``StragglerTimeout``, so the driver can retry from the last
+    checkpoint (per-member straggling is absorbed by the vote redundancy;
+    this guards whole-step stalls);
+  * ``SessionFaultPlan`` -- protocol slots that crash (their forwarded
+    ring copies drop to zeros) or turn Byzantine (copies are flipped)
+    while a service session is in flight.  Both lower to the vote path's
+    ``ByzantineSpec`` -- a dropped or corrupted contribution is out-voted
+    by the r-redundant majority, never retried.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
+from typing import Optional
 
 from repro_torch.core.byzantine import ByzantineSpec
+
+
+class InjectedCrash(RuntimeError):
+    pass
+
+
+class StragglerTimeout(RuntimeError):
+    pass
 
 
 class FaultPlanError(ValueError):
@@ -26,6 +45,36 @@ class FaultPlanError(ValueError):
 def _require(cond: bool, msg: str) -> None:
     if not cond:
         raise FaultPlanError(msg)
+
+
+@dataclasses.dataclass
+class FailurePlan:
+    crash_at_steps: tuple[int, ...] = ()
+    byzantine_from_step: Optional[int] = None
+    byzantine_ranks: tuple[int, ...] = ()
+
+    def maybe_crash(self, step: int) -> None:
+        if step in self.crash_at_steps:
+            raise InjectedCrash(f"injected crash at step {step}")
+
+    def byzantine_active(self, step: int) -> bool:
+        return (self.byzantine_from_step is not None
+                and step >= self.byzantine_from_step)
+
+
+@dataclasses.dataclass
+class StepGuard:
+    deadline_s: float = 300.0
+
+    def __enter__(self):
+        self.t0 = time.monotonic()
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        if exc_type is None and time.monotonic() - self.t0 > self.deadline_s:
+            raise StragglerTimeout(
+                f"step exceeded {self.deadline_s}s deadline")
+        return False
 
 
 @dataclasses.dataclass(frozen=True)

@@ -6,7 +6,9 @@ package).  Each must be named, as ``file:line`` of its ``def``, by the
 ``replaces`` field of one kernel in ``repro_torch.kernels.backend.KERNELS``
 or by its ``row_form`` (a single-row form the port runs as B = 1); one
 site may have more than one port (a kernel and a kernel that runs the
-reference's loop around it, ``loop``).
+reference's loop around it, ``loop``).  One kernel ports a function with
+no Pallas site: the flash backward (``pallas=False``), the reference's
+jnp custom VJP.
 """
 import ast
 import pathlib
@@ -48,10 +50,33 @@ def test_every_pallas_kernel_has_a_port(site):
 
 @pytest.mark.parametrize("kernel", backend.KERNELS, ids=lambda k: k.name)
 def test_every_port_names_a_pallas_kernel_and_its_source(kernel):
+    """Every kernel names its source and the TPU kernel it ports; the one
+    kernel whose reference function has no Pallas site (``pallas=False``,
+    the flash backward, a jnp custom VJP) names that function's ``def``
+    instead."""
     sites = pallas_sites()
-    assert kernel.replaces in sites
+    if kernel.pallas:
+        assert kernel.replaces in sites
+    else:
+        path, line = kernel.replaces.rsplit(":", 1)
+        text = (ROOT / path).read_text().splitlines()[int(line) - 1]
+        assert text.startswith("def "), text
+        assert kernel.replaces not in sites
     assert kernel.row_form is None or kernel.row_form in sites
     assert (ROOT / kernel.source).is_file()
+
+
+def test_the_flash_backward_replaces_the_reference_vjp():
+    """The training slice's kernel: the FA-2 backward of the reference's
+    custom VJP, ``_flash_core_bwd``, and no Pallas kernel."""
+    k = backend.FLASH_ATTENTION_BWD
+    assert k in backend.KERNELS and not k.pallas
+    assert k.replaces == "src/repro/models/layers.py:172"
+    text = (ROOT / "src/repro/models/layers.py").read_text().splitlines()
+    assert text[171].startswith("def _flash_core_bwd(")
+    assert k.source == "src/repro_torch/csrc/flash_attention_bwd.cu"
+    assert [x.name for x in backend.KERNELS if not x.pallas] == \
+        ["flash_attention_bwd"]
 
 
 @pytest.mark.parametrize("kernel", [k for k in backend.KERNELS if k.loop],

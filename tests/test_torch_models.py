@@ -145,10 +145,13 @@ def test_forward_prefill_and_decode(pair):
 
 @pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b",
                                   "llama-3.2-vision-90b", "hubert-xlarge",
-                                  "olmo-1b", "qwen1.5-110b"])
+                                  "llama4-maverick-400b-a17b",
+                                  "qwen1.5-110b"])
 def test_later_slices_raise(arch):
     """MoE, cross-attention, frontends and the other configs' features
-    (layernorm, QKV biases, untied heads) are later slices of the port."""
+    (QKV biases, untied heads) are later slices of the port.  (The
+    layernorm norms came with the training slice: olmo-1b runs, see
+    ``tests/test_torch_train.py``.)"""
     cfg = model_config_from_fields(dataclasses.asdict(get_smoke_config(arch)))
     with pytest.raises(NotImplementedError, match="not ported yet"):
         PM.init_params(cfg, torch.Generator().manual_seed(0))
