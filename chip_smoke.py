@@ -128,7 +128,9 @@ with a non-zero exit code:
            128, ragged Sq = Skv = 77, Sq = Skv in {512, 2048}, Sq != Skv
            and qwen3's training shape, within FLASH_BWD_TOL, each
            output's largest error beside its plain version's mean and
-           largest |entry|.  (b) ``train_loop`` on qwen3-1.7b at full
+           largest |entry|; at the ragged windowed case and qwen3's
+           shape the kernel twice on the same inputs, bit-equal
+           (FLASH_BWD_REPEAT).  (b) ``train_loop`` on qwen3-1.7b at full
            width (bf16 compute, float32 weights and AdamW moments,
            remat), batch 4 x 2,048 tokens: 4 plain steps, then 4 secure
            steps from the same init on a one-rank mesh (train_loop's
@@ -138,7 +140,8 @@ with a non-zero exit code:
            forward 56 with remat, backward 28, mask and unmask one a
            chunk) and peak memory, the secure losses within
            TRAIN_LOSS_TOL of the plain ones, one more secure step
-           profiled (busy share, top kernels, the sync's share of the
+           profiled (busy share, top kernels, the backward's three
+           kernels by name, the sync's share of the
            step from their record_function spans on the device, no
            device-to-host copy of gradient size), and one step's local
            gradients synced through the kernels and through the plain
@@ -520,12 +523,13 @@ FLASH_BWD_CASES = [
 # The backward's tolerances, (atol, atol as a share of the output's
 # largest |entry|, rtol): max |a - b| <= atol + share max|b| + rtol |b|.
 # float32 1e-4 -- both compute in float32, but the kernel sums dQ over the
-# kv tiles (its workspace, summed in tile order) and dK, dV over up to
-# G x Sq rows in another order than the plain einsums, sums of up to 16,384
-# terms of unit scale.  bf16: the kernel and ``attention_bwd_ref`` compute
-# in float32 from the same bf16 values and round each output once, so two
-# bf16 ulps (rtol 2^-6) over a floor of 2^-10 of the largest entry (float32
-# sums near zero).  L is float32 in both dtypes and takes the float32
+# kv tiles (in registers, in tile order) and dK, dV over up to G x Sq rows
+# in another order than the plain einsums, sums of up to 16,384 terms of
+# unit scale.  bf16: the kernel and ``attention_bwd_ref`` compute in
+# float32 from the same bf16 values (the kernel's P and dS enter their
+# products as bf16 pairs hi + lo, 16 bits of mantissa) and round each
+# output once, so two bf16 ulps (rtol 2^-6) over a floor of 2^-10 of the
+# largest entry (float32 sums near zero).  L is float32 in both dtypes and takes the float32
 # tolerance.  Autograd of ``attention_ref`` in bf16 is another function:
 # the FA-2 backward (the reference's too) takes delta from O rounded to
 # bf16, the softmax's autograd from O in float32 -- up to 5.3e-3 of the
@@ -534,6 +538,11 @@ FLASH_BWD_CASES = [
 FLASH_BWD_TOL = {torch.float32: (1e-4, 0.0, 1e-4),
                  torch.bfloat16: (0.0, 2 ** -10, 2 ** -6)}
 FLASH_BWD_AUTOGRAD_TOL_BF16 = (0.0, 2 ** -7, 2 ** -6)
+# the cases whose backward runs twice and must repeat bit for bit (the
+# ragged windowed case and qwen3-1.7b's training shape): every sum is in
+# one fixed order, so a restart retraces the uninterrupted run
+FLASH_BWD_REPEAT = [(2, 200, 77, 4, 2, 64, True, 64),
+                    (4, 2048, 2048, 16, 8, 128, True, 0)]
 
 
 def _check_flash_bwd(rng, dev, errs: dict) -> int:
@@ -544,7 +553,8 @@ def _check_flash_bwd(rng, dev, errs: dict) -> int:
     Each within FLASH_BWD_TOL (autograd's bf16 rows within
     FLASH_BWD_AUTOGRAD_TOL_BF16); for each output the largest error is
     kept by dtype, with the mean and largest |entry| of that case's plain
-    output beside it."""
+    output beside it.  (4) In the FLASH_BWD_REPEAT cases the kernel runs
+    twice on the same inputs and must give equal dq, dk and dv."""
     from repro_torch.kernels.flash_attention import (attention_bwd_ref,
                                                      attention_fwd_ref,
                                                      attention_ref,
@@ -565,6 +575,12 @@ def _check_flash_bwd(rng, dev, errs: dict) -> int:
                     f"causal={causal} window={window}")
             o, L = attention_fwd_ref(q, k, v, causal=causal, window=window)
             got = flash_attention_bwd_cuda(q, k, v, o, do, L, causal, window)
+            if (B, Sq, Skv, H, K, hd, causal, window) in FLASH_BWD_REPEAT:
+                again = flash_attention_bwd_cuda(q, k, v, o, do, L, causal,
+                                                 window)
+                check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                      f"flash_attention_bwd {what}: two calls differ")
+                checks += 1
             want = attention_bwd_ref(q, k, v, o, do, L, causal=causal,
                                      window=window)
             _, Lk = flash_attention_cuda(q, k, v, causal, window, lse=True)
@@ -2450,10 +2466,15 @@ def _train_full(dev, seed: int) -> tuple[dict, dict]:
     prof = profile_device(
         lambda: train_loop(cfg, steps=1, shape=sh, secure=True, opt_cfg=opt,
                            seed=seed, device=dev, params=params),
-        ("flash_wgmma", "fa_bwd", "fa_delta", "fa_dq", *SECURE_AGG_PARTS,
+        ("flash_wgmma", "fa_dkdv_wgmma", "fa_dq_wgmma", "fa_delta",
+         *SECURE_AGG_PARTS,
          "Memcpy DtoH", "Memcpy HtoD", "Memcpy DtoD", "nvjet",
          "multi_tensor_apply", "elementwise"),
         spans=("train_step", "secure_sync"))
+    bwd = {p: prof["by_part"][p]
+           for p in ("fa_delta", "fa_dkdv_wgmma", "fa_dq_wgmma")}
+    check(all(b["launches"] > 0 for b in bwd.values()),
+          f"the backward's kernels missing from the step's profile: {bwd}")
     step_ms, sync_ms = (prof["spans_ms"][k]["device"]
                         for k in ("train_step", "secure_sync"))
     prof["sync_share_of_step"] = sync_ms / step_ms
@@ -2813,7 +2834,10 @@ def time_flash_bwd(rng, dev) -> dict:
     16, K 8, hd 128, causal, bf16) from the forward kernel's o and L, its
     plain version, and the backward of ``scaled_dot_product_attention``
     (causal, GQA) on the same inputs in its (B, H, S, hd) layout (timed
-    here only; the port never calls it)."""
+    here only; the port never calls it).  ``ms`` is the CUDA-event median
+    of lone calls, ``by_kernel_ms`` each launch's mean device time in a
+    profiled run of 20 calls; the bound counts the function's five
+    products, ``design_bound_ms`` the kernels' ten."""
     from repro_torch.kernels.flash_attention import attention_bwd_ref
     from repro_torch.kernels.flash_attention.ops import (
         flash_attention_bwd_cuda, flash_attention_cuda)
@@ -2823,8 +2847,19 @@ def time_flash_bwd(rng, dev) -> dict:
                                     ).to(dev, torch.bfloat16)
                    for n in (H, K, K, H))
     o, L = flash_attention_cuda(q, k, v, True, 0, lse=True)
-    kernel_ms = cuda_ms(lambda: flash_attention_bwd_cuda(q, k, v, o, do, L,
-                                                         True, 0), reps=5)
+
+    def call():
+        return flash_attention_bwd_cuda(q, k, v, o, do, L, True, 0)
+
+    kernel_ms = cuda_ms(call, reps=5)
+
+    def calls():
+        for _ in range(20):
+            call()
+
+    # each of the call's launches: mean device ms a launch, launches seen
+    by_kernel = [(name, ms / n, n) for name, ms, n in
+                 profile_device(calls)["by_kernel_ms"]]
     plain_ms = cuda_ms(lambda: attention_bwd_ref(q, k, v, o, do, L,
                                                  causal=True), reps=2)
     qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
@@ -2834,7 +2869,7 @@ def time_flash_bwd(rng, dev) -> dict:
     dot = do.transpose(1, 2).contiguous()
     library_ms = cuda_ms(lambda: torch.autograd.grad(
         ot, (qt, kt, vt), dot, retain_graph=True), reps=5)
-    got = flash_attention_bwd_cuda(q, k, v, o, do, L, True, 0)
+    got = call()
     lib = torch.autograd.grad(ot, (qt, kt, vt), dot)
     lib_err = max(max_abs_err(g.float(), w.transpose(1, 2).float())
                   for g, w in zip(got, lib))
@@ -2843,11 +2878,16 @@ def time_flash_bwd(rng, dev) -> dict:
     # q, k, v, o, dO and L read, dq, dk, dv written
     nbytes = 2 * (3 * B * S * H * hd + 2 * B * S * K * hd) + 4 * B * H * S \
         + 2 * (B * S * H * hd + 2 * B * S * K * hd)
-    return {"ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+    # the kernels' own work: S and dP in both passes, and dV, dK and dQ
+    # as two products each (P and dS as bf16 pairs hi + lo): ten products
+    design = bound(nbytes, 2 * flops, BF16_FLOPS_PER_S)
+    return {"ms": kernel_ms, "by_kernel_ms": by_kernel,
+            "plain_ms": plain_ms, "library_ms": library_ms,
             "library": "scaled_dot_product_attention(is_causal=True, "
                        "enable_gqa=True) backward",
             "library_max_abs_err": lib_err,
-            "dq_workspace_bytes": 4 * -(-S // 64) * B * S * H * hd,
+            "design_bound_ms": design["bound_ms"],
+            "design_flops": design["flops"],
             "shape": [B, S, H, K, hd], **bound(nbytes, flops,
                                                 BF16_FLOPS_PER_S)}
 

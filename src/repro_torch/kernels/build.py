@@ -4,9 +4,9 @@ Every ``csrc/*.cu`` has a plain C interface.  At first use each source is
 compiled by its own ``nvcc`` process (all started together), and one
 more ``nvcc`` links the objects into a single shared library under
 ``build/kernels/`` at the root of the checkout, named by a hash of all
-sources and the flags; it is loaded with ctypes.  A later process with
-the same sources loads the cached library.  Nothing here runs at import
-time.
+sources, the headers they include and the flags; it is loaded with
+ctypes.  A later process with the same sources loads the cached library.
+Nothing here runs at import time.
 """
 from __future__ import annotations
 
@@ -22,6 +22,7 @@ from typing import Optional
 
 _PKG = Path(__file__).resolve().parents[1]          # src/repro_torch
 SOURCES = tuple(sorted((_PKG / "csrc").glob("*.cu")))
+HEADERS = tuple(sorted((_PKG / "csrc").glob("*.cuh")))   # included by them
 BUILD_DIR = _PKG.parents[1] / "build" / "kernels"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -46,9 +47,9 @@ _SIGNATURES = {
                            ctypes.c_int, ctypes.c_int, ctypes.c_int,
                            ctypes.c_int, ctypes.c_int, ctypes.c_int,
                            ctypes.c_float, ctypes.c_int, _P),
-    # q, k, v, o, do, lse, delta, dq_acc, dq, dk, dv, B, H, K, Sq, Skv,
-    # hd, causal, window, scale, is_bf16, stream
-    "fa_flash_attention_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+    # q, k, v, o, do, lse, delta, dq, dk, dv, B, H, K, Sq, Skv, hd,
+    # causal, window, scale, is_bf16, stream
+    "fa_flash_attention_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                ctypes.c_int, ctypes.c_int, ctypes.c_int,
                                ctypes.c_int, ctypes.c_int, ctypes.c_int,
                                ctypes.c_int, ctypes.c_int, ctypes.c_float,
@@ -80,7 +81,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libkernels_{h.hexdigest()[:16]}.so"

@@ -4,8 +4,11 @@ Forward (``csrc/flash_attention.cu``): bf16 inputs run the tensor-core
 kernel (wgmma, tiles by TMA), float32 inputs the CUDA-core kernel; with
 ``lse=True`` either also writes the float32 row log-sum-exp the backward
 reads.  Backward (``csrc/flash_attention_bwd.cu``): the FlashAttention-2
-backward on the CUDA cores in float32, for both dtypes, deterministic
-(dQ's parts by kv tile go through a float32 workspace, not atomics).
+backward as delta, a dK / dV pass a kv tile and a dQ pass a query tile,
+each sum in one fixed order in registers (no workspace, no atomics), so
+it is deterministic.  bf16 inputs run every product on the tensor cores
+(wgmma, tiles by TMA), P and dS entering theirs as bf16 pairs hi + lo;
+float32 inputs run the same passes on the CUDA cores in float32.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs and scratch with ``torch.empty``, launches on the current stream,
@@ -29,7 +32,7 @@ HEAD_DIMS = (16, 32, 64, 128)      # the kernel's instantiations
 _REFUSED = {1001: "head_dim is not one of the kernel's instantiations "
                   f"{HEAD_DIMS}",
             1002: "n_heads is not a multiple of n_kv_heads",
-            1003: "the grid does not fit (B * H or the query tiles)",
+            1003: "the grid does not fit (B * H, the query or key tiles)",
             1004: "a pointer is not 16-byte aligned (the kernels read "
                   "16-byte vectors and TMA boxes)",
             1005: "the driver offers no cuTensorMapEncodeTiled",
@@ -85,7 +88,9 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              ) -> tuple[torch.Tensor, torch.Tensor,
                                         torch.Tensor]:
     """(dq, dk, dv) in the inputs' dtype from the forward's output ``o``
-    and row log-sum-exp ``L``; dq with respect to the unscaled q."""
+    and row log-sum-exp ``L``; dq with respect to the unscaled q.  Three
+    launches (delta, dK / dV, dQ), counted as one call; the only scratch
+    is delta, float32 (B, H, Sq)."""
     _check_qkv(q, k, v, window)
     backend.check_tensor(o, q.dtype, 4, "o")
     backend.check_tensor(do, q.dtype, 4, "do")
@@ -100,17 +105,13 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if q.numel():
         delta = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
-        # one part of dQ a 64-key tile, summed in tile order by the kernel
-        dq_part = torch.empty((-(-Skv // 64), *q.shape), dtype=torch.float32,
-                              device=dev)
         with torch.cuda.device(dev):
             rc = build.lib().fa_flash_attention_bwd(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                do.data_ptr(), L.data_ptr(), delta.data_ptr(),
-                dq_part.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                dv.data_ptr(), B, H, K, Sq, Skv, hd, int(bool(causal)),
-                int(window), 1.0 / math.sqrt(hd), DTYPES[q.dtype],
-                backend.stream(dev))
+                do.data_ptr(), L.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                dk.data_ptr(), dv.data_ptr(), B, H, K, Sq, Skv, hd,
+                int(bool(causal)), int(window), 1.0 / math.sqrt(hd),
+                DTYPES[q.dtype], backend.stream(dev))
         backend.raise_on(rc, FLASH_ATTENTION_BWD.name, _REFUSED)
         FLASH_ATTENTION_BWD.launches += 1
     else:
