@@ -24,8 +24,9 @@ with a non-zero exit code:
            128, Sq = Skv in {77, 512, 2048}, Sq != Skv, qwen3's prefill
            shape) and the SSD scan (the kernel tests' shapes, S ragged
            against the kernel's 256-row chunk and S below one chunk, N
-           in {8, 13, 128}, mamba2's prefill shape with B and C shared)
-           within FLASH_TOL / SSD_TOL of their plain versions
+           in {8, 13, 128}, mamba2's prefill shape with B and C shared,
+           the model form also from a carried state h0) within FLASH_TOL
+           / SSD_TOL of their plain versions
   main     the secure allreduce at full width -- n = 64 nodes, clusters
            of 4, ring schedule, r = 3, global masking, T = 2^22 float32
            per node -- through ``SecureAggregator.allreduce`` on the card:
@@ -151,7 +152,24 @@ with a non-zero exit code:
            baseline with ``vote_combine`` launched, the r = 1 control
            printed.  (d) the qwen3 smoke crashed at step 10 after a
            checkpoint at 8 and resumed: the last loss equal to the
-           uninterrupted run's within 1e-5 relative
+           uninterrupted run's within 1e-5 relative.  (e) the SSD
+           backward kernel against ``ssd_chunked_bwd_ref`` in float64 on
+           the same card inputs and the forward kernel's y (SSD_BWD_CASES:
+           S ragged against the 256-row chunk and below one chunk, N in
+           {8, 13, 128}, P in {16, 32, 64}, with and without h0 and a
+           final state's gradient, and mamba2's training shape), each of
+           dx, ddt, da, dB, dC and dinit within SSD_BWD_TOL of its largest
+           |entry| (da, a cancelling sum, also within SSD_BWD_DA_UNIT of
+           its summands' magnitude); two cases run twice, bit-equal
+           (SSD_BWD_REPEAT).  (f)
+           ``train_loop`` on mamba2-370m at full width (bf16 compute,
+           float32 weights and AdamW moments, remat), batch 4 x 2,048: 3
+           plain steps, then 3 secure steps from the same init on the
+           one-rank mesh, each step's loss and seconds, tokens/s, peak
+           memory and launches (a step: ``ssd`` 96 with remat, ``ssd_bwd``
+           48), the secure losses within TRAIN_LOSS_TOL of the plain ones,
+           one more plain step profiled (busy share, each SSD kernel by
+           name)
   timing   CUDA-event medians of each kernel and its plain version at
            the main paths' shapes (the Montgomery multiply at the
            decryption's rows x 128 limbs and at 1056 x 128; the ladder at
@@ -161,17 +179,21 @@ with a non-zero exit code:
            attention and the SSD scan at the two models' prefill shapes,
            with ``scaled_dot_product_attention`` timed beside flash
            attention as the library yardstick, the forward also with L
-           written, and the flash backward at qwen3's training shape
-           beside SDPA's backward), and the end-to-end allreduce time
+           written, the SSD scan also from a carried state, the flash
+           backward at qwen3's training shape beside SDPA's backward, and
+           the SSD backward at mamba2's training shape, for which no
+           PyTorch call exists), and the end-to-end allreduce time
 
 The last lines are the card's name and power limit, one JSON object
 describing every kernel (``max_abs_err`` from the kernels phase,
 ``launches`` on its phase's path, ``mesh_launches_per_rank`` in the mesh
 phase's (a), ``service_launches`` on the service phase's depth-2 stream,
 ``funcs_launches`` on the funcs phase's verbs,
-``train_launches_per_secure_step`` on one secure step of the train
-phase's (b); each null where its phase did not run; the flash
-backward's ``launches`` and ``max_abs_err`` come from the train phase),
+``train_launches_secure_run`` on the train phase's (b) secure run,
+``mamba2_train_launches_secure_run`` on (f)'s;
+each null where its phase did not run; the two backwards' ``launches``
+and ``max_abs_err`` come from the train phase, the SSD backward's
+launches from (f)'s secure run),
 and ``{"ok": true, "device": {...}}``.  Without
 a CUDA device the script fails before printing any result.  Imports
 nothing of JAX or of the JAX package.
@@ -268,6 +290,7 @@ SERVE_KERNEL = {"qwen3-1.7b": "flash_attention", "mamba2-370m": "ssd"}
 # byzantine training at BYZ_RANKS gloo ranks for BYZ_STEPS steps; (d) a
 # crash at step 10 after a checkpoint at 8, resumed within RESTART_RTOL
 TRAIN_STEPS = 4
+MAMBA_STEPS = 3
 TRAIN_OPT = dict(lr=3e-4, warmup_steps=2, total_steps=100)
 TRAIN_LOSS_TOL = 2e-3
 BYZ_RANKS, BYZ_STEPS = 8, 8
@@ -682,9 +705,131 @@ def _check_ssd(rng, dev, errs: dict) -> int:
                             (4, 2048, 32, 64, 128)):
         args = _ssd_inputs(rng, dev, Bsz, S, H, P, N=N, per_head=False)
         chunk = min(256, S)
+        what = f"model form B={Bsz} S={S} H={H} P={P} N={N}"
         hold(ssd_chunked(*args, chunk),
-             ssd_chunked(*args, chunk, impl="torch"),
-             f"model form B={Bsz} S={S} H={H} P={P} N={N}")
+             ssd_chunked(*args, chunk, impl="torch"), what)
+        # from a carried state (a prefill that goes on from an earlier one)
+        h0 = torch.from_numpy(rng.standard_normal((Bsz, H, P, N), np.float32)
+                              * 0.5).to(dev)
+        hold(ssd_chunked(*args, chunk, h0),
+             ssd_chunked(*args, chunk, h0, impl="torch"), what + " from h0")
+    return checks
+
+
+# The SSD backward's cases (B, S, H, P, N, h0, dstate): the CPU tests'
+# shapes (S ragged against the kernel's 256-row chunk, S below one chunk,
+# N in {8, 13, 128}, P in {16, 32, 64}, B and C shared by H > 1 heads),
+# with and without an initial state and a final state's gradient, then
+# mamba2-370m's training shape (4 x 2,048 tokens, 32 heads of P = 64, N =
+# 128; the training path has neither).  SSD_BWD_TOL: each output within
+# 1e-4 of its own largest |entry| against the plain version in float64 on
+# the card -- the CPU tests' tolerance against jax.vjp of the reference
+# (tests/test_torch_ssd_bwd.py), where the float32 plain version lands
+# within 5e-6 and the kernel's emulated 3xTF32 schedule within a third of
+# it.  da, the A gradient, is the exception: with dcum_t = dy_t . y_t -
+# x_t . dx_t, da = sum_t dcum_t cumdt_t (cumdt the in-chunk cumsum of
+# dt), a sum whose terms cancel, so a correct float32 evaluation can miss
+# 1e-4 of its largest entry: the float32 plain version does on one of
+# this check's draws at seeds 1-8 (tests/test_torch_ssd_bwd.py::
+# test_da_bound_holds_float32_where_its_largest_entry_alone_does_not).
+# da is held to 1e-4 of its largest entry plus SSD_BWD_DA_UNIT = 2^-21
+# (the rounding unit of the split's small part) of each entry's summand
+# magnitude, sum_t (|dy_t . y_t| + |x_t . dx_t|) cumdt_t, from the
+# float64 forward and backward, which that test shows holds the float32
+# plain version on all 48 draws and the emulated kernel on the worst.
+# SSD_BWD_REPEAT: run twice, the outputs bit-equal.
+SSD_BWD_CASES = [
+    (2, 77, 4, 16, 32, True, True), (1, 20, 3, 16, 13, False, False),
+    (2, 300, 4, 64, 13, True, False), (1, 600, 2, 64, 128, False, True),
+    (1, 260, 2, 32, 8, True, True), (2, 512, 8, 64, 128, True, True),
+    (4, 2048, 32, 64, 128, False, False),
+]
+SSD_BWD_TOL = 1e-4
+SSD_BWD_DA_UNIT = 2.0 ** -21
+SSD_BWD_REPEAT = [(1, 260, 2, 32, 8, True, True),
+                  (4, 2048, 32, 64, 128, False, False)]
+SSD_BWD_OUTPUTS = ("dx", "ddt", "da", "dB", "dC", "dinit")
+
+
+def _da_scale(x, dt, dy, y, dx) -> torch.Tensor:
+    """(B * H,): the magnitude of da's summands, sum_t (|dy_t . y_t| +
+    |x_t . dx_t|) cumdt_t, cumdt the cumsum of dt within the kernel's
+    256-row chunks."""
+    Bsz, S, H, _ = x.shape
+    Q = 256
+    dtc = torch.nn.functional.pad(dt, (0, 0, 0, -S % Q)).reshape(Bsz, -1,
+                                                                  Q, H)
+    cumdt = torch.cumsum(dtc, 2).reshape(Bsz, -1, H)[:, :S]
+    terms = ((dy * y).sum(-1).abs() + (x * dx).sum(-1).abs()) * cumdt
+    return terms.sum(1).reshape(Bsz * H)
+
+
+def _check_ssd_bwd(rng, dev, errs: dict) -> int:
+    """``ssd_bwd`` against ``ssd_chunked_bwd_ref`` in float64 on the same
+    card inputs (and the forward kernel's y), each output within
+    SSD_BWD_TOL of its largest |entry| (da also within SSD_BWD_DA_UNIT of
+    its summands' magnitude); the largest error of each output kept with
+    that entry; the SSD_BWD_REPEAT cases run twice and must be
+    bit-equal."""
+    from repro_torch.kernels.ssd import ssd_chunked_bwd_ref, ssd_chunked_ref
+    from repro_torch.kernels.ssd.ops import ssd_bwd_cuda_heads, ssd_cuda_heads
+    checks = 0
+    by = errs.setdefault("ssd_bwd_by_output", {})
+
+    def randn(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, np.float32)
+                                ).to(dev)
+
+    for case in SSD_BWD_CASES:
+        Bsz, S, H, P, N, init, dfin = case
+        what = f"B={Bsz} S={S} H={H} P={P} N={N} h0={init} dstate={dfin}"
+        x, dt, A, Bm, Cm = _ssd_inputs(rng, dev, Bsz, S, H, P, N=N,
+                                       per_head=False)
+        a = A.repeat(Bsz)                    # row b * H + h: A[h]
+        h0 = randn(Bsz * H, P, N) * 0.5 if init else None
+        ds = randn(Bsz * H, P, N) if dfin else None
+        dy = randn(Bsz, S, H, P)
+        y, _ = ssd_cuda_heads(x, dt, a, Bm, Cm, h0)
+        got = ssd_bwd_cuda_heads(x, dt, a, Bm, Cm, h0, y, dy, ds)
+        if case in SSD_BWD_REPEAT:
+            again = ssd_bwd_cuda_heads(x, dt, a, Bm, Cm, h0, y, dy, ds)
+            check(all((g is None and h is None) or torch.equal(g, h)
+                      for g, h in zip(got, again)),
+                  f"ssd_bwd {what}: two calls differ")
+            checks += 1
+            del again
+
+        def f64(t, shape=None):
+            return None if t is None else (
+                t.double() if shape is None else t.double().reshape(shape))
+
+        args64 = (f64(x), f64(dt), f64(a), f64(Bm), f64(Cm), min(256, S),
+                  f64(h0, (Bsz, H, P, N)))
+        want = ssd_chunked_bwd_ref(*args64, f64(dy), f64(ds, (Bsz, H, P, N)))
+        y64, _ = ssd_chunked_ref(*args64)
+        for name, g, w in zip(SSD_BWD_OUTPUTS, got, want):
+            if w is None:
+                check(g is None, f"ssd_bwd {what}: {name} without h0")
+                continue
+            w = w.reshape(g.shape)
+            err = max_abs_err(g, w)
+            top = float(w.abs().max())
+            bound = torch.full_like(w, SSD_BWD_TOL * top)
+            if name == "da":
+                bound += SSD_BWD_DA_UNIT * _da_scale(f64(x), f64(dt),
+                                                     f64(dy), y64, want[0])
+            over = float(((g.double() - w).abs() / bound).max())
+            if err / max(top, 1e-30) >= by.get(name, {}).get("share", -1.0):
+                by[name] = {"max_abs_err": err, "max_abs_ref": top,
+                            "share": err / max(top, 1e-30),
+                            "of_bound": over, "case": what}
+            errs["ssd_bwd"] = max(errs["ssd_bwd"], err)
+            check(bool(torch.isfinite(g).all()) and over <= 1.0,
+                  f"ssd_bwd {name} {what}: max err {err}, max |ref| {top}, "
+                  f"{over} of the bound")
+            checks += 1
+        del got, want, y64
+    torch.cuda.synchronize()
     return checks
 
 
@@ -2379,12 +2524,14 @@ def _serve_prompts(cfg, batch: int, prompt: int, seed: int, dev):
     return torch.from_numpy(stream.global_batch(0)["tokens"]).to(dev)
 
 
-def phase_train(dev, seed: int, errs: dict) -> tuple[list, dict]:
+def phase_train(dev, seed: int, errs: dict) -> tuple[list, dict, dict]:
     """The training path on the card: (a) the flash backward kernel
     against its plain version; (b) qwen3-1.7b at full width, plain then
     secure steps; (c) the byzantine training across gloo ranks; (d) a
-    crash and restart.  Returns one JSON line a sub-run and the launch
-    counts of the secure run of (b)."""
+    crash and restart; (e) the SSD backward kernel against its plain
+    version; (f) mamba2-370m at full width, plain then secure steps.
+    Returns one JSON line a sub-run and the launch counts of the secure
+    runs of (b) and (f)."""
     n = _check_flash_bwd(np.random.default_rng(seed), dev, errs)
     lines = [{"phase": "train", "part": "a_flash_bwd", "checks": n,
               "tol_atol_share_rtol": {
@@ -2396,7 +2543,17 @@ def phase_train(dev, seed: int, errs: dict) -> tuple[list, dict]:
     lines.append(line)
     lines.append(_train_byzantine(dev))
     lines.append(_train_restart(dev))
-    return lines, launches
+    t0 = time.perf_counter()
+    n = _check_ssd_bwd(np.random.default_rng(seed + 1), dev, errs)
+    lines.append({"phase": "train", "part": "e_ssd_bwd", "checks": n,
+                  "tol_share_of_largest": SSD_BWD_TOL,
+                  "da_unit_of_summands": SSD_BWD_DA_UNIT,
+                  "max_abs_err": errs["ssd_bwd"],
+                  "by_output": errs["ssd_bwd_by_output"],
+                  "seconds": time.perf_counter() - t0})
+    line, mamba_launches = _train_mamba(dev, seed)
+    lines.append(line)
+    return lines, launches, mamba_launches
 
 
 def _train_full(dev, seed: int) -> tuple[dict, dict]:
@@ -2422,20 +2579,7 @@ def _train_full(dev, seed: int) -> tuple[dict, dict]:
     agg = default_agg(1)
 
     def run(secure: bool):
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        backend.reset_launch_counts()
-        out = train_loop(cfg, steps=TRAIN_STEPS, shape=sh, secure=secure,
-                         opt_cfg=opt, seed=seed, device=dev)
-        counts = backend.launch_counts()
-        warm = statistics.median(out["step_s"][1:])
-        line = {"losses": out["losses"], "step_s": out["step_s"],
-                "step_s_median_warm": warm, "tokens_per_s": B * S / warm,
-                "peak_mem_bytes": torch.cuda.max_memory_allocated(),
-                "launches": counts,
-                "launches_per_step": {k: v / TRAIN_STEPS
-                                      for k, v in counts.items()}}
-        return out, line
+        return _train_run(cfg, sh, opt, dev, seed, TRAIN_STEPS, secure)
 
     out, plain = run(False)
     del out
@@ -2519,6 +2663,89 @@ def _train_full(dev, seed: int) -> tuple[dict, dict]:
             "plain": plain, "secure": secure, "secure_minus_plain": diff,
             "tol": TRAIN_LOSS_TOL, "sync_bit_equal_plain": equal,
             "profile_secure_step": prof}, counts
+
+
+def _train_run(cfg, sh, opt, dev, seed: int, steps: int, secure: bool
+               ) -> tuple[dict, dict]:
+    """One ``train_loop`` run from the seeded init, its launch counts
+    counted from 0 just before it and its peak memory from a reset just
+    before it: (the loop's output, one JSON line)."""
+    from repro_torch.kernels import backend
+    from repro_torch.launch.train import train_loop
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    backend.reset_launch_counts()
+    out = train_loop(cfg, steps=steps, shape=sh, secure=secure, opt_cfg=opt,
+                     seed=seed, device=dev)
+    counts = backend.launch_counts()
+    warm = statistics.median(out["step_s"][1:])
+    tokens = sh.global_batch * sh.seq_len
+    line = {"losses": out["losses"], "step_s": out["step_s"],
+            "step_s_median_warm": warm, "tokens_per_s": tokens / warm,
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+            "launches": counts,
+            "launches_per_step": {k: v / steps for k, v in counts.items()}}
+    return out, line
+
+
+def _train_mamba(dev, seed: int) -> tuple[dict, dict]:
+    """(f): ``train_loop`` on mamba2-370m at full width (bf16 compute,
+    float32 weights and AdamW moments, remat on), batch 4 x 2,048 from
+    ``SyntheticStream``: MAMBA_STEPS plain steps, then as many secure
+    steps from the same init on the one-rank mesh; each step's loss and
+    seconds, tokens/s, peak memory and launches (a step with remat: 96
+    ``ssd`` -- the forward, and again in the backward -- and 48
+    ``ssd_bwd``); the secure losses within TRAIN_LOSS_TOL of the plain
+    ones; one more plain step profiled (busy share, the scan's and the
+    backward's kernels by name).  Returns the line and the secure run's
+    launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.train import train_loop
+    from repro_torch.optim import adamw
+    cfg = dataclasses.replace(get_config("mamba2-370m"), remat=True)
+    check_widths("mamba2-370m", cfg)
+    L = cfg.n_layers
+    sh = ShapeConfig("chip_train", SERVE_PROMPT, SERVE_BATCH, "train")
+    opt = adamw.OptConfig(state_dtype=cfg.opt_state_dtype, **TRAIN_OPT)
+    lines = {}
+    for secure in (False, True):
+        out, line = _train_run(cfg, sh, opt, dev, seed, MAMBA_STEPS, secure)
+        counts = line["launches"]
+        check(counts["ssd"] == 2 * L * MAMBA_STEPS and
+              counts["ssd_bwd"] == L * MAMBA_STEPS and
+              counts["flash_attention"] == counts["flash_attention_bwd"] == 0
+              and (counts["mask_encrypt"] > 0) == secure,
+              f"mamba2 {'secure' if secure else 'plain'} launches {counts}")
+        lines["secure" if secure else "plain"] = line
+        params = out["params"]
+        del out
+        torch.cuda.empty_cache()
+    prof = profile_device(
+        lambda: train_loop(cfg, steps=1, shape=sh, opt_cfg=opt, seed=seed,
+                           device=dev, params=params),
+        ("ssd_cb", "ssd_state", "ssd_pass", "ssd_scan", "ssd_dyx", "ssd_dx",
+         "ssd_db", "ssd_dc", "ssd_finish", "ssd_headsum", "nvjet",
+         "multi_tensor_apply", "elementwise"),
+        spans=("train_step",))
+    step_ms = prof["spans_ms"]["train_step"]["device"]
+    prof["step_busy_share"] = prof["device_busy_ms"] / step_ms
+    del params
+    torch.cuda.empty_cache()
+    plain, secure = lines["plain"], lines["secure"]
+    diff = [x - y for x, y in zip(secure["losses"], plain["losses"])]
+    check(all(math.isfinite(x) for x in plain["losses"] + secure["losses"]),
+          "mamba2: non-finite loss")
+    check(max(map(abs, diff)) <= TRAIN_LOSS_TOL,
+          f"mamba2: secure - plain losses {diff} > {TRAIN_LOSS_TOL}")
+    return {"phase": "train", "part": "f_mamba2", "arch": cfg.name,
+            "batch": SERVE_BATCH, "seq_len": SERVE_PROMPT,
+            "dtype": cfg.dtype, "remat": cfg.remat,
+            "params": cfg.param_count(),
+            "opt": {**TRAIN_OPT, "state_dtype": opt.state_dtype},
+            "plain": plain, "secure": secure, "secure_minus_plain": diff,
+            "tol": TRAIN_LOSS_TOL, "profile_plain_step": prof}, \
+        secure["launches"]
 
 
 def _train_byzantine(dev) -> dict:
@@ -2641,10 +2868,12 @@ def phase_timing(rng, dev, xs, decrypt: tuple[int, int]
     out["mont_exp"] = time_mont_exp(rng, dev, rows, 128, nbits)
     out["flash_attention"] = time_flash(rng, dev)
     out["flash_attention_bwd"] = time_flash_bwd(rng, dev)
+    out["ssd_bwd"] = time_ssd_bwd(rng, dev)
     from repro_torch.kernels.ssd.ops import CHUNK
     Bsz, S, H, P, N = SERVE_BATCH, SERVE_PROMPT, 32, 64, 128
     # the chunk states, written, read and rewritten, read again
     out["ssd"] = {**time_ssd(rng, dev), "kernel_chunk": CHUNK,
+                  "ms_from_h0": time_ssd_from_h0(rng, dev),
                   "scratch_state_bytes": 4 * Bsz * H * (-(-S // CHUNK))
                   * P * N}
     return {"phase": "timing", "shapes": {"rows": B, "T": T, "r": r},
@@ -2955,6 +3184,93 @@ def time_ssd(rng, dev) -> dict:
             "bound_f32_ms": f32["bound_ms"], "bound_f32_by": f32["bound_by"]}
 
 
+def time_ssd_from_h0(rng, dev) -> float:
+    """``ssd_chunked`` at mamba2-370m's prefill shape from a carried state
+    (a prefill that goes on from an earlier one): the CUDA-event median
+    of single calls, as ``time_ssd``'s ``ms``."""
+    from repro_torch.kernels.ssd import ssd_chunked
+    Bsz, S, H, P, N = SERVE_BATCH, SERVE_PROMPT, 32, 64, 128
+    args = _ssd_inputs(rng, dev, Bsz, S, H, P, N=N, per_head=False)
+    h0 = torch.from_numpy(rng.standard_normal((Bsz, H, P, N), np.float32)
+                          ).to(dev)
+    return cuda_ms(lambda: ssd_chunked(*args, 256, h0), reps=10)
+
+
+def ssd_bwd_flops_at(Bsz: int, S: int, H: int, P: int, N: int,
+                     Q: int) -> int:
+    """FLOPs of the SSD backward in chunks of Q (S padded to a multiple):
+    the lower triangle of C B^T once per batch row and chunk; per head
+    five state products (the forward's chunk states again -- they are not
+    among the function's inputs -- u_c, gh_c B, gh_c^T x and h^T dy), the
+    lower triangles of D = dy x^T and of its two uses and G's
+    ((2 P + 2 N) a pair), the two state passes, <gh_c, h_c> a chunk and
+    the two row dots (dy . y, x . r)."""
+    nc = -(-S // Q)
+    Sp = nc * Q
+    tri = Sp * (Q + 1) // 2
+    return 2 * (Bsz * tri * N + Bsz * H * (
+        5 * Sp * N * P + tri * (2 * P + 2 * N) + 2 * (nc - 1) * P * N
+        + nc * P * N + 2 * Sp * P))
+
+
+def ssd_bwd_flops(Bsz: int, S: int, H: int, P: int, N: int
+                  ) -> tuple[int, int]:
+    """The least FLOPs the backward needs at these shapes over every chunk
+    length Q, and that Q."""
+    return min((ssd_bwd_flops_at(Bsz, S, H, P, N, Q), Q)
+               for Q in range(1, S + 1))
+
+
+def time_ssd_bwd(rng, dev) -> dict:
+    """``ssd_bwd`` at mamba2-370m's training shape (B 4, S 2048, 32 heads
+    of P = 64, N = 128, B and C shared; no initial state, no final state's
+    gradient, as in training) from the forward kernel's y, and its plain
+    version (``ssd_chunked_bwd_ref`` in float32 on the card).  ``ms`` is
+    the CUDA-event median of lone calls, ``by_kernel_ms`` each launch's
+    mean device time in a profiled run of 20 calls.  No PyTorch call
+    computes the function (``library_ms`` null).  The bound: the least
+    work over every chunk length at the 3xTF32 rate, against the bytes of
+    x, y, dy, dx, dt, ddt, A, dA, B, C, dB and dC once each."""
+    from repro_torch.kernels.ssd import ssd_chunked_bwd_ref
+    from repro_torch.kernels.ssd.ops import ssd_bwd_cuda_heads, ssd_cuda_heads
+    Bsz, S, H, P, N = SERVE_BATCH, SERVE_PROMPT, 32, 64, 128
+    x, dt, A, Bm, Cm = _ssd_inputs(rng, dev, Bsz, S, H, P, N=N,
+                                   per_head=False)
+    a = A.repeat(Bsz)
+    dy = torch.from_numpy(rng.standard_normal((Bsz, S, H, P), np.float32)
+                          ).to(dev)
+    y, _ = ssd_cuda_heads(x, dt, a, Bm, Cm)
+
+    def call():
+        return ssd_bwd_cuda_heads(x, dt, a, Bm, Cm, None, y, dy, None)
+
+    kernel_ms = cuda_ms(call, reps=10)
+
+    def calls():
+        for _ in range(20):
+            call()
+
+    by_kernel = [(name, ms / n, n) for name, ms, n in
+                 profile_device(calls)["by_kernel_ms"]]
+    plain_ms = cuda_ms(lambda: ssd_chunked_bwd_ref(x, dt, a, Bm, Cm, 256,
+                                                   None, dy, None), reps=3)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    call()
+    scratch = torch.cuda.max_memory_allocated() - base
+    big = 2 * Bsz * S * H * P + Bsz * S * H
+    nbytes = 4 * (2 * big + 2 * Bsz * H + 4 * Bsz * S * N)
+    flops, least_q = ssd_bwd_flops(Bsz, S, H, P, N)
+    return {"ms": kernel_ms, "by_kernel_ms": by_kernel,
+            "kernels_ms": sum(ms for _, ms, _ in by_kernel),
+            "plain_ms": plain_ms, "library_ms": None, "library": "none",
+            "shape": [Bsz, S, H, P, N], "unit": "tensor cores, 3xTF32",
+            "bound_chunk": least_q,
+            "kernel_chunk_flops": ssd_bwd_flops_at(Bsz, S, H, P, N, 256),
+            "peak_bytes_a_call": scratch,
+            **bound(nbytes, flops, F32_3XTF32_FLOPS_PER_S)}
+
+
 def _time_allreduce(xs, dev) -> dict:
     """Host-clock median of the full-width allreduce, and one profiled
     call: device time by kernel name and the device's busy share."""
@@ -3078,11 +3394,13 @@ def main() -> int:
         line, serve_launches = phase_serve(dev, args.seed)
         launches.update(serve_launches)
         emit(line)
-    train_launches = None
+    train_launches = mamba_launches = None
     if "train" in phases:
-        lines, train_launches = phase_train(dev, args.seed, errs)
+        lines, train_launches, mamba_launches = phase_train(dev, args.seed,
+                                                            errs)
         launches[backend.FLASH_ATTENTION_BWD.name] = \
             train_launches[backend.FLASH_ATTENTION_BWD.name]
+        launches[backend.SSD_BWD.name] = mamba_launches[backend.SSD_BWD.name]
         for line in lines:
             emit(line)
     if "timing" in phases:
@@ -3092,8 +3410,7 @@ def main() -> int:
     kernels = []
     for k in backend.KERNELS:
         t = timing.get(k.name, {})
-        checked = "train" in phases if k is backend.FLASH_ATTENTION_BWD \
-            else "kernels" in phases
+        checked = "train" in phases if not k.pallas else "kernels" in phases
         kernels.append({
             "name": k.name, "route": "cuda", "source": k.source,
             "replaces": k.replaces, "launches": launches.get(k.name),
@@ -3110,7 +3427,10 @@ def main() -> int:
                                else funcs_launches[k.name]),
             "train_launches_secure_run": (
                 None if train_launches is None
-                else train_launches[k.name])})
+                else train_launches[k.name]),
+            "mamba2_train_launches_secure_run": (
+                None if mamba_launches is None
+                else mamba_launches[k.name])})
     print(smi_line(), flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,9 +1,10 @@
-"""A/B timing of the port's SSD scan, Montgomery multiply and flash
-attention backward across source trees, on one GPU, in turns.
+"""A/B timing of the port's SSD scan and its backward, Montgomery
+multiply and flash attention backward across source trees, on one GPU,
+in turns.
 
     python3 kernel_ab.py --tree parent=<checkout> --tree change=. \
         --order parent,change,change,parent [--out build/ab.json] \
-        [--kernels ssd,mont_mul,flash_bwd]
+        [--kernels ssd,mont_mul,flash_bwd,ssd_bwd]
 
 Each turn starts one Python process whose import path holds that tree's
 ``src/`` first; the process builds that tree's kernels (into the tree's
@@ -12,9 +13,10 @@ timing functions, so every tree gets one method and one input set:
 ``time_ssd`` (``ssd_chunked`` at mamba2-370m's prefill),
 ``time_mont_mul`` (``mont_mul_op`` at a threshold decryption's 58 rows x
 128 limbs) and ``time_flash_bwd`` (the flash backward at qwen3-1.7b's
-training shape, beside ``scaled_dot_product_attention``'s backward);
-``--kernels`` picks among them (a tree older than the flash backward
-takes ``ssd,mont_mul``).  The inputs come from one seed and are the same
+training shape, beside ``scaled_dot_product_attention``'s backward)
+and ``time_ssd_bwd`` (the SSD backward at mamba2-370m's training
+shape); ``--kernels`` picks among them (a tree older than a backward
+leaves it out).  The inputs come from one seed and are the same
 in every turn.  Prints one JSON line a turn, then the card's name and power limit
 as ``nvidia-smi`` gives them, and exits non-zero without a card.
 """
@@ -51,6 +53,8 @@ if "mont_mul" in kernels:
 if "flash_bwd" in kernels:
     out["flash_bwd"] = chip_smoke.time_flash_bwd(np.random.default_rng(0),
                                                  dev)
+if "ssd_bwd" in kernels:
+    out["ssd_bwd"] = chip_smoke.time_ssd_bwd(np.random.default_rng(0), dev)
 print(json.dumps(out))
 '''
 
@@ -72,7 +76,8 @@ def main() -> int:
                     help="comma-separated tree names, one turn each")
     ap.add_argument("--out", default=None, help="also write the turns here")
     ap.add_argument("--kernels", default="ssd,mont_mul,flash_bwd",
-                    help="comma-separated subset of ssd,mont_mul,flash_bwd")
+                    help="comma-separated subset of "
+                    "ssd,mont_mul,flash_bwd,ssd_bwd")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():

@@ -97,7 +97,8 @@ class Kernel:
     """Launch counter of one CUDA kernel.  ``replaces`` is the file:line of
     the TPU kernel it ports, or with ``pallas=False`` of the reference's
     jnp function it replaces where that has no Pallas kernel (the flash
-    backward: a custom VJP); ``row_form``, where the TPU kernel has a
+    backward: a custom VJP; the SSD backward: JAX's autodiff of the jnp
+    ``ssd_chunked``); ``row_form``, where the TPU kernel has a
     single-row form beside its batched one, that form's file:line (the
     port runs it as the batched kernel with B = 1); ``loop``, where the
     kernel also runs the reference's host-side loop around the TPU kernel,
@@ -135,8 +136,11 @@ SSD = Kernel("ssd", "src/repro_torch/csrc/ssd.cu",
 FLASH_ATTENTION_BWD = Kernel(
     "flash_attention_bwd", "src/repro_torch/csrc/flash_attention_bwd.cu",
     "src/repro/models/layers.py:172", pallas=False)
+SSD_BWD = Kernel("ssd_bwd", "src/repro_torch/csrc/ssd_bwd.cu",
+                 "src/repro/models/layers.py:709", pallas=False)
 SECURE_AGG = (MASK, UNMASK, VOTE)     # the secure allreduce's kernels
-MODEL = (FLASH_ATTENTION, SSD, FLASH_ATTENTION_BWD)   # the model stack's
+# the model stack's
+MODEL = (FLASH_ATTENTION, SSD, FLASH_ATTENTION_BWD, SSD_BWD)
 MODMUL = (MONT_MUL, MONT_EXP)        # threshold decryption's kernels
 KERNELS = (*SECURE_AGG, *MODMUL, *MODEL)
 

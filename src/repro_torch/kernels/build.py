@@ -54,13 +54,20 @@ _SIGNATURES = {
                                ctypes.c_int, ctypes.c_int, ctypes.c_int,
                                ctypes.c_int, ctypes.c_int, ctypes.c_float,
                                ctypes.c_int, _P),
-    # x, dt, a, Bm, Cm, y, state, scratch cum, cb, states, BH, H, S, P,
-    # N, chunk, x strides (b, h, s), dt strides (b, h, s), B/C strides
-    # (b, s), stream
-    "ssd_scan": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_int,
+    # x, dt, a, Bm, Cm, h0 (or null), y, state, scratch cum, cb, states,
+    # BH, H, S, P, N, chunk, x strides (b, h, s), dt strides (b, h, s),
+    # B/C strides (b, s), stream
+    "ssd_scan": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_int,
                  ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                  ctypes.c_int, _I64, _I64, _I64, _I64, _I64, _I64, _I64,
                  _I64, _P),
+    # x, dt, a, Bm, Cm, h0, y, dy, dstate (h0, dstate null for zero); dx,
+    # ddt, da, dB, dC, dinit (null without h0); scratch cum, cb, states,
+    # hfin, gstates, dyx, dBp, dCp, dcum, xr; BH, H, S, P, N, chunk, the
+    # strides as ssd_scan's, stream
+    "ssd_bwd": (*([_P] * 25), ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, _I64, _I64, _I64,
+                _I64, _I64, _I64, _I64, _I64, _P),
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -10,10 +10,19 @@ Two torch copies of the reference's plain SSD code:
 
 * :func:`ssd_chunked_ref`, of the Mamba2 model's ``layers.ssd_chunked``
   (``repro/models/layers.py:709-771``): the chunked state-space-dual
-  form in the model's layout, which the model runs on the CPU and which
-  ``chip_smoke.py`` holds the CUDA kernel against on the card.
+  form in the model's layout, from a zero or a carried state, which the
+  model runs on the CPU and which ``chip_smoke.py`` holds the CUDA
+  kernel against on the card.
+
+and the backward of the chunked form, :func:`ssd_chunked_bwd_ref`,
+written out chunk by chunk (the reference has no custom VJP: JAX
+differentiates its jnp ``ssd_chunked``).  It is the plain version beside
+``csrc/ssd_bwd.cu`` and computes what the kernel computes, in the same
+passes.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -49,13 +58,15 @@ def _segsum(x: torch.Tensor) -> torch.Tensor:
 
 
 def ssd_chunked_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
-                    Bm: torch.Tensor, Cm: torch.Tensor, chunk: int
+                    Bm: torch.Tensor, Cm: torch.Tensor, chunk: int,
+                    init_state: Optional[torch.Tensor] = None
                     ) -> tuple[torch.Tensor, torch.Tensor]:
-    """SSD forward, chunked, from a zero state.
+    """SSD forward, chunked, from ``init_state`` (B, H, P, N), or from a
+    zero state when it is None.
 
     x:  (B, S, H, P) inputs per head
     dt: (B, S, H)    positive step sizes
-    A:  (H,) or (B, H) negative decay rates
+    A:  (H,), (B, H) or (B * H,) negative decay rates
     Bm: (B, S, N)    input matrix (shared across heads)
     Cm: (B, S, N)    output matrix
     Returns y: (B, S, H, P), final_state: (B, H, P, N).
@@ -92,7 +103,8 @@ def ssd_chunked_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
     # 3. inter-chunk recurrence over c, emitting the state *before* a chunk
     chunk_decay = torch.exp(dA_cum[:, :, -1, :])           # (B,c,H)
-    carry = torch.zeros((Bsz, H, Pd, N), dtype=x.dtype, device=x.device)
+    carry = (torch.zeros((Bsz, H, Pd, N), dtype=x.dtype, device=x.device)
+             if init_state is None else init_state.to(x.dtype))
     prev = []
     for c in range(nc):
         prev.append(carry)
@@ -106,3 +118,114 @@ def ssd_chunked_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
     y = (y_diag + y_off).reshape(Bsz, S, H, Pd)[:, :S_orig]
     return y, carry
+
+
+def ssd_chunked_bwd_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                        Bm: torch.Tensor, Cm: torch.Tensor, chunk: int,
+                        init_state: Optional[torch.Tensor],
+                        dy: torch.Tensor,
+                        dstate_final: Optional[torch.Tensor]) -> tuple:
+    """The backward of :func:`ssd_chunked_ref`: given dy (B, S, H, P) and
+    the gradient of the final state (B, H, P, N; None is zero), returns
+    (dx, ddt, dA, dB, dC, dinit) in the shapes of x, dt, A, Bm, Cm and the
+    initial state (dinit is None when ``init_state`` is).
+
+    Per chunk c, with cum the in-chunk inclusive cumsum of dt a, G_ts =
+    C_t . B_s, E_ts = exp(cum_t - cum_s) for t >= s (0 above), h_{c-1}
+    the state entering chunk c (h_{-1} = init_state) and h_c the one
+    leaving it:
+
+    1. the reverse state pass: gh_c, the gradient of h_c, from gh_last =
+       dstate_final by gh_{c-1} = exp(cum_last) gh_c + u_c, u_c = sum_t
+       exp(cum_t) dy_t C_t^T; dinit = gh_{-1};
+    2. dx_s = dt_s r_s, r_s = sum_{t>=s} E_ts G_ts dy_t + exp(cum_last -
+       cum_s) gh_c B_s;
+    3. with D_ts = dy_t . x_s, summed over the heads of a batch row:
+       dB_s = dt_s [sum_{t>=s} E_ts D_ts C_t + exp(cum_last - cum_s)
+       gh_c^T x_s] and dC_t = sum_{s<=t} E_ts dt_s D_ts B_s + exp(cum_t)
+       h_{c-1}^T dy_t;
+    4. dcum_t = dy_t . y_t - dt_t (x_t . r_t), and at the chunk's last row
+       also <gh_c, h_c>: every term of y_t carries exp(cum_t), every term
+       of r_s exp(-cum_s), and h_c = exp(cum_last) h_{c-1} + s_c.  Since
+       cum_t = a sum_{s<=t} dt_s, with rev the in-chunk reverse cumsum of
+       dcum: ddt_s = x_s . r_s + a rev_s and da = sum_s dt_s rev_s.
+
+    x . r is taken before the multiply by dt, so nothing divides by dt
+    (the padded rows and a ragged tail have dt = 0)."""
+    Bsz, S, H, Pd = x.shape
+    N = Bm.shape[-1]
+    S_orig = S
+    pad = -S % chunk
+    if pad:
+        fpad = torch.nn.functional.pad
+        x, dy = (fpad(t, (0, 0, 0, 0, 0, pad)) for t in (x, dy))
+        dt = fpad(dt, (0, 0, 0, pad))
+        Bm, Cm = (fpad(t, (0, 0, 0, pad)) for t in (Bm, Cm))
+        S += pad
+    nc = S // chunk
+    xc = x.reshape(Bsz, nc, chunk, H, Pd)
+    dyc = dy.reshape(Bsz, nc, chunk, H, Pd).to(x.dtype)
+    dtc = dt.reshape(Bsz, nc, chunk, H)
+    Bc = Bm.reshape(Bsz, nc, chunk, N)
+    Cc = Cm.reshape(Bsz, nc, chunk, N)
+    a = A.reshape(-1, H)                                   # (1 or B, H)
+    cum = torch.cumsum(dtc * a[:, None, None, :], dim=2)   # (B,c,q,H)
+    last = cum[:, :, -1]                                   # (B,c,H)
+    low = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                device=x.device))[..., None]
+    seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]    # (B,c,t,s,H)
+    E = torch.exp(seg.masked_fill(~low, float("-inf")))
+    G = torch.einsum("bctn,bcsn->bcts", Cc, Bc)
+    to_end = torch.exp(last[:, :, None] - cum)             # (B,c,q,H)
+
+    # the forward's states: h_{c-1} entering each chunk, h_c leaving it
+    s_c = torch.einsum("bcsn,bcsh,bcshp->bchpn", Bc, to_end * dtc, xc)
+    h = (torch.zeros((Bsz, H, Pd, N), dtype=x.dtype, device=x.device)
+         if init_state is None else init_state.to(x.dtype))
+    entering = []
+    for c in range(nc):
+        entering.append(h)
+        h = h * torch.exp(last[:, c])[..., None, None] + s_c[:, c]
+    h_prev = torch.stack(entering, dim=1)                  # (B,c,H,P,N)
+    h_next = torch.stack(entering[1:] + [h], dim=1)
+
+    # 1. the reverse state pass
+    u = torch.einsum("bctn,bcth,bcthp->bchpn", Cc, torch.exp(cum), dyc)
+    g = (torch.zeros_like(h) if dstate_final is None
+         else dstate_final.to(x.dtype))
+    leaving = [None] * nc
+    for c in reversed(range(nc)):
+        leaving[c] = g
+        g = g * torch.exp(last[:, c])[..., None, None] + u[:, c]
+    gh = torch.stack(leaving, dim=1)                       # (B,c,H,P,N)
+
+    # 2. dx, through r before the multiply by dt
+    r = torch.einsum("bctsh,bcts,bcthp->bcshp", E, G, dyc) + \
+        torch.einsum("bcsh,bcsn,bchpn->bcshp", to_end, Bc, gh)
+    dx = r * dtc[..., None]
+    direct = (xc * r).sum(-1)                              # (B,c,s,H)
+
+    # 3. dB and dC, summed over the heads
+    ED = E * torch.einsum("bcthp,bcshp->bctsh", dyc, xc)
+    dB = torch.einsum("bcsh,bctsh,bctn->bcsn", dtc, ED, Cc) + \
+        torch.einsum("bcsh,bcshp,bchpn->bcsn", dtc * to_end, xc, gh)
+    dC = torch.einsum("bctsh,bcsh,bcsn->bctn", ED, dtc, Bc) + \
+        torch.einsum("bcth,bcthp,bchpn->bctn", torch.exp(cum), dyc, h_prev)
+
+    # 4. dcum, then ddt and da through the reverse cumsum
+    y = torch.einsum("bctsh,bcts,bcsh,bcshp->bcthp", E, G, dtc, xc) + \
+        torch.einsum("bctn,bcth,bchpn->bcthp", Cc, torch.exp(cum), h_prev)
+    dcum = (dyc * y).sum(-1) - dtc * direct
+    dcum[:, :, -1] += (gh * h_next).sum((-1, -2))
+    rev = torch.flip(torch.cumsum(torch.flip(dcum, [2]), dim=2), [2])
+    ddt = direct + a[:, None, None, :] * rev
+    da = (dtc * rev).sum((1, 2))                           # (B, H)
+    if a.shape[0] == 1 and Bsz > 1:
+        da = da.sum(0, keepdim=True)
+
+    def unchunk(t, *tail):
+        return t.reshape(Bsz, S, *tail)[:, :S_orig]
+
+    return (unchunk(dx, H, Pd), unchunk(ddt, H), da.reshape(A.shape),
+            unchunk(dB, N), unchunk(dC, N),
+            None if init_state is None else g)

@@ -14,10 +14,10 @@ counterpart on one device and is left out.
 
 Not ported yet, each raising with the slice it waits for (see
 ``model.check_supported``): the MoE MLP, the cross-attention media path,
-the GELU MLP, QKV biases and logit soft-capping (later model slices),
-and a Mamba2 backward on the card (an SSD backward kernel).  Training
-differentiates through everything here with autograd; attention's
-backward is the flash wrapper's own (a CUDA kernel on the card).
+the GELU MLP, QKV biases and logit soft-capping (later model slices).
+Training differentiates through everything here with autograd;
+attention's and the SSD scan's backwards are their wrappers' own (CUDA
+kernels on the card).
 """
 from __future__ import annotations
 
@@ -302,10 +302,12 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 def mamba_forward(cfg: ModelConfig, p: dict, x: torch.Tensor,
                   state: Optional[dict] = None, decode: bool = False,
                   impl: Optional[str] = None):
-    """Mamba2 block. x: (B, S, D). state (decode): {"conv_x": (B,K-1,d_in),
-    "conv_B"/"conv_C": (B,K-1,N), "ssd": (B,H,P,N)}; returns (y, state).
-    The prefill's scan goes through the ``ssd`` kernel wrapper, from a zero
-    state; decode is the one-step recurrence in plain torch."""
+    """Mamba2 block. x: (B, S, D). state (decode, or a prefill that goes
+    on from an earlier one): {"conv_x": (B,K-1,d_in), "conv_B"/"conv_C":
+    (B,K-1,N), "ssd": (B,H,P,N)}; returns (y, state).  The prefill's scan
+    goes through the ``ssd_chunked`` kernel wrapper, from ``state["ssd"]``
+    or a zero state, and is differentiable (its backward a kernel on the
+    card); decode is the one-step recurrence in plain torch."""
     s = cfg.ssm
     dtype = x.dtype
     Bsz, S, D = x.shape
@@ -340,21 +342,11 @@ def mamba_forward(cfg: ModelConfig, p: dict, x: torch.Tensor,
         y = y[:, None].to(dtype)                                    # (B,1,H,P)
         new_ssd = st
     else:
-        if state is not None:
-            raise not_ported("a prefill from a carried SSD state",
-                             "chunked prefill")
-        if torch.is_grad_enabled() and x.device.type != "cpu" and \
-                any(t.requires_grad for t in (xs, dt, A, Bm, Cm)):
-            # the CUDA scan has no backward, and autograd through the
-            # plain scan on the card would be a hidden fallback; the scan's
-            # own operands are tested, so a gradient that reaches only the
-            # mixer's weights (a frozen input) raises too
-            raise not_ported("a Mamba2 backward off the CPU",
-                             "SSD backward")
+        init = None if state is None else state["ssd"]
         y, new_ssd = ssd_chunked(xs.float().contiguous(), dt,
                                  A, Bm.float().contiguous(),
                                  Cm.float().contiguous(), min(s.chunk, S),
-                                 impl=impl)
+                                 init, impl=impl)
         y = y.to(dtype)
 
     y = y + xs * _w(p, "D", dtype)[None, None, :, None]

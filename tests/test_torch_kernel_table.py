@@ -6,9 +6,10 @@ package).  Each must be named, as ``file:line`` of its ``def``, by the
 ``replaces`` field of one kernel in ``repro_torch.kernels.backend.KERNELS``
 or by its ``row_form`` (a single-row form the port runs as B = 1); one
 site may have more than one port (a kernel and a kernel that runs the
-reference's loop around it, ``loop``).  One kernel ports a function with
-no Pallas site: the flash backward (``pallas=False``), the reference's
-jnp custom VJP.
+reference's loop around it, ``loop``).  Two kernels port a function
+with no Pallas site (``pallas=False``): the flash backward, the
+reference's jnp custom VJP, and the SSD backward, JAX's autodiff of the
+reference's jnp ``ssd_chunked``.
 """
 import ast
 import pathlib
@@ -50,10 +51,10 @@ def test_every_pallas_kernel_has_a_port(site):
 
 @pytest.mark.parametrize("kernel", backend.KERNELS, ids=lambda k: k.name)
 def test_every_port_names_a_pallas_kernel_and_its_source(kernel):
-    """Every kernel names its source and the TPU kernel it ports; the one
-    kernel whose reference function has no Pallas site (``pallas=False``,
-    the flash backward, a jnp custom VJP) names that function's ``def``
-    instead."""
+    """Every kernel names its source and the TPU kernel it ports; the two
+    kernels whose reference function has no Pallas site (``pallas=False``:
+    the flash backward, a jnp custom VJP, and the SSD backward, autodiff of
+    jnp code) name that function's ``def`` instead."""
     sites = pallas_sites()
     if kernel.pallas:
         assert kernel.replaces in sites
@@ -76,7 +77,19 @@ def test_the_flash_backward_replaces_the_reference_vjp():
     assert text[171].startswith("def _flash_core_bwd(")
     assert k.source == "src/repro_torch/csrc/flash_attention_bwd.cu"
     assert [x.name for x in backend.KERNELS if not x.pallas] == \
-        ["flash_attention_bwd"]
+        ["flash_attention_bwd", "ssd_bwd"]
+
+
+def test_the_ssd_backward_replaces_autodiff_of_ssd_chunked():
+    """The Mamba2 training slice's kernel: the gradient of the reference's
+    jnp ``ssd_chunked``, which JAX takes by autodiff, and no Pallas
+    kernel."""
+    k = backend.SSD_BWD
+    assert k in backend.KERNELS and k in backend.MODEL and not k.pallas
+    assert k.replaces == "src/repro/models/layers.py:709"
+    text = (ROOT / "src/repro/models/layers.py").read_text().splitlines()
+    assert text[708].startswith("def ssd_chunked(")
+    assert k.source == "src/repro_torch/csrc/ssd_bwd.cu"
 
 
 @pytest.mark.parametrize("kernel", [k for k in backend.KERNELS if k.loop],

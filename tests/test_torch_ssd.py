@@ -5,8 +5,8 @@ The same inputs, drawn from a seeded numpy generator, go through the
 Pallas kernel in interpret mode (``ssd_op``, as ``tests/test_kernels.py``
 runs it), the sequential oracle ``ssd_ref`` and the model's
 ``layers.ssd_chunked``, and through the port's ``ssd`` / ``ssd_ref`` /
-``ssd_chunked`` on CPU tensors, at the four shapes of
-``tests/test_kernels.py`` with its tolerances (atol 5e-4, rtol 1e-3: the
+``ssd_chunked`` on CPU tensors (from a zero state and from a carried
+one), at the four shapes of ``tests/test_kernels.py`` with its tolerances (atol 5e-4, rtol 1e-3: the
 chunked and sequential forms sum in different orders, in float32).  The
 CUDA kernel's own schedule (its passes at its 256-row chunk, C B^T
 once per batch row, every product in 3xTF32) is emulated in torch and
@@ -121,11 +121,14 @@ def mm3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return tf32(a - ab) @ bb + ab @ tf32(b - bb) + ab @ bb
 
 
-def emulate_ssd_kernel(x, dt, a, Bm, Cm):
+def emulate_ssd_kernel(x, dt, a, Bm, Cm, h0=None, entering=False):
     """``csrc/ssd.cu`` in the model's layout: x (B, S, H, P), dt (B, S, H),
-    a (B * H,), Bm/Cm (B, S, N) shared by the heads -> y (B, S, H, P) and
-    the final state (B * H, P, N).  The kernel's chunk, S padded with
-    zero rows (dt = 0: decay 1, no input)."""
+    a (B * H,), Bm/Cm (B, S, N) shared by the heads, the initial state h0
+    (B * H, P, N) or None for zero -> y (B, S, H, P) and the final state
+    (B * H, P, N); with ``entering`` also the kernel's scratch: G (B, 1,
+    c, Q, Q), cum (B, H, c, Q) and the states entering each chunk (B, H,
+    c, P, N).  The kernel's chunk, S padded with zero rows (dt = 0: decay
+    1, no input)."""
     Bsz, S, H, P = x.shape
     N = Bm.shape[-1]
     Q = ssd_ops.CHUNK
@@ -147,19 +150,22 @@ def emulate_ssd_kernel(x, dt, a, Bm, Cm):
     w = torch.exp(cum[..., -1:] - cum) * dtc
     sT = mm3((Bc * w[..., None]).transpose(-1, -2), xc)      # (B,H,c,N,P)
     # 4. state passing: the state entering each chunk, and the last one
-    h = torch.zeros((Bsz, H, P, N))
-    entering = []
+    h = torch.zeros((Bsz, H, P, N)) if h0 is None \
+        else h0.reshape(Bsz, H, P, N)
+    states = []
     for c in range(nc):
-        entering.append(h)
+        states.append(h)
         h = torch.exp(cum[:, :, c, -1])[..., None, None] * h \
             + sT[:, :, c].transpose(-1, -2)
-    hp = torch.stack(entering, dim=2)                        # (B,H,c,P,N)
+    hp = torch.stack(states, dim=2)                          # (B,H,c,P,N)
     # 5. the chunk scan: exp(cum_i - cum_j) only where i >= j
     seg = torch.where(low, cum[..., :, None] - cum[..., None, :], 0.0)
     M = torch.where(low, torch.exp(seg) * dtc[..., None, :] * G, 0.0)
     y = mm3(M, xc) + mm3(Cc * torch.exp(cum)[..., None],
                          hp.transpose(-1, -2))
     y = y.permute(0, 2, 3, 1, 4).reshape(Bsz, nc * Q, H, P)[:, :S]
+    if entering:
+        return y, h.reshape(Bsz * H, P, N), G, cum, hp
     return y, h.reshape(Bsz * H, P, N)
 
 
@@ -235,6 +241,33 @@ def test_emulated_kernel_model_form_shares_B_and_C(Bsz, S, H, P, N):
         y.numpy().transpose(0, 2, 1, 3).reshape(Bsz * H, S, P), ry.numpy(),
         **TOL)
     np.testing.assert_allclose(st.numpy(), rst.numpy(), **TOL)
+
+
+@pytest.mark.parametrize("Bsz,S,H,P,N", [(2, 77, 4, 16, 32),
+                                          (1, 600, 2, 64, 13)])
+def test_emulated_kernel_from_a_carried_state(Bsz, S, H, P, N):
+    """The kernel's passes from an initial state h0 (the state pass starts
+    from it, and chunk 0 reads it as its entering state): against the
+    reference's ``layers.ssd_chunked`` with ``init_state`` and the port's
+    plain version."""
+    rng = np.random.default_rng(3 * S + N)
+    x = rng.normal(size=(Bsz, S, H, P)).astype(np.float32)
+    dt = (np.abs(rng.normal(size=(Bsz, S, H))) * 0.1).astype(np.float32)
+    A = -np.linspace(1.0, 16.0, H).astype(np.float32)
+    Bm = rng.normal(size=(Bsz, S, N)).astype(np.float32)
+    Cm = rng.normal(size=(Bsz, S, N)).astype(np.float32)
+    h0 = rng.normal(size=(Bsz, H, P, N)).astype(np.float32)
+    y, st = emulate_ssd_kernel(*_t((x, dt, np.tile(A, Bsz), Bm, Cm)),
+                               torch.from_numpy(h0).reshape(Bsz * H, P, N))
+    jy, jst = j_ssd_chunked(*map(jnp.asarray, (x, dt, A, Bm, Cm)),
+                            min(256, S), jnp.asarray(h0))
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), **TOL)
+    np.testing.assert_allclose(st.numpy(),
+                               np.asarray(jst).reshape(Bsz * H, P, N), **TOL)
+    py, pst = ssd_chunked(*_t((x, dt, A, Bm, Cm)), 64,
+                          torch.from_numpy(h0))
+    np.testing.assert_allclose(py.numpy(), np.asarray(jy), **TOL)
+    np.testing.assert_allclose(pst.numpy(), np.asarray(jst), **TOL)
 
 
 def test_plain_tf32_would_not_hold_the_tolerance(monkeypatch):

@@ -2,8 +2,9 @@
 
 * ``loss_fn`` and its gradients against ``jax.value_and_grad`` of
   ``repro.models.model.loss_fn`` on the reference's weights carried
-  across (``convert``), float32 smoke configs of qwen3-1.7b and olmo-1b,
-  with and without remat: loss to 1e-5, every gradient leaf to 2e-4 of
+  across (``convert``), float32 smoke configs of qwen3-1.7b, olmo-1b and
+  mamba2-370m (its SSD scan differentiated by the port's
+  ``_SSDChunked``), with and without remat: loss to 1e-5, every gradient leaf to 2e-4 of
   the largest gradient (float32 sums in other orders through two layers
   and the tied head).
 * ``train_loop`` against the reference's ``train_loop`` from the same
@@ -18,9 +19,9 @@
 * The reference's ``tests/test_train_e2e.py`` cases on the port: loss
   decreases, crash and restart resume exactly (rtol 1e-5), secure
   training within 2e-3 of the baseline.
-* A Mamba2 mixer under autograd off the CPU raises (the CUDA scan has
-  no backward), shown on the ``meta`` device; on the CPU autograd
-  through the plain scan stays allowed.
+* A Mamba2 model under autograd runs its SSD backward on the CPU (the
+  plain backward) and on the card (the kernel); on any other device,
+  shown on ``meta``, the scan raises rather than run a plain version.
 """
 import dataclasses
 
@@ -42,6 +43,7 @@ from repro_torch.convert import (model_config_from_fields,
                                  model_params_from_numpy,
                                  opt_config_from_fields,
                                  opt_state_from_numpy)
+from repro_torch.kernels import backend
 from repro_torch.launch.train import train_loop
 from repro_torch.models import model as PM
 from repro_torch.optim import adamw
@@ -50,7 +52,7 @@ from repro_torch.runtime.fault import FailurePlan, InjectedCrash
 SHAPE = ShapeConfig("t", 64, 4, "train")
 OPT = adamw.OptConfig(lr=1e-3, warmup_steps=5, total_steps=100,
                       grad_clip=1.0)
-ARCHS = ["qwen3-1.7b", "olmo-1b"]
+ARCHS = ["qwen3-1.7b", "olmo-1b", "mamba2-370m"]
 
 
 def _pair(arch, **kw):
@@ -185,6 +187,10 @@ def test_train_loop_runs_on_the_card_unless_asked(monkeypatch):
 
 
 def test_mamba2_backward_off_the_cpu_raises():
+    """The SSD scan's backward runs on the CPU (the plain version) and the
+    card (the kernel) only: a ``meta`` tensor that needs a gradient
+    raises in the scan's dispatch, and nothing runs a plain version in
+    its place."""
     cfg = dataclasses.replace(get_smoke_config("mamba2-370m"),
                               dtype="float32")
     params = PM.init_params(cfg, torch.Generator().manual_seed(0))
@@ -195,10 +201,11 @@ def test_mamba2_backward_off_the_cpu_raises():
     for t in leaves:
         t.requires_grad_(True)
     PM.loss_fn(cfg, params, batch).backward()      # CPU autograd: allowed
-    assert all(t.grad is not None for t in leaves)
+    assert all(t.grad is not None and bool(torch.isfinite(t.grad).all())
+               for t in leaves)
     meta = jax.tree.map(lambda t: t.detach().to("meta").requires_grad_(True),
                         params)
-    with pytest.raises(NotImplementedError, match="SSD backward"):
+    with pytest.raises(ValueError, match="no kernel for a tensor on meta"):
         PM.loss_fn(cfg, meta, {k: v.to("meta") for k, v in batch.items()})
     # a frozen input: only the mixers' A_log needs a gradient, so the
     # mixer's input does not, but the scan's operand A does
@@ -206,5 +213,6 @@ def test_mamba2_backward_off_the_cpu_raises():
     for unit in frozen["units"]:
         for layer in unit.values():
             layer["mixer"]["A_log"].requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="SSD backward"):
+    with pytest.raises(ValueError, match="no kernel for a tensor on meta"):
         PM.loss_fn(cfg, frozen, {k: v.to("meta") for k, v in batch.items()})
+    assert backend.SSD.launches == backend.SSD_BWD.launches == 0
