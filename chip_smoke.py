@@ -169,7 +169,7 @@ with a non-zero exit code:
            memory and launches (a step: ``ssd`` 96 with remat, ``ssd_bwd``
            48), the secure losses within TRAIN_LOSS_TOL of the plain ones,
            one more plain step profiled (busy share, each SSD kernel by
-           name)
+           name, each of the backward's own kernels seen in it)
   timing   CUDA-event medians of each kernel and its plain version at
            the main paths' shapes (the Montgomery multiply at the
            decryption's rows x 128 limbs and at 1056 x 128; the ladder at
@@ -749,6 +749,9 @@ SSD_BWD_DA_UNIT = 2.0 ** -21
 SSD_BWD_REPEAT = [(1, 260, 2, 32, 8, True, True),
                   (4, 2048, 32, 64, 128, False, False)]
 SSD_BWD_OUTPUTS = ("dx", "ddt", "da", "dB", "dC", "dinit")
+# the backward's own kernels (csrc/ssd_bwd.cu), by a part of their names;
+# the other five of its launches are the forward's kernels
+SSD_BWD_PARTS = ("ssd_dcb", "ssd_dx", "ssd_dbdc", "ssd_finish")
 
 
 def _da_scale(x, dt, dy, y, dx) -> torch.Tensor:
@@ -2697,7 +2700,8 @@ def _train_mamba(dev, seed: int) -> tuple[dict, dict]:
     ``ssd`` -- the forward, and again in the backward -- and 48
     ``ssd_bwd``); the secure losses within TRAIN_LOSS_TOL of the plain
     ones; one more plain step profiled (busy share, the scan's and the
-    backward's kernels by name).  Returns the line and the secure run's
+    backward's kernels by name, each of the backward's own kernels,
+    SSD_BWD_PARTS, seen in it).  Returns the line and the secure run's
     launches."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
@@ -2724,10 +2728,12 @@ def _train_mamba(dev, seed: int) -> tuple[dict, dict]:
     prof = profile_device(
         lambda: train_loop(cfg, steps=1, shape=sh, opt_cfg=opt, seed=seed,
                            device=dev, params=params),
-        ("ssd_cb", "ssd_state", "ssd_pass", "ssd_scan", "ssd_dyx", "ssd_dx",
-         "ssd_db", "ssd_dc", "ssd_finish", "ssd_headsum", "nvjet",
-         "multi_tensor_apply", "elementwise"),
+        ("ssd_cb", "ssd_state", "ssd_pass", "ssd_scan", *SSD_BWD_PARTS,
+         "nvjet", "multi_tensor_apply", "elementwise"),
         spans=("train_step",))
+    bwd = {p: prof["by_part"][p] for p in SSD_BWD_PARTS}
+    check(all(b["launches"] > 0 for b in bwd.values()),
+          f"the SSD backward's kernels missing from the step's profile: {bwd}")
     step_ms = prof["spans_ms"]["train_step"]["device"]
     prof["step_busy_share"] = prof["device_busy_ms"] / step_ms
     del params
@@ -3199,17 +3205,19 @@ def time_ssd_from_h0(rng, dev) -> float:
 def ssd_bwd_flops_at(Bsz: int, S: int, H: int, P: int, N: int,
                      Q: int) -> int:
     """FLOPs of the SSD backward in chunks of Q (S padded to a multiple):
-    the lower triangle of C B^T once per batch row and chunk; per head
-    five state products (the forward's chunk states again -- they are not
-    among the function's inputs -- u_c, gh_c B, gh_c^T x and h^T dy), the
-    lower triangles of D = dy x^T and of its two uses and G's
-    ((2 P + 2 N) a pair), the two state passes, <gh_c, h_c> a chunk and
-    the two row dots (dy . y, x . r)."""
+    the lower triangles of C B^T and of the two uses of M = sum_h dt E o
+    dy x^T (dB and dC) once per batch row and chunk, N a pair each; per
+    head five state products (the forward's chunk states again -- they
+    are not among the function's inputs -- u_c, gh_c B, gh_c^T x and h^T
+    dy; the last two are products of depth H P once per batch row, the
+    same count), the lower triangles of D = dy x^T and of G's use (P a
+    pair each), the two state passes, <gh_c, h_c> a chunk and the two row
+    dots (dy . y, x . r)."""
     nc = -(-S // Q)
     Sp = nc * Q
     tri = Sp * (Q + 1) // 2
-    return 2 * (Bsz * tri * N + Bsz * H * (
-        5 * Sp * N * P + tri * (2 * P + 2 * N) + 2 * (nc - 1) * P * N
+    return 2 * (3 * Bsz * tri * N + Bsz * H * (
+        5 * Sp * N * P + tri * 2 * P + 2 * (nc - 1) * P * N
         + nc * P * N + 2 * Sp * P))
 
 
@@ -3227,10 +3235,14 @@ def time_ssd_bwd(rng, dev) -> dict:
     gradient, as in training) from the forward kernel's y, and its plain
     version (``ssd_chunked_bwd_ref`` in float32 on the card).  ``ms`` is
     the CUDA-event median of lone calls, ``by_kernel_ms`` each launch's
-    mean device time in a profiled run of 20 calls.  No PyTorch call
-    computes the function (``library_ms`` null).  The bound: the least
-    work over every chunk length at the 3xTF32 rate, against the bytes of
-    x, y, dy, dx, dt, ddt, A, dA, B, C, dB and dC once each."""
+    mean device time in a profiled run of 20 calls, ``scratch_bytes`` the
+    wrapper's scratch (``ops.bwd_scratch_bytes``; null for a tree without
+    it) and ``peak_bytes_a_call`` the memory one call adds at its peak.
+    No PyTorch call computes the function (``library_ms`` null).  The
+    bound: the least work over every chunk length at the 3xTF32 rate,
+    against the bytes of x, y, dy, dx, dt, ddt, A, dA, B, C, dB and dC
+    once each."""
+    from repro_torch.kernels.ssd import ops as ssd_ops
     from repro_torch.kernels.ssd import ssd_chunked_bwd_ref
     from repro_torch.kernels.ssd.ops import ssd_bwd_cuda_heads, ssd_cuda_heads
     Bsz, S, H, P, N = SERVE_BATCH, SERVE_PROMPT, 32, 64, 128
@@ -3267,6 +3279,9 @@ def time_ssd_bwd(rng, dev) -> dict:
             "shape": [Bsz, S, H, P, N], "unit": "tensor cores, 3xTF32",
             "bound_chunk": least_q,
             "kernel_chunk_flops": ssd_bwd_flops_at(Bsz, S, H, P, N, 256),
+            "scratch_bytes": (ssd_ops.bwd_scratch_bytes(Bsz, H, S, P, N)
+                              if hasattr(ssd_ops, "bwd_scratch_bytes")
+                              else None),
             "peak_bytes_a_call": scratch,
             **bound(nbytes, flops, F32_3XTF32_FLOPS_PER_S)}
 

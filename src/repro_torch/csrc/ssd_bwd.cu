@@ -9,34 +9,39 @@
 // in the chunked form of the Mamba2 paper (arXiv:2405.21060, sections
 // 6-7), split into passes the way the public mamba_ssm package splits its
 // Triton backward (chunk_scan_bwd_dstates, state_passing_bwd,
-// chunk_state_bwd_dx, chunk_scan_bwd_dC, chunk_state_bwd_db,
-// chunk_scan_bwd_dcb and the ddA_cumsum passes); nothing of that code is
-// used.  Per (batch row, head) bh and chunk c of Q = 256 rows, with cum
-// the in-chunk inclusive cumsum of dt a, G_ts = C_t . B_s, E_ts =
-// exp(cum_t - cum_s) for t >= s, h_{c-1} the state entering chunk c
-// (h_{-1} = h0) and h_c the one leaving it, given dy and the final
-// state's gradient:
+// chunk_state_bwd_dx, chunk_scan_bwd_dcb -- the head-summed M below --
+// and the ddA_cumsum passes); nothing of that code is used.  Per batch
+// row b, head h and chunk c of Q = 256 rows, with cum^h the in-chunk
+// inclusive cumsum of dt^h a^h, G_ts = C_t . B_s, E^h_ts = exp(cum^h_t -
+// cum^h_s) for t >= s, D^h_ts = dy^h_t . x^h_s, h_{c-1} the state entering
+// chunk c (h_{-1} = h0) and h_c the one leaving it, given dy and the
+// final state's gradient (h dropped where the line is of one head):
 //
 //   gh_last = dstate; gh_{c-1} = exp(cum_last) gh_c + u_c,
 //       u_c = sum_t exp(cum_t) dy_t C_t^T;  dinit = gh_{-1}
 //   r_s  = sum_{t>=s} E_ts G_ts dy_t + exp(cum_last - cum_s) gh_c B_s
 //   dx_s = dt_s r_s
-//   D_ts = dy_t . x_s   (per head)
-//   dB_s = sum_h dt_s [sum_{t>=s} E_ts D_ts C_t
-//                      + exp(cum_last - cum_s) gh_c^T x_s]
-//   dC_t = sum_h [sum_{s<=t} E_ts dt_s D_ts B_s + exp(cum_t) h_{c-1}^T dy_t]
+//   M_ts = sum_h dt^h_s E^h_ts D^h_ts      (t >= s; one Q x Q a (b, c))
+//   dB_s = sum_t M_ts C_t
+//          + sum_(h,p) [dt^h_s exp(cum^h_last - cum^h_s) x^h_(s,p)] gh^h_c[p][:]
+//   dC_t = sum_s M_ts B_s
+//          + sum_(h,p) [exp(cum^h_t) dy^h_(t,p)] h^h_(c-1)[p][:]
 //   dcum_t = dy_t . y_t - dt_t (x_t . r_t)   (+ <gh_c, h_c> at the last row)
 //   ddt_s = x_s . r_s + a rev_s,  da = sum_s dt_s rev_s,
 //       rev the in-chunk reverse cumsum of dcum
 //
-// (every term of y_t carries exp(cum_t), every term of r_s exp(-cum_s),
-// and h_c = exp(cum_last) h_{c-1} + s_c: so dcum needs no product of its
-// own.)  x . r is taken before the multiply by dt: nothing divides by dt,
-// which is 0 on the ragged tail's padded rows.  The plain version,
-// kernels/ssd/ref.py ssd_chunked_bwd_ref, computes the same passes.
+// dB and dC are sums over the heads of per-head products; B and C are
+// shared by the heads of a batch row, so the head sum moves inside: into
+// M for the triangles, and into the depth of one product over (h, p) for
+// the state terms.  (Every term of y_t carries exp(cum_t), every term of
+// r_s exp(-cum_s), and h_c = exp(cum_last) h_{c-1} + s_c: so dcum needs no
+// product of its own.)  x . r is taken before the multiply by dt: nothing
+// divides by dt, which is 0 on the ragged tail's padded rows.  The plain
+// version, kernels/ssd/ref.py ssd_chunked_bwd_ref, computes the same
+// passes.
 //
-// Eleven launches a call, on the forward's machinery (ssd_common.cuh:
-// the cp.async ring of two, 3xTF32 mma.sync.m16n8k8 with the big / small
+// Nine launches a call, on the forward's machinery (ssd_common.cuh:
+// cp.async ring of two, 3xTF32 mma.sync.m16n8k8 with the big / small
 // split, 4 warps a block, 64-row output tiles):
 //
 //   1-3. the forward's ssd_cb_kernel, ssd_state_kernel and ssd_pass_kernel
@@ -47,62 +52,76 @@
 //   4.   ssd_state_kernel<GRAD>: u_c^T = (C o exp(cum))^T dy per (bh, c)
 //   5.   ssd_pass_kernel in reverse chunk order from dstate: gh_c in place
 //        of u_c, and dinit
-//   6.   ssd_dyx_kernel: D = dy x^T per (bh, c), its lower 64 x 64 tiles
-//        (10 of 16), the diagonal tile zeroed above the diagonal
+//   6.   ssd_dcb_kernel: M, a block a lower 64 x 64 tile (10 of 16), c
+//        and b; it walks the heads in order, forms D^h's tile (k over P)
+//        in registers and adds D^h o E^h o dt^h_s into M's tile, which
+//        stays in shared memory (each thread's own 32 entries); the
+//        diagonal tile is zero above the diagonal
 //   7.   ssd_dx_kernel: r for 64 rows s a block, k over t >= s (G read
 //        transposed, the tiles wholly below the rows skipped), then over
 //        N for gh_c B_s; dx, and per row x . r and dcum (dy . y from the
 //        forward's y)
-//   8.   ssd_db_kernel: per head dB, k over t >= s (D transposed) then
-//        over P for gh_c^T x_s, into a per-head partial
-//   9.   ssd_dc_kernel: per head dC, k over s <= t (D) then over P for
-//        h_{c-1}^T dy_t, into a per-head partial
-//   10.  ssd_finish_kernel: a block a bh walks its chunks in order:
+//   8.   ssd_dbdc_kernel: a block a (64-row tile, c, b, dB or dC, 64
+//        columns of N): k over M's triangle (read transposed for dB),
+//        then over (h, p); written into dB and dC themselves
+//   9.   ssd_finish_kernel: a block a bh walks its chunks in order:
 //        <gh_c, h_c>, the reverse cumsum, ddt, and da summed chunk by
 //        chunk
-//   11.  ssd_headsum_kernel: dB and dC, the per-head partials summed over
-//        the heads in head order
 //
-// Deterministic: no atomics.  The sums across heads (dB, dC) and across
-// chunks (da) are separate passes in one fixed order, and every block
-// reduction is a fixed shuffle tree, so two calls on the same inputs give
-// equal bits (an exact restart of training relies on it).  exp(cum_t -
-// cum_s) is taken only where t >= s (above the diagonal it may overflow,
-// and inf * 0 would be a NaN); rows past S load x = dt = B = C = dy = 0
-// and store nothing.  A NaN or an infinity in the inputs reaches the
-// outputs.
+// Launches 6 and 8 lay their four warps out 2 x 2, 32 rows by 32 columns
+// a warp (mma_step<2, 4>): each split element of a B tile feeds two
+// 16-row strips and is split by two warps.  Their accumulators (32 floats
+// a thread) stay in registers, and none spills; M's running sum in 6
+// sits in shared memory, since with it in registers beside D^h the
+// kernel needs 178 registers, two blocks an SM and two waves of the
+// training shape's 320 blocks, and capped at three blocks an SM it
+// spills.  No per-head Q x Q or S x N tensor goes to device memory.
+// Each mma_step sums its products from zero before adding them to the
+// running sum (ssd_common.cuh).
+//
+// Deterministic: no atomics.  The sums across heads (M in head order, by
+// the thread that owns each entry; the (h, p) products in order) and
+// across chunks (da, one block a bh) have one fixed order, and every
+// block reduction is a fixed shuffle tree, so two calls on the same
+// inputs give equal bits (an exact restart of training relies on it).
+// exp(cum_t - cum_s) is taken only where t >= s (above the diagonal it
+// may overflow, and inf * 0 would be a NaN); rows past S load x = dt = B
+// = C = dy = 0 and store nothing.  A NaN or an infinity in the inputs
+// reaches the outputs.
 //
 // Layout as ssd.cu's: x, y, dy and dx (b, h, s, p) with strides (xsb,
 // xsh, xss, 1); dt and ddt (b, h, s) with (dsb, dsh, dss); B, C, dB, dC
 // (b, s, n) with (bsb, bss, 1); a and da (BH,); h0, dstate and dinit
-// (BH, P, N).  The wrapper allocates the scratch (ops.py
-// ssd_bwd_cuda_heads).
+// (BH, P, N).  The wrapper allocates the scratch (ops.py bwd_scratch).
 //
 // Bound on an H100 SXM, at the mamba2-370m training shape (B 4, S 2048,
 // H 32, P 64, N 128, float32): the function needs five state products
 // per head -- s_c again (the states are not among its inputs), u_c, gh_c
-// B, gh_c^T x and h^T dy, 5 BH S N P = 5.37e9 FMA -- and the lower
-// triangles of C B^T once per batch row, and of D, its two uses and G's
-// use per head (BH S (Q + 1) / 2 (2 P + 2 N)), the two state passes and
-// the row dots; the least over every chunk length Q is at Q = 10: 24.0
-// GFLOP, 0.145 ms at the 3xTF32 rate (495 / 3 TFLOP/s) of the tensor
-// cores these kernels use.  The bytes (x, y, dy, dx, dt, ddt, a, da, B,
-// C, dB, dC: 287 MB) take 0.086 ms.  Bound by operations (chip_smoke.py
-// ssd_bwd_flops counts both).  The kernels' own Q = 256 does 47.7 GFLOP
-// (the triangles grow with Q), and the scratch adds traffic: D is BH (S /
-// Q) Q^2 4 bytes = 268 MB, written once and read twice, the per-head dB
-// and dC partials 134 MB each, written and read once.
+// B, gh_c^T x and h^T dy, 5 BH S N P = 1.07e10 FMA, 21.5 GFLOP -- the
+// lower triangles of C B^T and of M's two uses once per batch row (3 B S
+// (Q + 1) / 2 N FMA), of D and G's use per head (BH S (Q + 1) / 2 2 P),
+// the two state passes and the row dots; the least over every chunk
+// length Q is at Q = 16: 22.97 GFLOP, 0.139 ms at the 3xTF32 rate (495 /
+// 3 TFLOP/s) of the tensor cores these kernels use.  The bytes (x, y,
+// dy, dx, dt, ddt, a, da, B, C, dB, dC: 287 MB) take 0.086 ms.  Bound by
+// operations (chip_smoke.py ssd_bwd_flops counts both).  The kernels' own
+// Q = 256 does 31.0 GFLOP (the triangles grow with Q).  The scratch is
+// 91 MB a call: the forward's (cum, C B^T, the states, the final state),
+// gh_c, M (B (S / Q) Q^2 4 bytes = 8.4 MB, small enough for L2), dcum
+// and x . r.
 
 #include "ssd_common.cuh"
 
 namespace {
 
-constexpr int NW8 = MAX_N / 8;          // n-tiles of a width-N output
-constexpr int BUFW = KT * KS2;          // a staged [k][n] tile, n < 128
-constexpr int RINGW = 2 * (ABUF + BUFW);
+constexpr int T64 = TR * RS;            // a staged tile of launches 6, 8
+static_assert(T64 == KT * KS, "a [k][64] tile fills a [64][k] one's room");
+constexpr int RING2 = 4 * T64;          // two stages of an A and a B tile
+constexpr int TAB = 3 * TR;             // launch 6: a head's table
+constexpr int MAX_BWD_H = 512;          // heads launch 8's table holds
 
-__device__ __forceinline__ float* tile_w(float* ring, int st) {
-  return ring + 2 * ABUF + st * BUFW;
+__device__ __forceinline__ float* tile2(float* ring, int st, int which) {
+  return ring + (2 * st + which) * T64;
 }
 
 // The block's chunk: its cum in scum, its dt in sdt (0 past vq).
@@ -116,62 +135,142 @@ __device__ __forceinline__ void load_chunk(float* scum, float* sdt,
   }
 }
 
+// stage() for a tile whose element (r, c) is at at(r, c): rows and
+// columns past vrows and vcols are zero-filled; with vec, each group of
+// four columns is contiguous and 16-byte aligned (so a group of (h, p)
+// columns never crosses a head: P % 4 == 0).  at(0, 0) is a valid address.
+template <int ROWS, int COLS, typename At>
+__device__ __forceinline__ void stage_at(float* dst, int dld, At at,
+                                         int vrows, int vcols, bool vec) {
+  if (vec) {
+    constexpr int CPR = COLS / 4;
+    constexpr int ITEMS = ROWS * CPR;
+#pragma unroll
+    for (int it = 0; it < (ITEMS + NT - 1) / NT; ++it) {
+      const int e = it * NT + (int)threadIdx.x;
+      if (ITEMS % NT == 0 || e < ITEMS) {
+        const int r = e / CPR, c = (e % CPR) * 4;
+        const int n = r < vrows ? min(max(vcols - c, 0), 4) : 0;
+        cp16(dst + r * dld + c, n ? at(r, c) : at(0, 0), 4 * n);
+      }
+    }
+  } else {
+    constexpr int ITEMS = ROWS * COLS;
+#pragma unroll 4
+    for (int it = 0; it < (ITEMS + NT - 1) / NT; ++it) {
+      const int e = it * NT + (int)threadIdx.x;
+      if (ITEMS % NT == 0 || e < ITEMS) {
+        const int r = e / COLS, c = e % COLS;
+        const bool ok = r < vrows && c < vcols;
+        cp4(dst + r * dld + c, ok ? at(r, c) : at(0, 0), ok ? 4 : 0);
+      }
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
-// 6. D = dy x^T per (bh, chunk), lower tiles only
+// 6. M = sum_h dt^h_s E^h_ts D^h_ts per (b, chunk), lower tiles only
 // ---------------------------------------------------------------------------
 
+// 3 blocks an SM (at most 168 registers, 54 KB of shared memory): the
+// training shape's 320 blocks in one wave
 template <int P>
-__global__ void __launch_bounds__(NT)
-ssd_dyx_kernel(const float* __restrict__ dy, const float* __restrict__ x,
-               float* __restrict__ dyx, Layout L) {
+__global__ void __launch_bounds__(NT, 3)
+ssd_dcb_kernel(const float* __restrict__ dy, const float* __restrict__ x,
+               const float* __restrict__ dt, const float* __restrict__ cum,
+               float* __restrict__ mcb, Layout L) {
+  constexpr int KP = (P + KT - 1) / KT;  // k tiles a head
   extern __shared__ __align__(16) float ring[];
+  // two heads' tables (head h in h & 1): cum at the tile's rows t, cum
+  // and dt at its columns s
+  float* tab = ring + RING2;
   int idx = blockIdx.x, ti = 0;         // the lower tiles, row by row
   while (idx > ti) idx -= ++ti;
-  const int tj = idx, c = blockIdx.y, bh = blockIdx.z;
-  const int b = bh / L.H, h = bh % L.H;
+  const int tj = idx, c = blockIdx.y, b = blockIdx.z, H = L.H;
   const int vq = valid_rows(L.S, c);
   if (ti * TR >= vq) return;            // rows wholly past S: never read
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3, r0 = warp * 16;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = (warp >> 1) * 32, c0 = (warp & 1) * 32;
   const bool diag = ti == tj;
-  const int nt_end = diag ? 2 * warp + 2 : 8;
+  const bool idle = diag && c0 > r0;    // wholly above the diagonal
   const int64_t t0 = (int64_t)c * Q;
-  const int64_t xo = b * L.xsb + h * L.xsh + t0 * L.xss;
-  const float* Ab = dy + xo + ti * TR * L.xss;
-  const float* Xb = x + xo + tj * TR * L.xss;
-  float acc[1][8][4] = {};
-  // A = dy [t][p], B(k = p, column s) = x [s][p]
+  const int vr = vq - ti * TR, vc = vq - tj * TR;
+  float d[2][4][4] = {};
+  float* sm = tab + 2 * TAB + threadIdx.x;   // M's entries, [entry][thread]
+#pragma unroll
+  for (int e = 0; e < 32; ++e) sm[e * NT] = 0.f;
+  // A = dy [t][p], B(k = p, column s) = x [s][p], a head at a time
   pipeline(
-      (P + KT - 1) / KT,
+      H * KP,
       [&](int kt, int st) {
-        const int p0 = kt * KT;
-        stage<TR, KT>(tile_a(ring, st), RS, Ab + p0, L.xss, vq - ti * TR,
-                      P - p0, L.vec_x);
-        stage<TR, KT>(tile_b(ring, st), RS, Xb + p0, L.xss, vq - tj * TR,
-                      P - p0, L.vec_x);
+        const int h = kt / KP, p0 = (kt % KP) * KT;
+        const int64_t xo = b * L.xsb + h * L.xsh + t0 * L.xss + p0;
+        stage<TR, KT>(tile2(ring, st, 0), RS, dy + xo + ti * TR * L.xss,
+                      L.xss, vr, P - p0, L.vec_x);
+        stage<TR, KT>(tile2(ring, st, 1), RS, x + xo + tj * TR * L.xss,
+                      L.xss, vc, P - p0, L.vec_x);
+        if (p0 == 0) {
+          float* tb = tab + (h & 1) * TAB;
+          const float* cumc = cum + ((int64_t)(b * H + h) * L.nc + c) * Q;
+          const float* dtb = dt + b * L.dsb + h * L.dsh + t0 * L.dss;
+          for (int k = threadIdx.x; k < TAB; k += NT) {
+            const int part = k / TR, r = k % TR;
+            if (part == 0) cp4(tb + k, cumc + ti * TR + r, 4);
+            else if (part == 1) cp4(tb + k, cumc + tj * TR + r, 4);
+            else cp4(tb + k, dtb + (r < vc ? (tj * TR + r) * L.dss : 0),
+                     r < vc ? 4 : 0);
+          }
+        }
       },
-      [&](int, int st) {
-        const float* a = tile_a(ring, st);
+      [&](int kt, int st) {
+        if (idle) return;
+        const float* a = tile2(ring, st, 0);
+        const float* bt = tile2(ring, st, 1) + c0 * RS;
 #pragma unroll
         for (int k0 = 0; k0 < KT; k0 += 8) {
-          float av[1][4];
+          if (k0 >= P) break;
+          float av[2][4];
 #pragma unroll
-          for (int q = 0; q < 4; ++q)
-            av[0][q] = a[(r0 + g + 8 * (q & 1)) * RS + k0 + t + 4 * (q >> 1)];
-          mma_step<1, 8, 1, RS>(acc, av, tile_b(ring, st), k0, lane, nt_end);
+          for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+              av[mt][q] = a[(r0 + 16 * mt + g + 8 * (q & 1)) * RS + k0 + t +
+                            4 * (q >> 1)];
+          mma_step<2, 4, 1, RS>(d, av, bt, k0, lane, 4);
         }
+        if (kt % KP != KP - 1) return;
+        // D^h is whole: M += D^h o E^h o dt^h_s where t >= s, in head order
+        const float* tb = tab + ((kt / KP) & 1) * TAB;
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              const int row = r0 + 16 * mt + g + 8 * (q >> 1);
+              const int col = c0 + nt * 8 + 2 * t + (q & 1);
+              if (!diag || col <= row)
+                sm[((mt * 4 + nt) * 4 + q) * NT] +=
+                    d[mt][nt][q] *
+                    (expf(tb[row] - tb[TR + col]) * tb[2 * TR + col]);
+              d[mt][nt][q] = 0.f;
+            }
       });
-  float* D = dyx + (((int64_t)bh * L.nc + c) * Q + ti * TR) * Q + tj * TR;
+  float* M = mcb + (((int64_t)b * L.nc + c) * Q + ti * TR) * Q + tj * TR;
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
+  for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      const int row = r0 + g + 8 * hf, col = nt * 8 + 2 * t;
-      const float v0 = !diag || col <= row ? acc[0][nt][2 * hf] : 0.f;
-      const float v1 = !diag || col + 1 <= row ? acc[0][nt][2 * hf + 1] : 0.f;
-      *reinterpret_cast<float2*>(D + row * Q + col) = make_float2(v0, v1);
-    }
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int row = r0 + 16 * mt + g + 8 * hf, col = c0 + nt * 8 + 2 * t;
+        *reinterpret_cast<float2*>(M + row * Q + col) =
+            make_float2(sm[((mt * 4 + nt) * 4 + 2 * hf) * NT],
+                        sm[((mt * 4 + nt) * 4 + 2 * hf + 1) * NT]);
+      }
 }
+
 
 // ---------------------------------------------------------------------------
 // 7. dx = dt o r, r = (E o G)^T dy + (B o exp(cum_last - cum)) gh^T; per
@@ -304,210 +403,150 @@ ssd_dx_kernel(const float* __restrict__ x, const float* __restrict__ dt,
 }
 
 // ---------------------------------------------------------------------------
-// 8. per-head dB = dt o [(E o D)^T C + (x o exp(cum_last - cum)) gh]
+// 8. dB = M^T C + (x o w_B) gh and dC = M B + (dy o w_C) h_{c-1}, k over
+//    (h, p) in the second product: w_B^h_s = dt^h_s exp(cum^h_last -
+//    cum^h_s), w_C^h_t = exp(cum^h_t)
 // ---------------------------------------------------------------------------
 
 template <int P>
 __global__ void __launch_bounds__(NT)
-ssd_db_kernel(const float* __restrict__ x, const float* __restrict__ dt,
-              const float* __restrict__ Cm, const float* __restrict__ cum,
-              const float* __restrict__ dyx,
-              const float* __restrict__ gstates, float* __restrict__ dBp,
-              Layout L) {
+ssd_dbdc_kernel(const float* __restrict__ x, const float* __restrict__ dt,
+                const float* __restrict__ Bm, const float* __restrict__ Cm,
+                const float* __restrict__ dy, const float* __restrict__ cum,
+                const float* __restrict__ mcb,
+                const float* __restrict__ gstates,
+                const float* __restrict__ states, float* __restrict__ dB,
+                float* __restrict__ dC, Layout L) {
   extern __shared__ __align__(16) float ring[];
-  float* scum = ring + RINGW;
-  float* sdt = scum + Q;
-  const int i0 = blockIdx.x * TR, c = blockIdx.y, bh = blockIdx.z;
-  const int b = bh / L.H, h = bh % L.H, N = L.N;
+  float* sw = ring + RING2;             // w^h at the block's rows, [h][row]
+  const int NH = (L.N + TR - 1) / TR;   // 64-column parts of N
+  const int ti = blockIdx.x % TQ, part = blockIdx.x / TQ;
+  const bool dc = part >= NH;           // uniform over the block
+  const int n0 = (part % NH) * TR, c = blockIdx.y, b = blockIdx.z;
+  const int i0 = ti * TR, H = L.H, N = L.N, HP = H * P;
   const int vq = valid_rows(L.S, c);
   if (i0 >= vq) return;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3, r0 = warp * 16;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = (warp >> 1) * 32, c0 = (warp & 1) * 32;
+  const int nt_end = min(max((N - n0 - c0 + 7) / 8, 0), 4);
   const int64_t t0 = (int64_t)c * Q;
-  const float* cumc = cum + ((int64_t)bh * L.nc + c) * Q;
-  load_chunk(scum, sdt, cumc, dt + b * L.dsb + h * L.dsh + t0 * L.dss,
-             L.dss, vq);
-  const float last = cumc[Q - 1];
-  const float cum_r[2] = {cumc[i0 + r0 + g], cumc[i0 + r0 + g + 8]};
-  const float eto_r[2] = {expf(last - cum_r[0]), expf(last - cum_r[1])};
-  const int nt_end = (N + 7) / 8;
-  const int kt0 = i0 / KT;
-  const int n1 = (vq + KT - 1) / KT - kt0;
-  const int n2 = (P + KT - 1) / KT;
-  const float* D = dyx + ((int64_t)bh * L.nc + c) * Q * Q;    // D [t][s]
-  const float* Cb = Cm + b * L.bsb + t0 * L.bss;
-  const float* xb = x + b * L.xsb + h * L.xsh + (t0 + i0) * L.xss;
-  const float* ghb = gstates + ((int64_t)bh * L.nc + c) * P * N;
+  for (int e = threadIdx.x; e < H * TR; e += NT) {
+    const int h = e / TR, r = e % TR;
+    const float* cumc = cum + ((int64_t)(b * H + h) * L.nc + c) * Q;
+    float w = 0.f;
+    if (i0 + r < vq)
+      w = dc ? expf(cumc[i0 + r])
+             : dt[b * L.dsb + h * L.dsh + (t0 + i0 + r) * L.dss] *
+                   expf(cumc[Q - 1] - cumc[i0 + r]);
+    sw[e] = w;
+  }
+  // the triangle: dB k over t from the block's first row to vq, dC k over
+  // s below the block's last row
+  const int kt0 = dc ? 0 : i0 / KT;
+  const int n1 = dc ? (min(i0 + TR, vq) + KT - 1) / KT
+                    : (vq + KT - 1) / KT - kt0;
+  const int n2 = (HP + KT - 1) / KT;
+  const float* M = mcb + ((int64_t)b * L.nc + c) * Q * Q;   // M [t][s]
+  const float* BCb = (dc ? Bm : Cm) + b * L.bsb + t0 * L.bss + n0;
+  const float* xb = (dc ? dy : x) + b * L.xsb + (t0 + i0) * L.xss;
+  const int64_t hs = (int64_t)L.nc * P * N;          // head stride of gh, h
+  const float* hb = (dc ? states : gstates) + (int64_t)b * H * hs +
+                    (int64_t)c * P * N + n0;
   const bool vec_h = N % 4 == 0;
-  float acc[1][NW8][4] = {};
-  // tiles kt < n1: A(s, t) = E_ts D [t][s] from D stored [k = t][row = s],
-  // B = C [t][n]; then A = exp(cum_last - cum) o x from x [s][p],
-  // B = gh [p][n]
+  float acc[2][4][4] = {};
+  // tiles kt < n1: dB A(s, t) = M [t][s] from M stored [k = t][row = s],
+  // dC A(t, s) = M [t][s]; B = C or B [k][n]; then A = x or dy [row][(h,
+  // p)] times w^h at the row, B = gh or h [(h, p)][n]
   pipeline(
       n1 + n2,
       [&](int kt, int st) {
+        float* ta = tile2(ring, st, 0);
+        float* tb = tile2(ring, st, 1);
         if (kt < n1) {
           const int j = (kt0 + kt) * KT;
-          stage<KT, TR>(tile_a(ring, st), KS, D + (int64_t)j * Q + i0, Q,
-                        vq - j, TR, true);
-          stage<KT, MAX_N>(tile_w(ring, st), KS2, Cb + j * L.bss, L.bss,
-                           vq - j, N, L.vec_bc);
+          if (dc)
+            stage<TR, KT>(ta, RS, M + (int64_t)i0 * Q + j, Q, TR, KT, true);
+          else
+            stage<KT, TR>(ta, KS, M + (int64_t)j * Q + i0, Q, vq - j, TR,
+                          true);
+          stage<KT, TR>(tb, KS, BCb + j * L.bss, L.bss, vq - j, N - n0,
+                        L.vec_bc);
         } else {
-          const int p = (kt - n1) * KT;
-          stage<TR, KT>(tile_a(ring, st), RS, xb + p, L.xss, vq - i0, P - p,
-                        L.vec_x);
-          stage<KT, MAX_N>(tile_w(ring, st), KS2, ghb + p * N, N, P - p, N,
-                           vec_h);
+          const int k0 = (kt - n1) * KT;
+          stage_at<TR, KT>(
+              ta, RS,
+              [&](int r, int k) {
+                const int hp = k0 + k;
+                return xb + r * L.xss + (hp / P) * L.xsh + hp % P;
+              },
+              vq - i0, HP - k0, L.vec_x);
+          stage_at<KT, TR>(
+              tb, KS,
+              [&](int r, int n) {
+                const int hp = k0 + r;
+                return hb + (hp / P) * hs + (hp % P) * N + n;
+              },
+              HP - k0, N - n0, vec_h);
         }
       },
       [&](int kt, int st) {
-        const float* a = tile_a(ring, st);
+        if (nt_end == 0) return;
+        const float* a = tile2(ring, st, 0);
+        const float* bt = tile2(ring, st, 1) + c0;
         if (kt < n1) {
 #pragma unroll
           for (int k0 = 0; k0 < KT; k0 += 8) {
             const int j0 = (kt0 + kt) * KT + k0;
-            if (j0 + 7 < i0 + r0) continue;   // wholly below this warp's rows
-            float av[1][4];
+            // M is zero where t < s: skip the steps wholly there
+            if (dc ? j0 > i0 + r0 + 31 : j0 + 7 < i0 + r0) continue;
+            float av[2][4];
 #pragma unroll
-            for (int q = 0; q < 4; ++q) {
-              const int row = r0 + g + 8 * (q & 1), kk = k0 + t + 4 * (q >> 1);
-              const int j = j0 - k0 + kk;
-              const float arg =
-                  j >= i0 + row ? scum[j] - cum_r[q & 1] : -INFINITY;
-              av[0][q] = expf(arg) * a[kk * KS + row];
-            }
-            mma_step<1, NW8, KS2, 1>(acc, av, tile_w(ring, st), k0, lane,
-                                     nt_end);
+            for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+              for (int q = 0; q < 4; ++q) {
+                const int row = r0 + 16 * mt + g + 8 * (q & 1);
+                const int kk = k0 + t + 4 * (q >> 1);
+                av[mt][q] = dc ? a[row * RS + kk] : a[kk * KS + row];
+              }
+            mma_step<2, 4, KS, 1>(acc, av, bt, k0, lane, nt_end);
           }
         } else {
 #pragma unroll
           for (int k0 = 0; k0 < KT; k0 += 8) {
-            float av[1][4];
+            const int hp = (kt - n1) * KT + k0;
+            if (hp >= HP) break;                // past the last head
+            const float* w = sw + hp / P * TR;
+            float av[2][4];
 #pragma unroll
-            for (int q = 0; q < 4; ++q)
-              av[0][q] = a[(r0 + g + 8 * (q & 1)) * RS + k0 + t +
-                           4 * (q >> 1)] *
-                         eto_r[q & 1];
-            mma_step<1, NW8, KS2, 1>(acc, av, tile_w(ring, st), k0, lane,
-                                     nt_end);
+            for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+              for (int q = 0; q < 4; ++q) {
+                const int row = r0 + 16 * mt + g + 8 * (q & 1);
+                av[mt][q] = a[row * RS + k0 + t + 4 * (q >> 1)] * w[row];
+              }
+            mma_step<2, 4, KS, 1>(acc, av, bt, k0, lane, nt_end);
           }
         }
       });
+  float* out = (dc ? dC : dB) + b * L.bsb + (t0 + i0) * L.bss;
 #pragma unroll
-  for (int nt = 0; nt < NW8; ++nt)
+  for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      const int s = i0 + r0 + g + 8 * hf, n = nt * 8 + 2 * t;
-      if (nt < nt_end && s < vq) {
-        float* out = dBp + ((int64_t)bh * L.S + t0 + s) * N;
-        const float d = sdt[s];
-        if (n < N) out[n] = d * acc[0][nt][2 * hf];
-        if (n + 1 < N) out[n + 1] = d * acc[0][nt][2 * hf + 1];
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int row = r0 + 16 * mt + g + 8 * hf;
+        const int n = n0 + c0 + nt * 8 + 2 * t;
+        if (i0 + row < vq) {
+          if (n < N) out[row * L.bss + n] = acc[mt][nt][2 * hf];
+          if (n + 1 < N) out[row * L.bss + n + 1] = acc[mt][nt][2 * hf + 1];
+        }
       }
-    }
 }
 
 // ---------------------------------------------------------------------------
-// 9. per-head dC = (E o dt_s o D) B + (exp(cum) o dy) h_{c-1}
-// ---------------------------------------------------------------------------
-
-template <int P>
-__global__ void __launch_bounds__(NT)
-ssd_dc_kernel(const float* __restrict__ dt, const float* __restrict__ Bm,
-              const float* __restrict__ dy, const float* __restrict__ cum,
-              const float* __restrict__ dyx,
-              const float* __restrict__ states, float* __restrict__ dCp,
-              Layout L) {
-  extern __shared__ __align__(16) float ring[];
-  float* scum = ring + RINGW;
-  float* sdt = scum + Q;
-  const int i0 = blockIdx.x * TR, c = blockIdx.y, bh = blockIdx.z;
-  const int b = bh / L.H, h = bh % L.H, N = L.N;
-  const int vq = valid_rows(L.S, c);
-  if (i0 >= vq) return;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3, r0 = warp * 16;
-  const int64_t t0 = (int64_t)c * Q;
-  const float* cumc = cum + ((int64_t)bh * L.nc + c) * Q;
-  load_chunk(scum, sdt, cumc, dt + b * L.dsb + h * L.dsh + t0 * L.dss,
-             L.dss, vq);
-  const float cum_r[2] = {cumc[i0 + r0 + g], cumc[i0 + r0 + g + 8]};
-  const float ecum_r[2] = {expf(cum_r[0]), expf(cum_r[1])};
-  const int nt_end = (N + 7) / 8;
-  // columns s < i0 + 64 hold the lower triangle; past vq B is zero
-  const int ki = (min(i0 + TR, vq) + KT - 1) / KT;
-  const int n2 = (P + KT - 1) / KT;
-  const float* D = dyx + (((int64_t)bh * L.nc + c) * Q + i0) * Q;
-  const float* Bb = Bm + b * L.bsb + t0 * L.bss;
-  const float* dyb = dy + b * L.xsb + h * L.xsh + (t0 + i0) * L.xss;
-  const float* hb = states + ((int64_t)bh * L.nc + c) * P * N;
-  const bool vec_h = N % 4 == 0;
-  float acc[1][NW8][4] = {};
-  // tiles kt < ki: A = E o dt_s o D from D [t][s], B = B [s][n]; then
-  // A = exp(cum) o dy from dy [t][p], B = h [p][n]
-  pipeline(
-      ki + n2,
-      [&](int kt, int st) {
-        if (kt < ki) {
-          const int j = kt * KT;
-          stage<TR, KT>(tile_a(ring, st), RS, D + j, Q, TR, KT, true);
-          stage<KT, MAX_N>(tile_w(ring, st), KS2, Bb + j * L.bss, L.bss,
-                           vq - j, N, L.vec_bc);
-        } else {
-          const int p = (kt - ki) * KT;
-          stage<TR, KT>(tile_a(ring, st), RS, dyb + p, L.xss, vq - i0, P - p,
-                        L.vec_x);
-          stage<KT, MAX_N>(tile_w(ring, st), KS2, hb + p * N, N, P - p, N,
-                           vec_h);
-        }
-      },
-      [&](int kt, int st) {
-        const float* a = tile_a(ring, st);
-        if (kt < ki) {
-#pragma unroll
-          for (int k0 = 0; k0 < KT; k0 += 8) {
-            if (kt * KT + k0 > i0 + r0 + 15) break;   // above this warp's rows
-            float av[1][4];
-#pragma unroll
-            for (int q = 0; q < 4; ++q) {
-              const int row = r0 + g + 8 * (q & 1), kk = k0 + t + 4 * (q >> 1);
-              const int j = kt * KT + kk;
-              const float arg =
-                  j <= i0 + row ? cum_r[q & 1] - scum[j] : -INFINITY;
-              av[0][q] = expf(arg) * sdt[j] * a[row * RS + kk];
-            }
-            mma_step<1, NW8, KS2, 1>(acc, av, tile_w(ring, st), k0, lane,
-                                     nt_end);
-          }
-        } else {
-#pragma unroll
-          for (int k0 = 0; k0 < KT; k0 += 8) {
-            float av[1][4];
-#pragma unroll
-            for (int q = 0; q < 4; ++q)
-              av[0][q] = a[(r0 + g + 8 * (q & 1)) * RS + k0 + t +
-                           4 * (q >> 1)] *
-                         ecum_r[q & 1];
-            mma_step<1, NW8, KS2, 1>(acc, av, tile_w(ring, st), k0, lane,
-                                     nt_end);
-          }
-        }
-      });
-#pragma unroll
-  for (int nt = 0; nt < NW8; ++nt)
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      const int s = i0 + r0 + g + 8 * hf, n = nt * 8 + 2 * t;
-      if (nt < nt_end && s < vq) {
-        float* out = dCp + ((int64_t)bh * L.S + t0 + s) * N;
-        if (n < N) out[n] = acc[0][nt][2 * hf];
-        if (n + 1 < N) out[n + 1] = acc[0][nt][2 * hf + 1];
-      }
-    }
-}
-
-// ---------------------------------------------------------------------------
-// 10. ddt and da: a block of Q threads a bh, its chunks in order
+// 9. ddt and da: a block of Q threads a bh, its chunks in order
 // ---------------------------------------------------------------------------
 
 // The sum of v over the block's Q threads in one fixed order, to every
@@ -583,55 +622,28 @@ ssd_finish_kernel(const float* __restrict__ dt, const float* __restrict__ A,
   if (k == 0) da[bh] = da_sum;
 }
 
-// ---------------------------------------------------------------------------
-// 11. dB and dC: the per-head partials summed over the heads in order
-// ---------------------------------------------------------------------------
-
-__global__ void __launch_bounds__(256)
-ssd_headsum_kernel(const float* __restrict__ dBp,
-                   const float* __restrict__ dCp, float* __restrict__ dB,
-                   float* __restrict__ dC, Layout L) {
-  const int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const int64_t per_b = (int64_t)L.S * L.N;
-  if (e >= (int64_t)(L.BH / L.H) * per_b) return;
-  const int64_t b = e / per_b, rem = e % per_b;
-  const int64_t s = rem / L.N, n = rem % L.N;
-  const float* pb = dBp + b * L.H * per_b + rem;
-  const float* pc = dCp + b * L.H * per_b + rem;
-  float sb = 0.f, sc = 0.f;
-  for (int h = 0; h < L.H; ++h) {
-    sb += pb[h * per_b];
-    sc += pc[h * per_b];
-  }
-  dB[b * L.bsb + s * L.bss + n] = sb;
-  dC[b * L.bsb + s * L.bss + n] = sc;
-}
-
 template <int P>
 int launch_bwd(const float* x, const float* dt, const float* a,
                const float* Bm, const float* Cm, const float* h0,
                const float* y, const float* dy, const float* dstate,
                float* dx, float* ddt, float* da, float* dB, float* dC,
                float* dinit, float* cum, float* cb, float* states,
-               float* hfin, float* gstates, float* dyx, float* dBp,
-               float* dCp, float* dcum, float* xr, const Layout& L,
-               cudaStream_t stream) {
+               float* hfin, float* gstates, float* mcb, float* dcum,
+               float* xr, const Layout& L, cudaStream_t stream) {
   constexpr size_t state_smem = sizeof(float) * (RING + Q + NW);
-  constexpr size_t dyx_smem = sizeof(float) * RING;
+  constexpr size_t dcb_smem = sizeof(float) * (RING2 + 2 * TAB + 32 * NT);
   constexpr size_t dx_smem = sizeof(float) * (RING + 2 * Q);
-  constexpr size_t w_smem = sizeof(float) * (RINGW + 2 * Q);
+  const size_t dbdc_smem = sizeof(float) * (RING2 + L.H * TR);
   constexpr auto attr = cudaFuncAttributeMaxDynamicSharedMemorySize;
   cudaError_t err;
   if ((err = cudaFuncSetAttribute(ssd_state_kernel<P, true>, attr,
                                   (int)state_smem)) != cudaSuccess ||
-      (err = cudaFuncSetAttribute(ssd_dyx_kernel<P>, attr,
-                                  (int)dyx_smem)) != cudaSuccess ||
+      (err = cudaFuncSetAttribute(ssd_dcb_kernel<P>, attr,
+                                  (int)dcb_smem)) != cudaSuccess ||
       (err = cudaFuncSetAttribute(ssd_dx_kernel<P>, attr, (int)dx_smem)) !=
           cudaSuccess ||
-      (err = cudaFuncSetAttribute(ssd_db_kernel<P>, attr, (int)w_smem)) !=
-          cudaSuccess ||
-      (err = cudaFuncSetAttribute(ssd_dc_kernel<P>, attr, (int)w_smem)) !=
-          cudaSuccess)
+      (err = cudaFuncSetAttribute(ssd_dbdc_kernel<P>, attr,
+                                  (int)dbdc_smem)) != cudaSuccess)
     return (int)err;
   // 1-3: the forward's G, cum, entering states and final state
   int rc = launch_states<P>(x, dt, a, Bm, Cm, h0, hfin, cum, cb, states, L,
@@ -648,27 +660,21 @@ int launch_bwd(const float* x, const float* dt, const float* a,
   ssd_pass_kernel<<<(unsigned)((lanes + 255) / 256), 256, 0, stream>>>(
       cum, gstates, dstate, dinit, lanes, PN4, L.nc, true);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  // 6-9: D, then dx, dB and dC
-  ssd_dyx_kernel<P><<<dim3(TQ * (TQ + 1) / 2, L.nc, L.BH), NT, dyx_smem,
-                      stream>>>(dy, x, dyx, L);
+  // 6-8: M, then dx, then dB and dC
+  const int rows = L.BH / L.H;
+  ssd_dcb_kernel<P><<<dim3(TQ * (TQ + 1) / 2, L.nc, rows), NT, dcb_smem,
+                      stream>>>(dy, x, dt, cum, mcb, L);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  const dim3 tiles(TQ, L.nc, L.BH);
-  ssd_dx_kernel<P><<<tiles, NT, dx_smem, stream>>>(
+  ssd_dx_kernel<P><<<dim3(TQ, L.nc, L.BH), NT, dx_smem, stream>>>(
       x, dt, Bm, y, dy, cum, cb, gstates, dx, xr, dcum, L);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  ssd_db_kernel<P><<<tiles, NT, w_smem, stream>>>(x, dt, Cm, cum, dyx,
-                                                  gstates, dBp, L);
+  ssd_dbdc_kernel<P><<<dim3(TQ * 2 * ((L.N + TR - 1) / TR), L.nc, rows), NT,
+                       dbdc_smem, stream>>>(x, dt, Bm, Cm, dy, cum, mcb,
+                                            gstates, states, dB, dC, L);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  ssd_dc_kernel<P><<<tiles, NT, w_smem, stream>>>(dt, Bm, dy, cum, dyx,
-                                                  states, dCp, L);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  // 10-11: ddt and da, then the head sums
+  // 9: ddt and da
   ssd_finish_kernel<<<L.BH, Q, 0, stream>>>(dt, a, xr, dcum, gstates, states,
                                             hfin, ddt, da, PN4, L);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  const int64_t elems = (int64_t)(L.BH / L.H) * L.S * L.N;
-  ssd_headsum_kernel<<<(unsigned)((elems + 255) / 256), 256, 0, stream>>>(
-      dBp, dCp, dB, dC, L);
   return (int)cudaGetLastError();
 }
 
@@ -677,21 +683,23 @@ int launch_bwd(const float* x, const float* dt, const float* a,
 extern "C" {
 
 // Returns cudaGetLastError() after the launches (0 = launched); 1000 + k
-// for an argument the kernels do not take (ssd_scan's checks).  h0 and
-// dstate may be null (zero); dinit is written when it is not null.  The
-// scratch, nc = ceil(S / Q): cum (BH, nc, Q), cb (BH / H, nc, Q, Q),
-// states (BH, nc, P, N), hfin (BH, P, N), gstates (BH, nc, P, N), dyx
-// (BH, nc, Q, Q), dBp and dCp (BH, S, N), dcum and xr (BH, nc, Q) floats.
+// for an argument the kernels do not take (ssd_scan's checks, and 1008:
+// more than MAX_BWD_H heads).  h0 and dstate may be null (zero); dinit is
+// written when it is not null.  The scratch, nc = ceil(S / Q): cum (BH,
+// nc, Q), cb (BH / H, nc, Q, Q), states (BH, nc, P, N), hfin (BH, P, N),
+// gstates (BH, nc, P, N), mcb (BH / H, nc, Q, Q), dcum and xr (BH, nc, Q)
+// floats.
 int ssd_bwd(const float* x, const float* dt, const float* a, const float* Bm,
             const float* Cm, const float* h0, const float* y,
             const float* dy, const float* dstate, float* dx, float* ddt,
             float* da, float* dB, float* dC, float* dinit, float* cum,
             float* cb, float* states, float* hfin, float* gstates,
-            float* dyx, float* dBp, float* dCp, float* dcum, float* xr,
-            int BH, int H, int S, int P, int N, int chunk, int64_t xsb,
-            int64_t xsh, int64_t xss, int64_t dsb, int64_t dsh, int64_t dss,
-            int64_t bsb, int64_t bss, void* stream) {
+            float* mcb, float* dcum, float* xr, int BH, int H, int S, int P,
+            int N, int chunk, int64_t xsb, int64_t xsh, int64_t xss,
+            int64_t dsb, int64_t dsh, int64_t dss, int64_t bsb, int64_t bss,
+            void* stream) {
   if (const int rc = ssd_refused(BH, H, S, P, N, chunk)) return rc;
+  if (H > MAX_BWD_H) return 1008;
   if (const int rc = ssd_refused_state(h0)) return rc;
   if (const int rc = ssd_refused_state(dstate)) return rc;
   if (const int rc = ssd_refused_state(dinit)) return rc;
@@ -703,16 +711,13 @@ int ssd_bwd(const float* x, const float* dt, const float* a, const float* Bm,
   switch (P) {
     case 16: return launch_bwd<16>(x, dt, a, Bm, Cm, h0, y, dy, dstate, dx,
                                    ddt, da, dB, dC, dinit, cum, cb, states,
-                                   hfin, gstates, dyx, dBp, dCp, dcum, xr, L,
-                                   s);
+                                   hfin, gstates, mcb, dcum, xr, L, s);
     case 32: return launch_bwd<32>(x, dt, a, Bm, Cm, h0, y, dy, dstate, dx,
                                    ddt, da, dB, dC, dinit, cum, cb, states,
-                                   hfin, gstates, dyx, dBp, dCp, dcum, xr, L,
-                                   s);
+                                   hfin, gstates, mcb, dcum, xr, L, s);
     default: return launch_bwd<64>(x, dt, a, Bm, Cm, h0, y, dy, dstate, dx,
                                    ddt, da, dB, dC, dinit, cum, cb, states,
-                                   hfin, gstates, dyx, dBp, dCp, dcum, xr,
-                                   L, s);
+                                   hfin, gstates, mcb, dcum, xr, L, s);
   }
 }
 

@@ -63,9 +63,9 @@ _SIGNATURES = {
                  _I64, _P),
     # x, dt, a, Bm, Cm, h0, y, dy, dstate (h0, dstate null for zero); dx,
     # ddt, da, dB, dC, dinit (null without h0); scratch cum, cb, states,
-    # hfin, gstates, dyx, dBp, dCp, dcum, xr; BH, H, S, P, N, chunk, the
-    # strides as ssd_scan's, stream
-    "ssd_bwd": (*([_P] * 25), ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    # hfin, gstates, mcb, dcum, xr; BH, H, S, P, N, chunk, the strides as
+    # ssd_scan's, stream
+    "ssd_bwd": (*([_P] * 23), ctypes.c_int, ctypes.c_int, ctypes.c_int,
                 ctypes.c_int, ctypes.c_int, ctypes.c_int, _I64, _I64, _I64,
                 _I64, _I64, _I64, _I64, _I64, _P),
 }

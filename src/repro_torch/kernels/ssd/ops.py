@@ -9,10 +9,11 @@ wrapper checks device, dtype, shape and contiguity, allocates its
 outputs and the kernels' scratch with ``torch.empty``, launches on the
 current stream, raises on a non-zero launch status and counts one call
 on :data:`repro_torch.kernels.backend.SSD` (the scan: four kernels) or
-:data:`~repro_torch.kernels.backend.SSD_BWD` (the backward: eleven).
+:data:`~repro_torch.kernels.backend.SSD_BWD` (the backward: nine).
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -23,6 +24,7 @@ from repro_torch.kernels.backend import SSD, SSD_BWD
 HEAD_DIMS = (16, 32, 64)           # the kernel's instantiations of P
 MAX_STATE = 128                    # largest N it takes
 CHUNK = 256                        # the kernel's chunk (Q in csrc/ssd.cu)
+MAX_BWD_HEADS = 512                # MAX_BWD_H in csrc/ssd_bwd.cu
 
 # the launcher's own argument checks, by status
 _REFUSED = {1001: f"head dim P is not one of {HEAD_DIMS}",
@@ -31,7 +33,8 @@ _REFUSED = {1001: f"head dim P is not one of {HEAD_DIMS}",
             1004: "the heads do not divide the rows",
             1005: f"the chunk is not the kernel's {CHUNK}",
             1006: "more chunks or rows than a grid dimension holds",
-            1007: "a state-shaped input is not 16-byte aligned"}
+            1007: "a state-shaped input is not 16-byte aligned",
+            1008: f"more than {MAX_BWD_HEADS} heads (the backward's tables)"}
 
 
 def _check_all(named: dict, ndims: dict) -> torch.device:
@@ -73,14 +76,38 @@ def _strides(S: int, H: int, P: int, N: int) -> tuple:
     return S * H * P, P, H * P, S * H, 1, H, S * N, N
 
 
-def _scratch(Bsz: int, H: int, S: int, P: int, N: int, dev) -> tuple:
-    """The forward's scratch: cum (B H, c, Q), C B^T (B, c, Q, Q) and the
+def _fwd_scratch(Bsz: int, H: int, S: int, P: int, N: int) -> dict:
+    """The forward's float32 scratch by name, shape, in the order
+    ``ssd_scan`` takes it: cum (B H, c, Q), C B^T (B, c, Q, Q) and the
     chunk states (B H, c, P, N), c = ceil(S / Q)."""
     nc = -(-S // CHUNK)
-    f32 = dict(dtype=torch.float32, device=dev)
-    return (torch.empty((Bsz * H, nc, CHUNK), **f32),
-            torch.empty((Bsz, nc, CHUNK, CHUNK), **f32),
-            torch.empty((Bsz * H, nc, P, N), **f32))
+    return {"cum": (Bsz * H, nc, CHUNK), "cb": (Bsz, nc, CHUNK, CHUNK),
+            "states": (Bsz * H, nc, P, N)}
+
+
+def bwd_scratch(Bsz: int, H: int, S: int, P: int, N: int) -> dict:
+    """The backward's float32 scratch by name, shape, in the order
+    ``ssd_bwd`` takes it: the forward's (the states entering each chunk)
+    and the final state, run again; the gradients of the states leaving
+    each chunk (B H, c, P, N); M, the head-summed dt E o dy x^T, once per
+    batch row and chunk (B, c, Q, Q); dcum and x . r per row (B H, c,
+    Q)."""
+    nc = -(-S // CHUNK)
+    BH = Bsz * H
+    return {**_fwd_scratch(Bsz, H, S, P, N), "hfin": (BH, P, N),
+            "gstates": (BH, nc, P, N), "mcb": (Bsz, nc, CHUNK, CHUNK),
+            "dcum": (BH, nc, CHUNK), "xr": (BH, nc, CHUNK)}
+
+
+def _alloc(shapes: dict, dev) -> list[torch.Tensor]:
+    return [torch.empty(shape, dtype=torch.float32, device=dev)
+            for shape in shapes.values()]
+
+
+def bwd_scratch_bytes(Bsz: int, H: int, S: int, P: int, N: int) -> int:
+    """Bytes of :func:`bwd_scratch`."""
+    return 4 * sum(math.prod(shape) for shape in
+                   bwd_scratch(Bsz, H, S, P, N).values())
 
 
 def ssd_cuda_heads(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
@@ -99,7 +126,7 @@ def ssd_cuda_heads(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     state = torch.empty((Bsz * H, P, N), dtype=torch.float32, device=dev)
     if y.numel() == 0:
         return y, (state.zero_() if h0 is None else state.copy_(h0))
-    cum, cb, states = _scratch(Bsz, H, S, P, N, dev)
+    cum, cb, states = _alloc(_fwd_scratch(Bsz, H, S, P, N), dev)
     with torch.cuda.device(dev):
         rc = build.lib().ssd_scan(
             x.data_ptr(), dt.data_ptr(), a.data_ptr(), Bm.data_ptr(),
@@ -121,12 +148,8 @@ def ssd_bwd_cuda_heads(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     state's gradient dstate (B * H, P, N; None for zero) -> dx, ddt, da
     (B * H,), dB, dC and dinit (B * H, P, N; None when h0 is).
 
-    The scratch, c = ceil(S / Q) chunks: the forward's (cum, C B^T, the
-    states entering each chunk) and the final state, run again; the
-    gradients of the states leaving each chunk (B H, c, P, N); dy x^T's
-    lower triangle per head and chunk (B H, c, Q, Q); the per-head dB and
-    dC partials (B H, S, N) each, summed over the heads in head order by
-    the last launch; dcum and x . r per row (B H, c, Q)."""
+    The scratch is :func:`bwd_scratch`'s: nothing of it is per head and
+    Q x Q or S x N."""
     named = {"x": x, "dt": dt, "a": a, "Bm": Bm, "Cm": Cm, "h0": h0,
              "y": y, "dy": dy, "dstate": dstate}
     dev = _check_all({k: t for k, t in named.items() if t is not None},
@@ -146,26 +169,15 @@ def ssd_bwd_cuda_heads(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         if dinit is not None and dstate is not None:
             dinit.copy_(dstate)
         return dx, ddt, da, dB, dC, dinit
-    nc = -(-S // CHUNK)
-    f32 = dict(dtype=torch.float32, device=dev)
-    cum, cb, states = _scratch(Bsz, H, S, P, N, dev)
-    hfin = torch.empty((Bsz * H, P, N), **f32)
-    gstates = torch.empty((Bsz * H, nc, P, N), **f32)
-    dyx = torch.empty((Bsz * H, nc, CHUNK, CHUNK), **f32)
-    dBp = torch.empty((Bsz * H, S, N), **f32)
-    dCp = torch.empty((Bsz * H, S, N), **f32)
-    dcum = torch.empty((Bsz * H, nc, CHUNK), **f32)
-    xr = torch.empty((Bsz * H, nc, CHUNK), **f32)
+    scratch = _alloc(bwd_scratch(Bsz, H, S, P, N), dev)
     with torch.cuda.device(dev):
         rc = build.lib().ssd_bwd(
             x.data_ptr(), dt.data_ptr(), a.data_ptr(), Bm.data_ptr(),
             Cm.data_ptr(), _ptr(h0), y.data_ptr(), dy.data_ptr(),
             _ptr(dstate), dx.data_ptr(), ddt.data_ptr(), da.data_ptr(),
-            dB.data_ptr(), dC.data_ptr(), _ptr(dinit), cum.data_ptr(),
-            cb.data_ptr(), states.data_ptr(), hfin.data_ptr(),
-            gstates.data_ptr(), dyx.data_ptr(), dBp.data_ptr(),
-            dCp.data_ptr(), dcum.data_ptr(), xr.data_ptr(), Bsz * H, H, S, P,
-            N, CHUNK, *_strides(S, H, P, N), backend.stream(dev))
+            dB.data_ptr(), dC.data_ptr(), _ptr(dinit),
+            *(t.data_ptr() for t in scratch), Bsz * H, H, S, P, N, CHUNK,
+            *_strides(S, H, P, N), backend.stream(dev))
     backend.raise_on(rc, SSD_BWD.name, _REFUSED)
     SSD_BWD.launches += 1
     return dx, ddt, da, dB, dC, dinit

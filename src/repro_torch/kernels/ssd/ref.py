@@ -120,6 +120,32 @@ def ssd_chunked_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return y, carry
 
 
+def ssd_dcb_grads(xc: torch.Tensor, dyc: torch.Tensor, dtc: torch.Tensor,
+                  E: torch.Tensor, Bc: torch.Tensor, Cc: torch.Tensor,
+                  to_end: torch.Tensor, ecum: torch.Tensor,
+                  gh: torch.Tensor, h_prev: torch.Tensor
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """dB and dC of a chunk in the dCB form of the Mamba2 paper
+    (arXiv:2405.21060 section 7; the public mamba_ssm package's
+    ``chunk_scan_bwd_dcb``): B and C are shared by the heads of a batch
+    row, so the head sums come first.  With D^h_ts = dy^h_t . x^h_s,
+
+        M_ts = sum_h dt^h_s E^h_ts D^h_ts     (one q x q a row and chunk)
+        dB_s = sum_t M_ts C_t + sum_(h,p) dt^h_s to_end^h_s x^h_sp gh^h[p]
+        dC_t = sum_s M_ts B_s + sum_(h,p) ecum^h_t dy^h_tp h_prev^h[p]
+
+    xc, dyc (B, c, q, H, P); dtc, to_end = exp(cum_last - cum), ecum =
+    exp(cum) (B, c, q, H); E (B, c, t, s, H), zero where t < s; Bc, Cc
+    (B, c, q, N); gh, h_prev (B, c, H, P, N) -> dB, dC (B, c, q, N)."""
+    D = torch.einsum("bcthp,bcshp->bctsh", dyc, xc)
+    M = torch.einsum("bctsh,bcsh->bcts", E * D, dtc)
+    dB = torch.einsum("bcts,bctn->bcsn", M, Cc) + torch.einsum(
+        "bcshp,bchpn->bcsn", (dtc * to_end)[..., None] * xc, gh)
+    dC = torch.einsum("bcts,bcsn->bctn", M, Bc) + torch.einsum(
+        "bcthp,bchpn->bctn", ecum[..., None] * dyc, h_prev)
+    return dB, dC
+
+
 def ssd_chunked_bwd_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                         Bm: torch.Tensor, Cm: torch.Tensor, chunk: int,
                         init_state: Optional[torch.Tensor],
@@ -143,7 +169,8 @@ def ssd_chunked_bwd_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     3. with D_ts = dy_t . x_s, summed over the heads of a batch row:
        dB_s = dt_s [sum_{t>=s} E_ts D_ts C_t + exp(cum_last - cum_s)
        gh_c^T x_s] and dC_t = sum_{s<=t} E_ts dt_s D_ts B_s + exp(cum_t)
-       h_{c-1}^T dy_t;
+       h_{c-1}^T dy_t, in the head-summed form of
+       :func:`ssd_dcb_grads`;
     4. dcum_t = dy_t . y_t - dt_t (x_t . r_t), and at the chunk's last row
        also <gh_c, h_c>: every term of y_t carries exp(cum_t), every term
        of r_s exp(-cum_s), and h_c = exp(cum_last) h_{c-1} + s_c.  Since
@@ -205,12 +232,9 @@ def ssd_chunked_bwd_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     dx = r * dtc[..., None]
     direct = (xc * r).sum(-1)                              # (B,c,s,H)
 
-    # 3. dB and dC, summed over the heads
-    ED = E * torch.einsum("bcthp,bcshp->bctsh", dyc, xc)
-    dB = torch.einsum("bcsh,bctsh,bctn->bcsn", dtc, ED, Cc) + \
-        torch.einsum("bcsh,bcshp,bchpn->bcsn", dtc * to_end, xc, gh)
-    dC = torch.einsum("bctsh,bcsh,bcsn->bctn", ED, dtc, Bc) + \
-        torch.einsum("bcth,bcthp,bchpn->bctn", torch.exp(cum), dyc, h_prev)
+    # 3. dB and dC, the heads summed first
+    dB, dC = ssd_dcb_grads(xc, dyc, dtc, E, Bc, Cc, to_end, torch.exp(cum),
+                           gh, h_prev)
 
     # 4. dcum, then ddt and da through the reverse cumsum
     y = torch.einsum("bctsh,bcts,bcsh,bcshp->bcthp", E, G, dtc, xc) + \

@@ -23,10 +23,14 @@ the card by ``chip_smoke.py`` (``SSD_BWD_TOL``).
 
 The kernel's own schedule is emulated in torch (``emulate_ssd_bwd``):
 its passes at its 256-row chunk, the forward's passes re-run from h0,
-every product in 3xTF32 (``mm3`` of ``tests/test_torch_ssd.py``), the
-per-head dB and dC partials summed over the heads in head order.  It
-must land within a third of the tolerance.
+every product in 3xTF32 (``mm3`` of ``tests/test_torch_ssd.py``), M =
+sum_h dt E o dy x^T per batch row and chunk summed in head order, then
+dB and dC as one product each, k over M's triangle and then over (head,
+p) in order.  It must land within a third of the tolerance.  The dCB
+form itself (``ssd_dcb_grads``: the heads summed first) equals the
+per-head form in float64 to 1e-12 of each output's largest entry.
 """
+import contextlib
 import dataclasses
 
 import jax
@@ -41,10 +45,11 @@ from repro.models import model as JM
 from repro.models.layers import ssd_chunked as j_ssd_chunked
 from repro_torch.convert import (model_config_from_fields,
                                  model_params_from_numpy)
-from repro_torch.kernels import backend
+from repro_torch.kernels import backend, build
 from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.kernels.ssd import (ssd, ssd_chunked, ssd_chunked_bwd_ref,
                                     ssd_chunked_ref)
+from repro_torch.kernels.ssd.ref import ssd_dcb_grads
 from repro_torch.models import layers as PL
 from test_torch_ssd import emulate_ssd_kernel, mm3
 
@@ -191,9 +196,107 @@ def test_pallas_signature_is_differentiable_too():
                                atol=TOL_SHARE * np.abs(want[3]).max())
 
 
+@pytest.mark.parametrize("Bsz,S,H,P,N,chunk",
+                         SHAPES + [(2, 90, 1, 16, 8, 32)])
+def test_dcb_form_equals_the_per_head_form(Bsz, S, H, P, N, chunk):
+    """``ssd_dcb_grads`` (M summed over the heads, then one product over
+    M's triangle and one of depth H P) against each head's dB and dC
+    written out and summed over the heads, in float64 on the chunked
+    inputs (S ragged: the padded rows zero, as the plain version pads)."""
+    rng = np.random.default_rng(S + 7 * H + N)
+    nc = -(-S // chunk)
+    live = (torch.arange(nc * chunk) < S).double().reshape(nc, chunk)
+
+    def draw(*shape, rows=True):
+        t = torch.from_numpy(rng.normal(size=shape))
+        return t * live.reshape(1, nc, chunk, *[1] * (len(shape) - 3)) \
+            if rows else t
+
+    xc, dyc = draw(Bsz, nc, chunk, H, P), draw(Bsz, nc, chunk, H, P)
+    dtc = draw(Bsz, nc, chunk, H).abs() * 0.1
+    Bc, Cc = draw(Bsz, nc, chunk, N), draw(Bsz, nc, chunk, N)
+    gh, h_prev = (draw(Bsz, nc, H, P, N, rows=False) for _ in range(2))
+    cum = torch.cumsum(dtc * -torch.linspace(1.0, 16.0, H,
+                                             dtype=torch.float64), dim=2)
+    low = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool))[..., None]
+    E = torch.exp((cum[:, :, :, None] - cum[:, :, None])
+                  .masked_fill(~low, float("-inf")))
+    to_end, ecum = torch.exp(cum[:, :, -1:] - cum), torch.exp(cum)
+    dB, dC = ssd_dcb_grads(xc, dyc, dtc, E, Bc, Cc, to_end, ecum, gh, h_prev)
+    wB, wC = torch.zeros_like(dB), torch.zeros_like(dC)
+    for h in range(H):
+        ED = E[..., h] * torch.einsum("bctp,bcsp->bcts", dyc[..., h, :],
+                                      xc[..., h, :])
+        wB += dtc[..., h, None] * (
+            torch.einsum("bcts,bctn->bcsn", ED, Cc) + to_end[..., h, None]
+            * torch.einsum("bcsp,bcpn->bcsn", xc[..., h, :], gh[:, :, h]))
+        wC += torch.einsum("bcts,bcs,bcsn->bctn", ED, dtc[..., h], Bc) + \
+            ecum[..., h, None] * torch.einsum(
+                "bctp,bcpn->bctn", dyc[..., h, :], h_prev[:, :, h])
+    for name, got, want in (("dB", dB, wB), ("dC", dC, wC)):
+        top = float(want.abs().max())
+        err = float((got - want).abs().max())
+        assert top > 0 and err <= 1e-12 * top, (name, err, top)
+
+
+def test_bwd_scratch_holds_no_per_head_square_or_row_tensor(monkeypatch):
+    """At mamba2-370m's training shape the wrapper allocates
+    ``bwd_scratch``'s tensors and nothing else beside its outputs: under
+    100 MB, no (B H, c, Q, Q) and no (B H, S, N) tensor.  The wrapper runs
+    on meta tensors with a stand-in library; ``chip_smoke.time_ssd_bwd``
+    reports ``bwd_scratch_bytes`` from the same helper."""
+    import chip_smoke as CS
+    Bsz, S, H, P, N = CS.SERVE_BATCH, CS.SERVE_PROMPT, 32, 64, 128
+    nc, Q = -(-S // ssd_ops.CHUNK), ssd_ops.CHUNK
+    meta = torch.device("meta")
+    f32 = dict(dtype=torch.float32, device=meta)
+    x = torch.empty((Bsz, S, H, P), **f32)
+    dt = torch.empty((Bsz, S, H), **f32)
+    a = torch.empty((Bsz * H,), **f32)
+    Bm, Cm = (torch.empty((Bsz, S, N), **f32) for _ in range(2))
+    made, calls = [], []
+    empty = torch.empty
+
+    def recording_empty(*args, **kw):
+        made.append(tuple(args[0]))
+        return empty(*args, **kw)
+
+    class Lib:
+        def ssd_bwd(self, *args):
+            calls.append(args)
+            return 0
+
+    monkeypatch.setattr(ssd_ops, "_check_all", lambda named, ndims: meta)
+    monkeypatch.setattr(build, "lib", Lib)
+    monkeypatch.setattr(backend, "stream", lambda dev: 0)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch, "empty", recording_empty)
+    monkeypatch.setattr(backend.SSD_BWD, "launches", 0)
+    ssd_ops.ssd_bwd_cuda_heads(x, dt, a, Bm, Cm, None, x, x, None)
+    want = ssd_ops.bwd_scratch(Bsz, H, S, P, N)
+    assert made == list(want.values())
+    assert len(calls) == 1 and len(calls[0]) == 15 + len(want) + 15
+    assert (Bsz * H, nc, Q, Q) not in made and (Bsz * H, S, N) not in made
+    nbytes = ssd_ops.bwd_scratch_bytes(Bsz, H, S, P, N)
+    assert nbytes == 4 * sum(int(np.prod(s)) for s in made) < 100e6
+    assert backend.SSD_BWD.launches == 1
+
+
+def test_bwd_flops_count_the_triangles_once_a_batch_row():
+    """The backward's work at mamba2-370m's training shape: 31.02 GFLOP
+    at the kernels' Q = 256, and the least over every chunk length 22.97
+    GFLOP at Q = 16 (M's two uses once per batch row, not per head)."""
+    import chip_smoke as CS
+    shape = (CS.SERVE_BATCH, CS.SERVE_PROMPT, 32, 64, 128)
+    assert CS.ssd_bwd_flops_at(*shape, 256) == 31_020_023_808
+    assert CS.ssd_bwd_flops(*shape) == (22_966_960_128, 16)
+
+
 # ---------------------------------------------------------------------------
 # The CUDA kernel's schedule, emulated: its passes at its own chunk, every
-# product in 3xTF32, the heads' dB and dC partials summed in head order
+# product in 3xTF32, M summed over the heads in head order, then dB and dC
+# one product each over M's triangle and (head, p)
 # ---------------------------------------------------------------------------
 
 
@@ -234,23 +337,35 @@ def emulate_ssd_bwd(x, dt, a, Bm, Cm, h0, y, dy, dfin):
         g = torch.exp(cum[:, :, c, -1])[..., None, None] * g \
             + uT[:, :, c].transpose(-1, -2)
     gh = torch.stack(leaving, dim=2)                         # (B,H,c,P,N)
-    # 2. D = dy x^T, its lower triangle; E = exp(cum_t - cum_s), t >= s
+    # 2. M = sum_h D o E o dt_s per batch row and chunk, the heads added in
+    #    order: D = dy x^T, E = exp(cum_t - cum_s), both where t >= s
     D = torch.where(low, mm3(dyc, xc.transpose(-1, -2)), 0.0)
     seg = torch.where(low, cum[..., :, None] - cum[..., None, :], 0.0)
     E = torch.where(low, torch.exp(seg), 0.0)
+    term = D * (E * dtc[..., None, :])
+    M = term[:, 0]
+    for h in range(1, H):
+        M = M + term[:, h]                                   # (B,c,Q,Q)
     # 3. r = (E o G)^T dy + (B o exp(cum_last - cum)) gh^T; dx, x . r, dcum
     r = mm3((E * G).transpose(-1, -2), dyc) + \
         mm3(Bc * to_end[..., None], gh.transpose(-1, -2))
     dx = r * dtc[..., None]
     direct = (xc * r).sum(-1)
     dcum = (dyc * yc).sum(-1) - dtc * direct
-    # 4. per head dB and dC, then summed over the heads in order
-    dBh = dtc[..., None] * (mm3((E * D).transpose(-1, -2), Cc)
-                            + mm3(xc * to_end[..., None], gh))
-    dCh = mm3(E * dtc[..., None, :] * D, Bc) + mm3(dyc * ecum[..., None], hp)
-    dB, dC = dBh[:, 0], dCh[:, 0]
-    for h in range(1, H):
-        dB, dC = dB + dBh[:, h], dC + dCh[:, h]
+    # 4. dB = [M^T | x o w_B] [C ; gh] and dC = [M | dy o w_C] [B ; h_{c-1}],
+    #    k over M's triangle, then over (h, p) in order
+    def by_hp(t):                           # (B,H,c,R,K) -> (B,c,R,H K)
+        return t.permute(0, 2, 3, 1, 4).reshape(Bsz, nc, t.shape[3], -1)
+
+    def hp_rows(t):                         # (B,H,c,P,N) -> (B,c,H P,N)
+        return t.transpose(1, 2).reshape(Bsz, nc, H * P, N)
+
+    wB = (dtc * to_end)[..., None] * xc
+    wC = ecum[..., None] * dyc
+    dB = mm3(torch.cat([M.transpose(-1, -2), by_hp(wB)], -1),
+             torch.cat([Cc[:, 0], hp_rows(gh)], -2))
+    dC = mm3(torch.cat([M, by_hp(wC)], -1),
+             torch.cat([Bc[:, 0], hp_rows(hp)], -2))
     # 5. <gh_c, h_c> at each chunk's last row, the reverse cumsum, ddt, da
     h_next = torch.cat([hp[:, :, 1:], hfin.reshape(Bsz, H, 1, P, N)], dim=2)
     dcum[..., -1] += (gh * h_next).sum((-1, -2))
