@@ -22,7 +22,8 @@ with a non-zero exit code:
            attention in float32 (the CUDA-core kernel) and bf16 (the
            tensor-core kernel) (GQA groups 1, 2, 8, causal or not, window
            128, Sq = Skv in {77, 512, 2048}, Sq != Skv, qwen3's prefill
-           shape) and the SSD scan (the kernel tests' shapes, S ragged
+           shape and command-r's / qwen1.5's, 64 query heads over 8 KV
+           heads) and the SSD scan (the kernel tests' shapes, S ragged
            against the kernel's 256-row chunk and S below one chunk, N
            in {8, 13, 128}, mamba2's prefill shape with B and C shared,
            the model form also from a carried state h0) within FLASH_TOL
@@ -113,12 +114,16 @@ with a non-zero exit code:
            with Step 4 on the card, exact and equal in every account to
            the ``pow`` run
   serve    ``repro_torch.launch.serve.serve`` at full width for
-           qwen3-1.7b and mamba2-370m (bf16, random weights from the
-           seed): batch 4, prompt 2048, 32 tokens; prefill seconds, decode
-           tokens/s, peak memory; exactly 28 ``flash_attention`` / 48
-           ``ssd`` launches in the prefill and none in decode; a float32
-           prefill through the kernels against the plain versions (last
-           logits within LOGIT_TOL_F32); the bf16 run on the plain
+           qwen3-1.7b, mamba2-370m, command-r-35b and qwen1.5-110b (bf16,
+           random weights from the seed, cast as drawn, qwen1.5's QKV
+           biases seeded nonzero; command-r at all 40 units, qwen1.5 cut
+           to 20 of its 80, SERVE_UNITS; the float32 check on the first
+           8 / 4 of them, SERVE_CHECK_UNITS): batch 4, prompt 2048, 32
+           tokens; prefill seconds, decode tokens/s, peak memory; exactly one
+           ``flash_attention`` launch a layer (28 for qwen3) / 48 ``ssd``
+           in the prefill and none in decode; a float32 prefill through
+           the kernels against the plain versions (last logits within
+           LOGIT_TOL_F32) and its peak memory; the bf16 run on the plain
            versions (its logit error and token agreement); the config
            widths against the reference's config files
   train    training on the card.  (a) the flash backward kernel against
@@ -170,13 +175,23 @@ with a non-zero exit code:
            48), the secure losses within TRAIN_LOSS_TOL of the plain ones,
            one more plain step profiled (busy share, each SSD kernel by
            name, each of the backward's own kernels seen in it)
+  launch   (a) ``launch.serve_agg --transport mesh`` at --overlay-n 192:
+           16 rank processes on the card, 64 additive sessions of 2^16 and
+           16 medians on 1,024 steps in batches of 16, each beside the
+           same load on ``--transport sim`` in this process: every
+           session exact, equal batch sizes and wire bytes, mask, unmask
+           and vote launched in rank 0 and in the sim; (b)
+           ``launch.quickstart.main`` on the card at its 60 steps: the
+           loss falls, the tokens are in the vocabulary, mask, unmask and
+           both flash kernels launched
   timing   CUDA-event medians of each kernel and its plain version at
            the main paths' shapes (the Montgomery multiply at the
            decryption's rows x 128 limbs and at 1056 x 128; the ladder at
            the decryption's rows, 128 limbs and exponent bits, beside the
            host loop of two ``mont_mul`` launches a bit it replaced, in
            turns, and its plain version once, held equal to it; flash
-           attention and the SSD scan at the two models' prefill shapes,
+           attention and the SSD scan at the two models' prefill shapes
+           (flash attention also at command-r's and qwen1.5's, H 64),
            with ``scaled_dot_product_attention`` timed beside flash
            attention as the library yardstick, the forward also with L
            written, the SSD scan also from a carried state, the flash
@@ -190,7 +205,9 @@ describing every kernel (``max_abs_err`` from the kernels phase,
 phase's (a), ``service_launches`` on the service phase's depth-2 stream,
 ``funcs_launches`` on the funcs phase's verbs,
 ``train_launches_secure_run`` on the train phase's (b) secure run,
-``mamba2_train_launches_secure_run`` on (f)'s;
+``mamba2_train_launches_secure_run`` on (f)'s,
+``serve_agg_mesh_rank0_launches`` on the launch phase's (a) mesh rank 0,
+``quickstart_launches`` on its (b);
 each null where its phase did not run; the two backwards' ``launches``
 and ``max_abs_err`` come from the train phase, the SSD backward's
 launches from (f)'s secure run),
@@ -220,8 +237,9 @@ import torch
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
 
+T_START = time.perf_counter()
 PHASES = ("device", "build", "kernels", "main", "batched", "service",
-          "funcs", "mesh", "paillier", "serve", "train", "timing")
+          "funcs", "mesh", "paillier", "serve", "train", "launch", "timing")
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 # 32-bit lane operations issued per second: 132 SMs x 128 lanes x
 # 1.98 GHz, half the 67 TFLOP/s float32 FMA rate (an FMA counts two FLOPs)
@@ -267,7 +285,8 @@ DECRYPT_BITS = 1 + (math.factorial(C_THRESHOLD)).bit_length() + 2046
 # width, to fit one run beside the other phases
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 2048, 32
 # widths of the reference's config files (src/repro/configs/qwen3_1p7b.py,
-# mamba2_370m.py), hard-coded: this script imports nothing of the package
+# mamba2_370m.py, command_r_35b.py, qwen15_110b.py), hard-coded: this
+# script imports nothing of the package
 REFERENCE_WIDTHS = {
     "qwen3-1.7b": dict(d_model=2048, n_heads=16, n_kv_heads=8, hd=128,
                        d_ff=6144, vocab_size=151936, n_units=28, ssm=None,
@@ -278,8 +297,35 @@ REFERENCE_WIDTHS = {
                         ssm=dict(d_state=128, d_conv=4, expand=2,
                                  head_dim=64, chunk=256),
                         tie_embeddings=True, dtype="bfloat16"),
+    "command-r-35b": dict(d_model=8192, n_heads=64, n_kv_heads=8, hd=128,
+                          d_ff=22528, vocab_size=256000, n_units=40,
+                          ssm=None, norm="layernorm", attn_bias=False,
+                          tie_embeddings=True, rope_theta=4_000_000.0,
+                          dtype="bfloat16"),
+    "qwen1.5-110b": dict(d_model=8192, n_heads=64, n_kv_heads=8, hd=128,
+                         d_ff=49152, vocab_size=152064, n_units=80,
+                         ssm=None, norm="rmsnorm", attn_bias=True,
+                         tie_embeddings=False, rope_theta=1_000_000.0,
+                         dtype="bfloat16", opt_state_dtype="bfloat16"),
 }
-SERVE_KERNEL = {"qwen3-1.7b": "flash_attention", "mamba2-370m": "ssd"}
+SERVE_KERNEL = {"qwen3-1.7b": "flash_attention", "mamba2-370m": "ssd",
+                "command-r-35b": "flash_attention",
+                "qwen1.5-110b": "flash_attention"}
+# depth cuts of the serve phase (units of the full config's 40 / 80; the
+# widths stay the published ones).  The bf16 serve draws its weights cast
+# unit by unit (``init_params(cast=True)``): command-r's 40 units are
+# 60.6 GB, qwen1.5's 2.72 GB a unit beside 4.98 GB of table and head, so
+# 20 units (59.3 GB) leave room for the plain run's float32 scores (4.3
+# GB a tensor at 64 heads x 2,048^2).  The float32 check holds float32
+# masters (2.89 / 5.50 GB a unit) and float32 scores, so it runs the
+# first SERVE_CHECK_UNITS of the same units
+SERVE_UNITS = {"command-r-35b": 40, "qwen1.5-110b": 20}
+SERVE_CHECK_UNITS = {"command-r-35b": 8, "qwen1.5-110b": 4}
+# the QKV biases, zeros as drawn, are overwritten with seeded N(0, s^2)
+# values before a serve (from their own generator, unit by unit, so the
+# float32 check's units carry the served ones' biases), so the bias add
+# runs on nonzero values
+SERVE_BIAS_STD = 0.5
 # train: qwen3-1.7b at full width on the serve phase's batch x tokens,
 # train_loop for TRAIN_STEPS plain steps then as many secure ones from the
 # same init; the secure sync is train_loop's default, the reference's
@@ -305,6 +351,13 @@ RESTART_RTOL = 1e-5
 # 3xTF32 on the tensor cores: other sums, at float32 accuracy).
 FLASH_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 SSD_TOL = (5e-4, 1e-3)
+# launch: ``serve_agg --transport mesh`` at --overlay-n 192 (16 slots: 16
+# rank processes, mesh (e)'s count), an additive load of ``sessions`` of
+# ``elems`` and a median load, each beside the same load on the sim; then
+# the quickstart at its 60 steps
+LAUNCH_SHAPE = {"overlay_n": 192, "batch": 16, "sessions": 64,
+                "elems": 1 << 16, "median_sessions": 16, "steps": 1024,
+                "quickstart_steps": 60}
 # the full-width float32 prefill: last-position logits (of unit scale)
 # through the kernels against the plain versions, after 28 or 48 layers
 # whose residual streams carry the kernels' float32 rounding differences
@@ -312,6 +365,10 @@ LOGIT_TOL_F32 = 2e-3
 
 
 def emit(obj) -> None:
+    """Print one JSON line; a phase's line gets ``at_s``, the seconds
+    since the script started, so each phase's share of the run shows."""
+    if isinstance(obj, dict) and "phase" in obj:
+        obj = {**obj, "at_s": time.perf_counter() - T_START}
     print(json.dumps(obj), flush=True)
 
 
@@ -492,7 +549,8 @@ def within(got: torch.Tensor, want: torch.Tensor, atol: float,
 # (B, Sq, Skv, H, K, hd, causal, window): the kernel tests' shapes, then
 # GQA groups 1, 2 and 8, causal or not, window 128, Sq = Skv in {77, 512,
 # 2048}, Sq != Skv both ways (a window chunk past the keys leaves rows with
-# no allowed key), and qwen3-1.7b's prefill
+# no allowed key), qwen3-1.7b's prefill and the prefill of command-r-35b
+# and qwen1.5-110b (64 query heads over 8 KV heads)
 FLASH_CASES = [
     (2, 256, 256, 4, 2, 64, True, 0), (1, 128, 128, 2, 2, 32, False, 0),
     (1, 512, 512, 4, 1, 64, True, 128), (2, 128, 384, 2, 1, 32, True, 0),
@@ -503,6 +561,7 @@ FLASH_CASES = [
     (1, 2048, 2048, 16, 8, 128, True, 0), (1, 2048, 2048, 8, 1, 128, False, 0),
     (1, 2048, 2048, 16, 16, 128, True, 128), (2, 200, 77, 4, 2, 64, True, 64),
     (4, 2048, 2048, 16, 8, 128, True, 0),
+    (4, 2048, 2048, 64, 8, 128, True, 0),
 ]
 
 
@@ -2349,6 +2408,102 @@ def phase_paillier(dev) -> tuple[dict, dict, tuple[int, int]]:
             path_launches, (rows, nbits))
 
 
+def phase_launch(dev, shape: Optional[dict] = None) -> tuple[dict, dict]:
+    """The two launchers of the ninth slice: (a) ``serve_agg --transport
+    mesh`` (one rank process a slot, each on the card) against the same
+    loads on ``--transport sim`` in this process: every session revealed
+    and exact, equal batch sizes and wire bytes, rank 0's kernel launches;
+    (b) ``launch.quickstart.main`` on the card, its launches counted from
+    zero."""
+    import contextlib
+    import io
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import backend
+    from repro_torch.launch import quickstart, serve_agg
+    from repro_torch.obs import MetricsRegistry
+    shape = dict(LAUNCH_SHAPE if shape is None else shape)
+    cuda = dev.type == "cuda"
+    common = ["--overlay-n", str(shape["overlay_n"]), "--batch",
+              str(shape["batch"]), "--max-age", "1e9", "--device", str(dev)]
+    loads = {"additive": (shape["sessions"],
+                          ["--sessions", str(shape["sessions"]), "--elems",
+                           str(shape["elems"])]),
+             "median": (shape["median_sessions"],
+                        ["--fn", "median", "--sessions",
+                         str(shape["median_sessions"]), "--steps",
+                         str(shape["steps"])])}
+    out = {"phase": "launch", "shape": shape}
+    mesh_launches = dict.fromkeys(backend.launch_counts(), 0)
+    for name, (n, argv) in loads.items():
+        runs = {}
+        for transport in ("sim", "mesh"):
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            # the mesh's rank 0 prints to the inherited stdout, not buf
+            with contextlib.redirect_stdout(buf):
+                res = serve_agg.main(common + argv + ["--transport",
+                                                      transport],
+                                     metrics=MetricsRegistry())
+            res["seconds"] = time.perf_counter() - t0
+            check(res["revealed"] == res["exact"] == n,
+                  f"launch (a) {name} on {transport}: revealed "
+                  f"{res['revealed']}, exact {res['exact']} of {n}")
+            runs[transport] = res
+        sim, mesh = runs["sim"], runs["mesh"]
+        check(mesh["stats"]["batches"]["sizes"]
+              == sim["stats"]["batches"]["sizes"],
+              f"launch (a) {name}: batch sizes {mesh['stats']['batches']}"
+              f" != sim {sim['stats']['batches']}")
+        check(mesh["stats"]["wire"] == sim["stats"]["wire"],
+              f"launch (a) {name}: wire {mesh['stats']['wire']} != sim "
+              f"{sim['stats']['wire']}")
+        if cuda:
+            for k in ("mask_encrypt", "unmask_decrypt", "vote_combine"):
+                check(mesh["launches"][k] > 0 and sim["launches"][k] > 0,
+                      f"launch (a) {name}: no {k} launch (mesh rank 0 "
+                      f"{mesh['launches']}, sim {sim['launches']})")
+        for k, v in mesh["launches"].items():
+            mesh_launches[k] += v
+        out[f"serve_agg_{name}"] = {
+            t: {"seconds": r["seconds"], "wall_s": r["wall_s"],
+                "sessions_per_s": r["sessions_per_s"],
+                "revealed": r["revealed"], "exact": r["exact"],
+                "batch_sizes": r["stats"]["batches"]["sizes"],
+                "wire_bytes": r["stats"]["wire"]["bytes_sent"],
+                "launches": {k: v for k, v in r["launches"].items() if v}}
+            for t, r in runs.items()}
+        out[f"serve_agg_{name}"]["ranks"] = mesh["slots"]
+    # (b) the quickstart
+    buf = io.StringIO()
+    backend.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        qs = quickstart.main(device=dev, steps=shape["quickstart_steps"])
+    _sync(dev)
+    secs = time.perf_counter() - t0
+    qs_launches = backend.launch_counts()
+    toks = qs["serve"]["tokens"]
+    vocab = get_smoke_config("olmo-1b").vocab_size
+    check(toks.shape == (2, 8) and bool(((toks >= 0) & (toks < vocab)).all()),
+          f"launch (b) quickstart tokens {toks}")
+    if cuda:
+        for k in ("mask_encrypt", "unmask_decrypt", "flash_attention",
+                  "flash_attention_bwd"):
+            check(qs_launches[k] > 0,
+                  f"launch (b) quickstart: no {k} launch {qs_launches}")
+    losses = qs["train"]["losses"]
+    out["quickstart"] = {
+        "seconds": secs, "steps": len(losses), "loss_first": losses[0],
+        "loss_last": losses[-1], "facade": qs["facade"],
+        "step_s_median": statistics.median(qs["train"]["step_s"]),
+        "serve_tok_per_s": qs["serve"]["tok_per_s"],
+        "serve_tokens": toks.tolist(),
+        "launches": {k: v for k, v in qs_launches.items() if v},
+        "last_lines": buf.getvalue().strip().splitlines()[-3:]}
+    return out, {"serve_agg_mesh_rank0": mesh_launches,
+                 "quickstart": qs_launches}
+
+
 def check_widths(arch: str, cfg) -> None:
     """The port's full config against the reference's published widths."""
     want = REFERENCE_WIDTHS[arch]
@@ -2360,9 +2515,12 @@ def check_widths(arch: str, cfg) -> None:
 def phase_serve(dev, seed: int,
                 shape=(SERVE_BATCH, SERVE_PROMPT, SERVE_GEN), configs=None
                 ) -> tuple[dict, dict]:
-    """Both models served at full width through the kernels, with the
-    float32 prefill held against the plain versions.  ``configs`` (arch
-    -> config) replaces the full configs in a CPU rehearsal."""
+    """Every served model at full width through the kernels (qwen1.5 at
+    SERVE_UNITS' depth), with the float32 prefill held against the plain
+    versions (command-r and qwen1.5 at SERVE_CHECK_UNITS').  ``configs``
+    (arch -> config) replaces the full configs in a CPU rehearsal.  A
+    kernel's launches are those of the first model that runs it (qwen3's
+    for flash attention); each model's own are in its entry."""
     from repro_torch.configs import get_config
     batch, prompt, gen = shape
     out, launches = {"phase": "serve", "batch": batch, "prompt_len": prompt,
@@ -2371,15 +2529,43 @@ def phase_serve(dev, seed: int,
         cfg = configs[arch] if configs else get_config(arch)
         if configs is None:
             check_widths(arch, cfg)
-        out[arch], launches[SERVE_KERNEL[arch]] = _serve_arch(
-            arch, cfg, dev, seed, shape)
+        full_units = cfg.n_units
+        cfg_check = cfg
+        if arch in SERVE_UNITS:
+            cfg = dataclasses.replace(cfg, n_units=min(SERVE_UNITS[arch],
+                                                       full_units))
+            cfg_check = dataclasses.replace(
+                cfg, n_units=min(SERVE_CHECK_UNITS[arch], cfg.n_units))
+        out[arch], n = _serve_arch(arch, cfg, cfg_check, dev, seed, shape)
+        out[arch].update(n_units=cfg.n_units, n_units_full=full_units,
+                         n_units_f32_check=cfg_check.n_units)
+        launches.setdefault(SERVE_KERNEL[arch], n)
         if dev.type == "cuda":
             torch.cuda.empty_cache()
     return out, launches
 
 
-def _serve_arch(arch: str, cfg, dev, seed: int, shape) -> tuple[dict, int]:
-    """One model: every tensor it makes dies when it returns."""
+def _seed_biases(params: dict, seed: int) -> None:
+    """Overwrite every QKV bias (zeros as ``init_params`` draws them) with
+    N(0, SERVE_BIAS_STD^2) values from a generator of their own, unit by
+    unit (in the tree's dtype: a bf16 tree's biases are the float32
+    tree's rounded), in place."""
+    gen = torch.Generator(device=params["embed"].device)
+    gen.manual_seed(seed + 1)
+    for unit in params["units"]:
+        for lp in unit.values():
+            for name in ("bq", "bk", "bv"):
+                b = lp["mixer"].get(name)
+                if b is not None:
+                    b.copy_(torch.randn(b.shape, generator=gen,
+                                        device=b.device) * SERVE_BIAS_STD)
+
+
+def _serve_arch(arch: str, cfg, cfg_check, dev, seed: int, shape
+                ) -> tuple[dict, int]:
+    """One model: the bf16 serve at ``cfg``'s depth, the float32 check at
+    ``cfg_check``'s (the first units of the same weights).  Every tensor
+    it makes dies when it returns."""
     from repro_torch.kernels import backend
     from repro_torch.launch.serve import serve
     from repro_torch.models import model as M
@@ -2390,21 +2576,24 @@ def _serve_arch(arch: str, cfg, dev, seed: int, shape) -> tuple[dict, int]:
     tokens = _serve_prompts(cfg, batch, prompt, seed, dev)
     max_seq = prompt + gen
 
-    def master():
-        """The float32 master weights drawn from the seed on the card (the
-        same numbers every call)."""
+    def weights(c, cast: bool):
+        """The weights drawn from the seed on the card (the same numbers
+        every call), QKV biases seeded nonzero: float32 masters, or cast
+        to the compute dtype as they are drawn."""
         g = torch.Generator(device=dev)
         g.manual_seed(seed)
-        return M.init_params(cfg, g)
+        params = M.init_params(c, g, cast=cast)
+        _seed_biases(params, seed)
+        return params
 
     def sync():
         if cuda:
             torch.cuda.synchronize()
 
-    # the weights as served, bf16: the float32 masters are dropped so the
-    # peak is the serving footprint; a short serve first, so the timed one
-    # finds cuBLAS, the kernel library and the allocator warm
-    cast = M.cast_params(cfg, master())
+    # the weights as served, bf16, cast as drawn so the peak is the
+    # serving footprint; a short serve first, so the timed one finds
+    # cuBLAS, the kernel library and the allocator warm
+    cast = weights(cfg, True)
     weight_bytes = sum(t.numel() * t.element_size()
                        for t in _leaves(cast))
     serve(cfg, batch=batch, prompt_len=64, gen=2, seed=seed, params=cast,
@@ -2447,30 +2636,36 @@ def _serve_arch(arch: str, cfg, dev, seed: int, shape) -> tuple[dict, int]:
     profiles = _profile_serve(cfg, cast, tokens, max_seq, prompt) \
         if cuda else {}
     del cast, lb, lbp
-    # 3. the float32 prefill, kernels against plain versions, then one
-    # float32 decode step, which launches nothing
-    cfg32 = dataclasses.replace(cfg, dtype="float32")
-    params = master()
+    # 3. the float32 prefill at the check's depth, kernels against plain
+    # versions, then one float32 decode step, which launches nothing
+    cfg32 = dataclasses.replace(cfg_check, dtype="float32")
+    n_check = cfg32.n_layers
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    params = weights(cfg32, False)
     backend.reset_launch_counts()
     lk, cache = M.prefill(cfg32, params, {"tokens": tokens}, max_seq)
     f32_launches = backend.launch_counts()[kname]
     lp, _ = M.prefill(cfg32, params, {"tokens": tokens}, max_seq,
                       impl="torch")
-    check(backend.launch_counts()[kname] == f32_launches == n_layers,
+    check(backend.launch_counts()[kname] == f32_launches == n_check,
           f"{arch}: float32 prefill launches {f32_launches}")
     f32_err = max_abs_err(lk, lp)
     check(bool(torch.isfinite(lk).all()) and f32_err <= LOGIT_TOL_F32,
           f"{arch}: float32 prefill logits differ by {f32_err}")
     nxt = torch.argmax(lk[:, -1, :cfg.vocab_size], -1)[:, None]
     M.decode_step(cfg32, params, cache, nxt, prompt)
-    check(backend.launch_counts()[kname] == n_layers,
+    check(backend.launch_counts()[kname] == n_check,
           f"{arch}: float32 decode launched a kernel")
+    peak_f32 = torch.cuda.max_memory_allocated() if cuda else 0
     return {
         "prefill_s": res["t_prefill_s"],
         "prefill_s_warm": prefill_s,
         "prefill_s_warm_median": statistics.median(prefill_s),
         "decode_s": res["t_decode_s"], "decode_tok_per_s": res["tok_per_s"],
         "peak_mem_bytes": peak, "mem_at_reset_bytes": mem_before,
+        "f32_check_peak_mem_bytes": peak_f32,
         "weight_bytes": weight_bytes, "params": cfg.param_count(),
         "launches_prefill": pre[kname],
         "launches_decode": sum(dec.values()),
@@ -2873,6 +3068,7 @@ def phase_timing(rng, dev, xs, decrypt: tuple[int, int]
     out["mont_mul"] = mm[f"{rows}x128"]
     out["mont_exp"] = time_mont_exp(rng, dev, rows, 128, nbits)
     out["flash_attention"] = time_flash(rng, dev)
+    out["flash_attention"]["h64_k8"] = time_flash(rng, dev, H=64, K=8)
     out["flash_attention_bwd"] = time_flash_bwd(rng, dev)
     out["ssd_bwd"] = time_ssd_bwd(rng, dev)
     from repro_torch.kernels.ssd.ops import CHUNK
@@ -3026,14 +3222,15 @@ def bound(nbytes: float, flops: float, flops_per_s: float) -> dict:
             "operations_ms": ops_ms}
 
 
-def time_flash(rng, dev) -> dict:
+def time_flash(rng, dev, H: int = 16, K: int = 8) -> dict:
     """``flash_attention`` at qwen3-1.7b's prefill (B 4, S 2048, H 16,
-    K 8, hd 128, causal, bf16), its plain version, and
-    ``scaled_dot_product_attention`` on the same inputs in its (B, H, S,
-    hd) layout (timed here only; the port never calls it)."""
+    K 8, hd 128, causal, bf16; command-r-35b's and qwen1.5-110b's with H
+    64), its plain version, and ``scaled_dot_product_attention`` on the
+    same inputs in its (B, H, S, hd) layout (timed here only; the port
+    never calls it)."""
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.flash_attention.ops import flash_attention_cuda
-    B, S, H, K, hd = SERVE_BATCH, SERVE_PROMPT, 16, 8, 128
+    B, S, hd = SERVE_BATCH, SERVE_PROMPT, 128
     q, k, v = (torch.from_numpy(rng.standard_normal((B, S, n, hd),
                                                     np.float32)
                                 ).to(dev, torch.bfloat16)
@@ -3418,6 +3615,10 @@ def main() -> int:
         launches[backend.SSD_BWD.name] = mamba_launches[backend.SSD_BWD.name]
         for line in lines:
             emit(line)
+    launch_launches = None
+    if "launch" in phases:
+        line, launch_launches = phase_launch(dev)
+        emit(line)
     if "timing" in phases:
         line, timing = phase_timing(rng, dev, xs, decrypt)
         emit(line)
@@ -3445,7 +3646,13 @@ def main() -> int:
                 else train_launches[k.name]),
             "mamba2_train_launches_secure_run": (
                 None if mamba_launches is None
-                else mamba_launches[k.name])})
+                else mamba_launches[k.name]),
+            "serve_agg_mesh_rank0_launches": (
+                None if launch_launches is None
+                else launch_launches["serve_agg_mesh_rank0"][k.name]),
+            "quickstart_launches": (
+                None if launch_launches is None
+                else launch_launches["quickstart"][k.name])})
     print(smi_line(), flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

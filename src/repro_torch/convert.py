@@ -145,7 +145,8 @@ def model_params_from_numpy(cfg: ModelConfig, params_np: dict,
     """The port's params from the reference's, as a nested dict of numpy
     arrays.  The reference's ``params["units"]`` leaves carry a leading
     ``n_units`` axis (its ``init_params`` vmaps the unit init); here they
-    are split into a list of per-unit dicts."""
+    are split into a list of per-unit dicts.  bfloat16 leaves (the
+    moments of a bf16 AdamW state) carry across bit for bit."""
 
     def tensors(tree, index=None):
         if isinstance(tree, dict):
@@ -153,6 +154,11 @@ def model_params_from_numpy(cfg: ModelConfig, params_np: dict,
         a = np.asarray(tree)
         if index is not None:
             a = a[index]
+        if a.dtype.name == "bfloat16":
+            # numpy has no bfloat16 of its own (the reference's bf16
+            # moments come as ml_dtypes'): carry the bits
+            return torch.from_numpy(np.array(a.view(np.uint16))).view(
+                torch.bfloat16).to(device)
         return torch.from_numpy(np.array(a, dtype=a.dtype)).to(device)
 
     out = {k: tensors(v) for k, v in params_np.items() if k != "units"}

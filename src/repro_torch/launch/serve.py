@@ -40,10 +40,11 @@ def serve(cfg, *, batch: int, prompt_len: int, gen: int, max_seq: int = 0,
           kernel_impl: Optional[str] = None) -> dict:
     """Greedy generation of ``gen`` tokens after ``batch`` prompts of
     ``prompt_len`` tokens.  ``params`` (float32 master weights, as
-    ``M.init_params`` makes them) default to a fresh draw from ``seed`` on
-    the device.  Returns the tokens (numpy (batch, gen)), the prefill and
-    decode seconds (host clock, ending in a device synchronise), the
-    decode rate, and the CUDA kernel launches of each phase."""
+    ``M.init_params`` makes them, or already cast) default to a fresh
+    draw from ``seed`` on the device, cast as it is drawn.  Returns the
+    tokens (numpy (batch, gen)), the prefill and decode seconds (host
+    clock, ending in a device synchronise), the decode rate, and the CUDA
+    kernel launches of each phase."""
     check_impl(kernel_impl)
     dev = resolve_device(device)
     if not cfg.decoder:
@@ -52,7 +53,7 @@ def serve(cfg, *, batch: int, prompt_len: int, gen: int, max_seq: int = 0,
     if params is None:
         gen_ = torch.Generator(device=dev)
         gen_.manual_seed(seed)
-        params = M.init_params(cfg, gen_)
+        params = M.init_params(cfg, gen_, cast=True)
     params = M.cast_params(cfg, params)
 
     stream = SyntheticStream(DataConfig(seq_len=prompt_len,

@@ -29,24 +29,47 @@ prints the metrics table every N sessions.
 
 ``--device`` is where batches run (default the card; ``cpu`` on request)
 and ``--impl torch`` asks for the plain versions instead of the CUDA
-kernels; there is no environment override.  ``--transport mesh`` (the
-service on a process group) is refused here: it is ROADMAP Queue 1
-item 9's next step.
+kernels; there is no environment override.
+
+``--transport mesh`` runs the service on a process group: one rank
+process a protocol slot (``runtime.compat.spawn_nodes``, gloo), each
+with its own copy of the service over ``compat.node_mesh(n)`` driven by
+the same calls, on the card's device 0 for every rank (or the CPU with
+``--device cpu``).  Rank 0 prints the summary and its report is
+``main``'s; a rank that raises ends the others and makes ``main`` raise.
+The loads pass no ``now``: the service's clock decides the watermarks,
+the host's monotonic clock on the sim and the agreed one (rank 0's) on a
+mesh, so every rank flushes the same batches.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve_agg \
+        --transport mesh --overlay-n 64 --device cpu
+
+``--data`` / ``--model`` shape the host mesh the ``mesh:`` line reports
+(``launch.mesh.make_host_mesh``); the launcher runs it on one rank, so
+both stay 1 until the sharded serve (ROADMAP Queue 1 item 10.9).
 """
 from __future__ import annotations
 
 import argparse
 import collections
+import os
+import pickle
+import shutil
+import tempfile
 import time
 from typing import Optional, Sequence
 
 import numpy as np
+import torch
 
 from repro_torch.api import (ConfigError, Runtime, SecureAggregator,
                              Security, Topology)
 from repro_torch.core.overlay import build_overlay
+from repro_torch.kernels.backend import launch_counts, resolve_device
+from repro_torch.launch.mesh import make_host_mesh, single_rank_mesh
 from repro_torch.obs import DEFAULT_REGISTRY, TraceRecorder, stats_table
 from repro_torch.obs.export import prometheus_text
+from repro_torch.runtime import compat
 from repro_torch.runtime.chaos import CHAOS_MODES, ChaosConfig
 from repro_torch.service import (BatchingConfig, EpochManager, RetryPolicy,
                                  StreamConfig)
@@ -74,16 +97,15 @@ def run_func_load(agg: SecureAggregator, em: EpochManager, *,
         if churn_every and i and i % churn_every == 0:
             em.churn(joins=4, leaves=4, honest_join_frac=1.0)
         if fn == "histogram":
-            fs = agg.open_session(fn=fn, bins=bins, now=time.monotonic())
+            fs = agg.open_session(fn=fn, bins=bins)
         elif fn == "topk":
-            fs = agg.open_session(fn=fn, k=k, domain=dom,
-                                  now=time.monotonic())
+            fs = agg.open_session(fn=fn, k=k, domain=dom)
         else:
-            fs = agg.open_session(fn=fn, domain=dom, now=time.monotonic())
+            fs = agg.open_session(fn=fn, domain=dom)
         vals = rng.random(n)
         for slot in range(n):
             fs.contribute(slot, float(vals[slot]))
-        fs.seal(now=time.monotonic())
+        fs.seal()
         handles.append((fs, vals))
         agg.pump()
     agg.drain()
@@ -128,12 +150,12 @@ def run_load(agg: SecureAggregator, em: EpochManager, *, sessions: int,
     for i in range(sessions):
         if churn_every and i and i % churn_every == 0:
             em.churn(joins=4, leaves=4, honest_join_frac=1.0)
-        s = agg.open_session(elems, now=time.monotonic())
+        s = agg.open_session(elems)
         vals = rng.integers(0, 2, size=(n, elems)).astype(np.float32)
         for slot in range(n):
             s.contribute(slot, vals[slot])
         expected[s.sid] = vals.sum(0)
-        agg.seal(s.sid, now=time.monotonic())
+        agg.seal(s.sid)
         agg.pump()                       # watermark-driven flushes
         if stats_interval and (i + 1) % stats_interval == 0:
             print(stats_table(agg.metrics,
@@ -191,8 +213,14 @@ def parser() -> argparse.ArgumentParser:
                     help="kernel engine: the CUDA kernels (default on the "
                          "card) or the plain torch versions")
     ap.add_argument("--transport", choices=("sim", "mesh"), default="sim",
-                    help="executor backend: the sim oracle ('mesh' is "
-                         "not in this launcher yet)")
+                    help="executor backend: the sim oracle, or one gloo "
+                         "rank process per protocol slot ('mesh')")
+    ap.add_argument("--data", type=int, default=1,
+                    help="host mesh data extent (1 until the sharded "
+                         "serve)")
+    ap.add_argument("--model", type=int, default=1,
+                    help="host mesh model extent (1 until the sharded "
+                         "serve)")
     ap.add_argument("--pipeline-depth", type=int, default=2,
                     help="in-flight streaming batch slots (1 = "
                          "sequential dispatch; 2 = double-buffered "
@@ -225,28 +253,22 @@ def parser() -> argparse.ArgumentParser:
     return ap
 
 
-def main(argv: Optional[Sequence[str]] = None, metrics=None) -> dict:
-    """Run the load the arguments describe; returns the run report
-    (``run_load`` / ``run_func_load``'s dict, with ``decision`` set to
-    the tuner's pick when ``--tune`` is on).  ``metrics`` is the registry
-    (default: the process-wide one)."""
-    args = parser().parse_args(argv)
-    if args.transport == "mesh":
-        raise ConfigError(
-            "serve_agg --transport mesh is not in the port's launcher yet "
-            "(ROADMAP Queue 1 item 9); the service itself runs on a mesh "
-            "through SecureAggregator(runtime=Runtime(backend='mesh', "
-            "mesh=...))")
-    ov = build_overlay(args.overlay_n, args.tau, seed=42)
-    em = EpochManager(ov, cluster_size=args.cluster_size)
-    snap = em.current()
-    agg = SecureAggregator(
+def _deployment(args) -> tuple:
+    """(epoch manager, its first snapshot): the overlay of ``--overlay-n``
+    nodes drawn from seed 42, every rank the same."""
+    em = EpochManager(build_overlay(args.overlay_n, args.tau, seed=42),
+                      cluster_size=args.cluster_size)
+    return em, em.current()
+
+
+def _aggregator(args, em, snap, runtime: Runtime, *, metrics, recorder,
+                device) -> SecureAggregator:
+    return SecureAggregator(
         topology=Topology(n_nodes=snap.n_nodes,
                           cluster_size=args.cluster_size,
                           schedule=args.schedule),
         security=Security(redundancy=args.redundancy),
-        runtime=Runtime(kernel_impl=args.impl, backend=args.transport),
-        epochs=em,
+        runtime=runtime, epochs=em,
         batching=BatchingConfig(max_batch=args.batch, max_age=args.max_age,
                                 max_pending_rows=args.max_pending_rows,
                                 session_ttl=args.ttl),
@@ -256,69 +278,150 @@ def main(argv: Optional[Sequence[str]] = None, metrics=None) -> dict:
         chaos=None if args.chaos is None else ChaosConfig(
             mode=args.chaos, p=args.chaos_p, seed=args.chaos_seed,
             times=args.chaos_times),
-        metrics=DEFAULT_REGISTRY if metrics is None else metrics,
-        recorder=(None if args.trace_out is None
-                  else TraceRecorder(sink=args.trace_out)),
+        metrics=metrics, recorder=recorder,
         stream=StreamConfig(depth=args.pipeline_depth),
-        device=args.device, tune=args.tune)
-    print(f"service: g={snap.n_clusters} clusters x c={args.cluster_size} "
-          f"-> {snap.n_nodes} slots, T={args.elems}, r={args.redundancy}, "
-          f"transport={args.transport}, device={agg.device}")
+        device=device, tune=args.tune)
+
+
+def _serve(args, agg: SecureAggregator, em, snap, lead: bool = True
+           ) -> dict:
+    """Run the load on ``agg``.  Only the ``lead`` process (the sim's, or
+    the mesh's rank 0) prints the summary and writes the metrics file.
+    The report's ``launches`` are this process's CUDA kernel launches
+    during the load."""
+    def say(line: str) -> None:
+        if lead:
+            print(line)
+
+    before = launch_counts()
+    say(f"service: g={snap.n_clusters} clusters x c={args.cluster_size} "
+        f"-> {snap.n_nodes} slots, T={args.elems}, r={args.redundancy}, "
+        f"transport={args.transport}, device={agg.device}")
 
     if args.fn is not None:
         cost_kw = (dict(bins=args.bins) if args.fn == "histogram" else
                    dict(domain=(0.0, 1.0, args.steps),
                         **({"k": args.topk} if args.fn == "topk" else {})))
         c = agg.cost(fn=args.fn, **cost_kw)
-        print(f"func: {args.fn} -> {c['allreduces']} allreduce(s)/session "
-              f"(round elems {c['round_elems']}), "
-              f"{c['bytes_total']} wire bytes/session")
+        say(f"func: {args.fn} -> {c['allreduces']} allreduce(s)/session "
+            f"(round elems {c['round_elems']}), "
+            f"{c['bytes_total']} wire bytes/session")
         out = run_func_load(agg, em, sessions=args.sessions, fn=args.fn,
                             bins=args.bins, steps=args.steps, k=args.topk,
                             churn_every=args.churn_every)
     else:
         out = run_load(agg, em, sessions=args.sessions, elems=args.elems,
                        churn_every=args.churn_every,
-                       stats_interval=args.stats_interval)
+                       stats_interval=args.stats_interval if lead else 0)
+    out["launches"] = {k: v - before[k] for k, v in launch_counts().items()}
+    out["slots"] = snap.n_nodes
     hist = collections.Counter(out["stats"]["batches"]["sizes"])
-    print(f"{out['sessions']} sessions in {out['wall_s']:.2f}s "
-          f"({out['sessions_per_s']:.1f} sessions/s), "
-          f"revealed {out['revealed']}/{out['sessions']}, "
-          f"exact results: {out['exact']}/{out['revealed']}")
-    print(f"batches: {out['stats']['batches']['run']} "
-          f"(size histogram {dict(sorted(hist.items()))}), "
-          f"final epoch: {out['stats']['epoch']}")
+    say(f"{out['sessions']} sessions in {out['wall_s']:.2f}s "
+        f"({out['sessions_per_s']:.1f} sessions/s), "
+        f"revealed {out['revealed']}/{out['sessions']}, "
+        f"exact results: {out['exact']}/{out['revealed']}")
+    say(f"batches: {out['stats']['batches']['run']} "
+        f"(size histogram {dict(sorted(hist.items()))}), "
+        f"final epoch: {out['stats']['epoch']}")
     res, qm = out["stats"]["resilience"], out["stats"]["queue"]
-    print(f"resilience: retries={res['retries']} "
-          f"bisections={res['bisections']} "
-          f"quarantined={res['quarantined']} "
-          f"chaos_injected={res['chaos_injected']} "
-          f"degraded_batches={res['degraded_batches']} "
-          f"shed={qm['shed_sessions']} expired={qm['expired_sessions']} "
-          f"degraded={out['degraded']}")
-    print(f"wire: {out['stats']['wire']['bytes_sent']} modeled bytes "
-          f"over {out['stats']['batches']['run']} batches")
+    say(f"resilience: retries={res['retries']} "
+        f"bisections={res['bisections']} "
+        f"quarantined={res['quarantined']} "
+        f"chaos_injected={res['chaos_injected']} "
+        f"degraded_batches={res['degraded_batches']} "
+        f"shed={qm['shed_sessions']} expired={qm['expired_sessions']} "
+        f"degraded={out['degraded']}")
+    say(f"wire: {out['stats']['wire']['bytes_sent']} modeled bytes "
+        f"over {out['stats']['batches']['run']} batches")
     out["decision"] = None
     if args.tune is not None:
         ts = agg.stats()["tuner"]
         d = agg._tune_decision(args.elems, args.batch)
         c = d.config
         out["decision"] = d
-        print(f"tuner: {c.schedule}/{c.transport} words={c.digest_words} "
-              f"backup={c.digest_backup} pad={d.padded_elems} "
-              f"predicted={d.predicted_bytes}B/batch "
-              f"(-{100 * d.saving_vs_default:.1f}% vs ring/full default; "
-              f"{ts['decisions']} decisions, {ts['cache_hits']} cache "
-              f"hits, {ts['probes']} probes)")
+        say(f"tuner: {c.schedule}/{c.transport} words={c.digest_words} "
+            f"backup={c.digest_backup} pad={d.padded_elems} "
+            f"predicted={d.predicted_bytes}B/batch "
+            f"(-{100 * d.saving_vs_default:.1f}% vs ring/full default; "
+            f"{ts['decisions']} decisions, {ts['cache_hits']} cache "
+            f"hits, {ts['probes']} probes)")
     if agg.recorder is not None:
         agg.recorder.close()
-        print(f"trace: {agg.recorder.events_recorded} events -> "
-              f"{args.trace_out}")
-    if args.metrics_out is not None:
+        say(f"trace: {agg.recorder.events_recorded} events -> "
+            f"{args.trace_out}")
+    if args.metrics_out is not None and lead:
         with open(args.metrics_out, "w") as f:
             f.write(prometheus_text(agg.metrics))
-        print(f"metrics: snapshot -> {args.metrics_out}")
+        say(f"metrics: snapshot -> {args.metrics_out}")
     return out
+
+
+def _mesh_rank(rank: int, args: argparse.Namespace, device: str,
+               out_dir: str) -> None:
+    """One rank of ``--transport mesh``: its own copy of the service over
+    the group's node mesh; rank 0 prints and writes its report."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    em, snap = _deployment(args)
+    lead = rank == 0
+    agg = _aggregator(
+        args, em, snap,
+        Runtime(kernel_impl=args.impl, backend="mesh",
+                mesh=compat.node_mesh(snap.n_nodes)),
+        metrics=DEFAULT_REGISTRY,
+        recorder=(TraceRecorder(sink=args.trace_out)
+                  if lead and args.trace_out is not None else None),
+        device=dev)
+    out = _serve(args, agg, em, snap, lead)
+    if lead:
+        with open(os.path.join(out_dir, "report.pkl"), "wb") as f:
+            pickle.dump(out, f)
+
+
+def _run_mesh(args, dev: torch.device) -> dict:
+    """Spawn one rank a protocol slot and return rank 0's report.  Every
+    rank runs on ``dev`` (the card's device 0 unless one is named); any
+    rank that raises or dies ends the others and raises here."""
+    _, snap = _deployment(args)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", 0)
+    out_dir = tempfile.mkdtemp(prefix="repro-serve-agg-")
+    try:
+        compat.spawn_nodes(_mesh_rank, snap.n_nodes, args, str(dev),
+                           out_dir)
+        with open(os.path.join(out_dir, "report.pkl"), "rb") as f:
+            return pickle.load(f)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+
+def main(argv: Optional[Sequence[str]] = None, metrics=None) -> dict:
+    """Run the load the arguments describe; returns the run report
+    (``run_load`` / ``run_func_load``'s dict, with ``decision`` set to
+    the tuner's pick when ``--tune`` is on; on the mesh, rank 0's).
+    ``metrics`` is the registry (default: the process-wide one; each
+    mesh rank uses its own process's)."""
+    args = parser().parse_args(argv)
+    dev = resolve_device(args.device)
+    if (args.data, args.model) != (1, 1):
+        raise ConfigError(
+            f"--data {args.data} --model {args.model}: the launcher runs "
+            "its host mesh on one rank; larger ones come with the sharded "
+            "serve (ROADMAP Queue 1 item 10.9)")
+    with single_rank_mesh():
+        mesh = make_host_mesh(data=args.data, model=args.model)
+        print(f"mesh: {dict(mesh.shape)} on {dev.type}")
+    if args.transport == "mesh":
+        return _run_mesh(args, dev)
+    em, snap = _deployment(args)
+    agg = _aggregator(
+        args, em, snap, Runtime(kernel_impl=args.impl, backend="sim"),
+        metrics=DEFAULT_REGISTRY if metrics is None else metrics,
+        recorder=(None if args.trace_out is None
+                  else TraceRecorder(sink=args.trace_out)),
+        device=args.device)
+    return _serve(args, agg, em, snap)
 
 
 if __name__ == "__main__":

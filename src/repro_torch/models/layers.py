@@ -1,8 +1,8 @@
 """Model layer primitives of the port: norms, rotary, GQA attention (full
 and chunked-window), the dense MLP, the Mamba2 SSD mixer.
 
-Counterpart of ``repro/models/layers.py``, for what qwen3-1.7b and
-mamba2-370m use.  Functions are plain functions of tensors and parameter
+Counterpart of ``repro/models/layers.py``, for what the dense models
+and mamba2-370m use.  Functions are plain functions of tensors and parameter
 dicts, with the reference's weight layout (``x @ W``, W of shape
 ``(in, out)``), so carrying weights across is a copy.  Every prefill goes
 through a kernel wrapper: attention through ``flash_attention``, the SSD
@@ -13,8 +13,9 @@ reference.  The reference's ``constrain`` (sharding hints) has no
 counterpart on one device and is left out.
 
 Not ported yet, each raising with the slice it waits for (see
-``model.check_supported``): the MoE MLP, the cross-attention media path,
-the GELU MLP, QKV biases and logit soft-capping (later model slices).
+``model.check_supported``): the MoE MLP and the cross-attention media
+path.  Logit soft-capping runs in decode only: a prefill with it raises,
+as the reference's does.
 Training differentiates through everything here with autograd;
 attention's and the SSD scan's backwards are their wrappers' own (CUDA
 kernels on the card).
@@ -111,24 +112,30 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool, window: int = 0,
+                    causal: bool, window: int = 0, softcap: float = 0.0,
                     impl: Optional[str] = None) -> torch.Tensor:
     """Prefill attention through the kernel wrapper.  q: (B, Sq, H, hd);
     k, v: (B, Skv, K, hd).  The reference's jnp flash rounds the scaled q
     back to q's dtype before its loop (``layers.py:252``); the kernel, like
     the Pallas kernel, scales q in float32 inside, so it is called on the
     unscaled q: in bfloat16 the two differ by one rounding of q, in
-    float32 not at all."""
+    float32 not at all.  ``softcap > 0`` raises, as the reference's
+    prefill does: no config it serves soft-caps its prefill."""
+    if softcap > 0.0:
+        raise NotImplementedError("softcap not used by assigned archs")
     return _flash(q, k, v, causal=causal, window=window, impl=impl)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor, t: int) -> torch.Tensor:
+                     v_cache: torch.Tensor, t: int, *,
+                     softcap: float = 0.0) -> torch.Tensor:
     """Single-token decode attention against a cache, plain torch.
 
     q: (B, 1, H, hd); caches: (B, S, K, hd); ``t``: current position
     (number of valid cache entries is t+1, the new token already written).
-    Products in float32, as the reference's ``preferred_element_type``.
+    Products in float32, as the reference's ``preferred_element_type``;
+    ``softcap > 0`` caps the float32 scores at +-softcap by tanh before
+    the mask.
     """
     B, _, H, hd = q.shape
     _, S, K, _ = k_cache.shape
@@ -137,6 +144,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     qg = (q[:, 0] * scale).reshape(B, K, G, hd)
     valid = torch.arange(S, device=q.device) <= t
     s = torch.einsum("bkgh,bskh->bkgs", qg.float(), k_cache.float())
+    if softcap > 0.0:
+        s = torch.tanh(s / softcap) * softcap
     s = s.masked_fill(~valid, NEG_INF)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgs,bskh->bkgh", p.to(v_cache.dtype).float(),
@@ -154,6 +163,10 @@ def make_attn_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
 
     p = {"wq": normal((d, H * hd), std), "wk": normal((d, K * hd), std),
          "wv": normal((d, K * hd), std), "wo": normal((H * hd, d), std)}
+    if cfg.attn_bias:
+        p["bq"] = torch.zeros((H * hd,), device=dev)
+        p["bk"] = torch.zeros((K * hd,), device=dev)
+        p["bv"] = torch.zeros((K * hd,), device=dev)
     if cfg.qk_norm:
         p["q_norm"] = torch.ones((hd,), device=dev)
         p["k_norm"] = torch.ones((hd,), device=dev)
@@ -168,6 +181,10 @@ def _qkv(cfg: ModelConfig, p: dict, x: torch.Tensor, kv_src: torch.Tensor,
     q = x @ _w(p, "wq", dtype)
     k = kv_src @ _w(p, "wk", dtype)
     v = kv_src @ _w(p, "wv", dtype)
+    if cfg.attn_bias:
+        q = q + _w(p, "bq", dtype)
+        k = k + _w(p, "bk", dtype)
+        v = v + _w(p, "bv", dtype)
     q = q.reshape(B, Sq, H, hd)
     k = k.reshape(B, Skv, K, hd)
     v = v.reshape(B, Skv, K, hd)
@@ -192,7 +209,7 @@ def attn_forward(cfg: ModelConfig, p: dict, x: torch.Tensor, *, mixer: str,
     k = rope(k, positions, cfg.rope_theta)
     window = cfg.attn_window if mixer == ATTN_CHUNKED else 0
     out = flash_attention(q, k, v, causal=cfg.causal, window=window,
-                          impl=impl)
+                          softcap=cfg.logit_softcap, impl=impl)
     return out.reshape(B, S, cfg.n_heads * cfg.hd) @ _w(p, "wo", dtype)
 
 
@@ -218,7 +235,8 @@ def attn_decode(cfg: ModelConfig, p: dict, x: torch.Tensor, cache: dict,
     k = rope(k, pos, cfg.rope_theta)
     cache["k"][:, slot:slot + 1] = k.to(cache["k"].dtype)
     cache["v"][:, slot:slot + 1] = v.to(cache["v"].dtype)
-    out = decode_attention(q, cache["k"], cache["v"], slot)
+    out = decode_attention(q, cache["k"], cache["v"], slot,
+                           softcap=cfg.logit_softcap)
     y = out.reshape(B, 1, cfg.n_heads * cfg.hd) @ _w(p, "wo", dtype)
     return y, cache
 
@@ -236,14 +254,20 @@ def make_mlp_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
     def normal(shape, s):
         return torch.randn(shape, generator=gen, device=dev) * s
 
-    return {"w_gate": normal((d, f), std), "w_up": normal((d, f), std),
-            "w_down": normal((f, d), f ** -0.5)}
+    if cfg.mlp_gated:
+        return {"w_gate": normal((d, f), std), "w_up": normal((d, f), std),
+                "w_down": normal((f, d), f ** -0.5)}
+    return {"w_up": normal((d, f), std), "w_down": normal((f, d), f ** -0.5)}
 
 
 def mlp_forward(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
-    """SwiGLU."""
+    """SwiGLU, or GELU where the weights have no gate.  The GELU is the
+    tanh approximation, ``jax.nn.gelu``'s default."""
     dtype = x.dtype
-    h = F.silu(x @ _w(p, "w_gate", dtype)) * (x @ _w(p, "w_up", dtype))
+    if "w_gate" in p:
+        h = F.silu(x @ _w(p, "w_gate", dtype)) * (x @ _w(p, "w_up", dtype))
+    else:
+        h = F.gelu(x @ _w(p, "w_up", dtype), approximate="tanh")
     return h @ _w(p, "w_down", dtype)
 
 

@@ -54,11 +54,6 @@ def check_supported(cfg: ModelConfig) -> None:
                                "cross-attention and frontends")
         if spec.mlp == MOE:
             raise L.not_ported("the MoE MLP", "MoE")
-    if (cfg.attn_bias or not cfg.mlp_gated or cfg.logit_softcap
-            or not cfg.tie_embeddings or cfg.embedding_multiplier != 1.0):
-        raise L.not_ported(
-            "a GELU MLP, QKV biases, soft-capping, an untied head or an "
-            "embedding multiplier", "other configs")
 
 
 # ---------------------------------------------------------------------------
@@ -81,18 +76,30 @@ def _init_unit(cfg: ModelConfig, gen: torch.Generator) -> dict:
     return unit
 
 
-def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
+def init_params(cfg: ModelConfig, gen: torch.Generator, *,
+                cast: bool = False) -> Params:
     """Random float32 master weights with the reference's stds, drawn from
     ``gen`` on ``gen.device``.  The numbers differ from the reference's
     ``jax.random`` draws for the same seed; a test that needs the same
-    weights carries the reference's across (``convert``)."""
+    weights carries the reference's across (``convert``).  ``cast=True``
+    gives ``cast_params(cfg, init_params(cfg, gen))``, the same draws,
+    with each piece cast as soon as it is drawn: at most one unit's
+    float32 masters (or the float32 table) live at once, so a model whose
+    weights fit the card only in the compute dtype can be served."""
     check_supported(cfg)
+    keep = (lambda t: cast_params(cfg, t)) if cast else (lambda t: t)
     d = cfg.d_model
-    params: dict = {"embed": torch.randn((padded_vocab(cfg), d),
-                                         generator=gen, device=gen.device)
-                    * (d ** -0.5)}
-    params["final_norm"] = L.make_norm_params(cfg, gen)
-    params["units"] = [_init_unit(cfg, gen) for _ in range(cfg.n_units)]
+    Vp = padded_vocab(cfg)
+    params: dict = keep({"embed": torch.randn((Vp, d), generator=gen,
+                                              device=gen.device)
+                         * (d ** -0.5)})
+    if not cfg.tie_embeddings:
+        params.update(keep({"head": torch.randn((d, Vp), generator=gen,
+                                                device=gen.device)
+                            * (d ** -0.5)}))
+    params["final_norm"] = keep(L.make_norm_params(cfg, gen))
+    params["units"] = [keep(_init_unit(cfg, gen))
+                       for _ in range(cfg.n_units)]
     return params
 
 
@@ -122,14 +129,19 @@ def embed_inputs(cfg: ModelConfig, params: Params, batch: dict
                  ) -> torch.Tensor:
     check_supported(cfg)
     # gather, then cast: the reference casts the table first, the same
-    # values for the rows gathered
-    return params["embed"][batch["tokens"]].to(compute_dtype(cfg))
+    # values for the rows gathered; the multiplier in the compute dtype
+    x = params["embed"][batch["tokens"]].to(compute_dtype(cfg))
+    if cfg.embedding_multiplier != 1.0:
+        x = x * cfg.embedding_multiplier
+    return x
 
 
 def lm_head(cfg: ModelConfig, params: Params, x: torch.Tensor
             ) -> torch.Tensor:
-    """Tied embeddings: x @ embed^T."""
-    return x @ params["embed"].to(x.dtype).T
+    """x @ embed^T with tied embeddings, else x @ head."""
+    if cfg.tie_embeddings:
+        return x @ params["embed"].to(x.dtype).T
+    return x @ params["head"].to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -258,7 +270,7 @@ def _unit_prefill(cfg: ModelConfig, unit: dict, x: torch.Tensor, *,
             k = L.rope(k, positions, cfg.rope_theta)
             window = cfg.attn_window if spec.mixer == ATTN_CHUNKED else 0
             o = L.flash_attention(q, k, v, causal=cfg.causal, window=window,
-                                  impl=impl)
+                                  softcap=cfg.logit_softcap, impl=impl)
             y = o.reshape(B, S, -1) @ lp["mixer"]["wo"].to(dtype)
             cache = _layer_cache(cfg, spec, B, max_seq, x.device)
             # ring buffer slot = pos % window: only the current (possibly

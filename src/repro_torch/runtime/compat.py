@@ -21,7 +21,9 @@ import datetime
 import math
 import os
 import shutil
+import sys
 import tempfile
+import traceback
 from typing import Optional, Sequence
 
 import torch
@@ -136,6 +138,14 @@ def _node_main(rank: int, fn, n: int, store_path: str, timeout_s: float,
     init_node_group(rank, n, store_path, "gloo", timeout_s)
     try:
         fn(rank, *args)
+    except BaseException:
+        # the parent raises the error of the first rank it sees end,
+        # which may be one that another rank's failure took down: each
+        # rank's own error goes to stderr first
+        print(f"rank {rank} of {n} failed:", file=sys.stderr)
+        traceback.print_exc()
+        sys.stderr.flush()
+        raise
     finally:
         dist.destroy_process_group()
 

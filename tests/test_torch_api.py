@@ -195,9 +195,12 @@ def test_later_slices_raise_config_error():
     d = agg.derive(n_nodes=6)
     assert (d.cfg.cluster_size, d.cfg.redundancy, d.device.type) == \
         (3, 3, "cpu")
+    # the launcher's mesh transport is ported (tests/test_torch_launch_agg_
+    # mesh.py); a host mesh past one rank waits for the sharded serve
     from repro_torch.launch import serve_agg
-    with pytest.raises(P.ConfigError, match="Queue 1 item 9"):
-        serve_agg.main(["--transport", "mesh", "--device", "cpu"])
+    with pytest.raises(P.ConfigError, match="Queue 1 item 10.9"):
+        serve_agg.main(["--transport", "mesh", "--device", "cpu",
+                        "--data", "2"])
 
 
 def test_tuned_facade_runs_each_shape_on_its_own_plan():

@@ -1,10 +1,12 @@
 """The port's model stack against the JAX package on the smoke configs.
 
-Both archs of the serving slice (qwen3-1.7b: GQA attention with qk-norm
-and a SwiGLU MLP; mamba2-370m: Mamba2 SSD layers) run in float32 on the
-weights the reference draws (``M.init_params(cfg, PRNGKey(2))``), carried
-across by ``repro_torch.convert``, on CPU tensors, so the kernel wrappers
-run their plain versions.  Tolerances are those of
+The served archs (qwen3-1.7b: GQA attention with qk-norm and a SwiGLU
+MLP; mamba2-370m: Mamba2 SSD layers; command-r-35b: LayerNorm with a
+scale, rope theta 4e6; qwen1.5-110b: QKV biases and an untied head) run
+in float32 on the weights the reference draws (``M.init_params(cfg,
+PRNGKey(2))``, its zero QKV biases replaced by seeded nonzero ones so the
+bias add is tested), carried across by ``repro_torch.convert``, on CPU
+tensors, so the kernel wrappers run their plain versions.  Tolerances are those of
 ``tests/test_models.py``: 2e-4 for prefill logits, 5e-4 for decode
 logits (float32 sums taken in other orders by XLA and torch); the layers
 are held at 1e-5, where only a few float32 roundings separate the two.
@@ -17,17 +19,32 @@ import numpy as np
 import pytest
 import torch
 
-from repro.configs import get_smoke_config
+from repro.configs import get_config, get_smoke_config
 from repro.models import layers as JL
 from repro.models import model as JM
+from repro_torch.configs import get_config as p_config
 from repro_torch.convert import (model_config_from_fields,
                                  model_params_from_numpy)
 from repro_torch.models import layers as PL
 from repro_torch.models import model as PM
 
-ARCHS = ["qwen3-1.7b", "mamba2-370m"]
+ARCHS = ["qwen3-1.7b", "mamba2-370m", "command-r-35b", "qwen1.5-110b"]
 B, S, S_MAX = 2, 24, 48
 LAYER_TOL = 1e-5
+BIASES = ("bq", "bk", "bv")
+
+
+def seeded_biases(jparams: dict, seed: int = 3) -> dict:
+    """The reference's params with every QKV bias (zeros as drawn) set to
+    seeded N(0, 0.5^2) values, stacked over the units as the rest."""
+    rng = np.random.default_rng(seed)
+    for lp in jparams["units"].values():
+        for name in BIASES:
+            if name in lp["mixer"]:
+                shape = lp["mixer"][name].shape
+                lp["mixer"][name] = jnp.asarray(
+                    0.5 * rng.standard_normal(shape), jnp.float32)
+    return jparams
 
 
 @pytest.fixture(scope="module", params=ARCHS)
@@ -35,7 +52,7 @@ def pair(request):
     """(jax cfg, jax params, port cfg, port params) for one arch."""
     jcfg = dataclasses.replace(get_smoke_config(request.param),
                                dtype="float32")
-    jparams = JM.init_params(jcfg, jax.random.PRNGKey(2))
+    jparams = seeded_biases(JM.init_params(jcfg, jax.random.PRNGKey(2)))
     pcfg = model_config_from_fields(dataclasses.asdict(jcfg))
     pparams = model_params_from_numpy(
         pcfg, jax.tree.map(np.asarray, jparams))
@@ -63,6 +80,16 @@ def test_config_carries_across(pair):
     assert PM.padded_vocab(pcfg) == JM.padded_vocab(jcfg)
 
 
+@pytest.mark.parametrize("arch", ARCHS)
+def test_full_config_is_the_reference(arch):
+    """The port registers the reference's full config field for field,
+    and the converter carries it across unchanged."""
+    jfull = get_config(arch)
+    assert dataclasses.asdict(p_config(arch)) == dataclasses.asdict(jfull)
+    assert dataclasses.asdict(model_config_from_fields(
+        dataclasses.asdict(jfull))) == dataclasses.asdict(jfull)
+
+
 def test_norm_and_rope(pair):
     jcfg, jparams, pcfg, pparams = pair
     rng = np.random.default_rng(0)
@@ -79,9 +106,42 @@ def test_norm_and_rope(pair):
            JL.rope(jnp.asarray(h), jnp.asarray(pos2), 1e4), LAYER_TOL)
 
 
+def test_params_carry_across(pair):
+    """The port draws the reference's leaves, shapes and dtypes (the
+    untied head and the QKV biases where the config has them), and the
+    converter carries every one, the seeded biases included."""
+    jcfg, jparams, pcfg, pparams = pair
+    mine = PM.init_params(pcfg, torch.Generator().manual_seed(0))
+    flat = jax.tree_util.tree_flatten_with_path
+    ref = {jax.tree_util.keystr(k): v for k, v in flat(
+        jax.tree.map(lambda a: a[0], jparams["units"]))[0]}
+    got = {jax.tree_util.keystr(k): v
+           for k, v in flat(pparams["units"][0])[0]}
+    drawn = {jax.tree_util.keystr(k): v
+             for k, v in flat(mine["units"][0])[0]}
+    assert got.keys() == drawn.keys() == ref.keys()
+    for k in ref:
+        assert tuple(drawn[k].shape) == ref[k].shape, k
+        _close(got[k], ref[k], 0.0, k)
+    assert ("head" in mine) == ("head" in jparams) == \
+        (not jcfg.tie_embeddings)
+    for k in ("embed", "head"):
+        if k in jparams:
+            assert tuple(mine[k].shape) == jparams[k].shape
+            _close(pparams[k], jparams[k], 0.0, k)
+    mixer = pparams["units"][0]["layer0"]["mixer"]
+    for name in BIASES:
+        assert (name in mixer) == jcfg.attn_bias
+        if jcfg.attn_bias:
+            assert float(mixer[name].abs().max()) > 0.1
+            assert float(mine["units"][0]["layer0"]["mixer"][name]
+                         .abs().max()) == 0.0
+
+
 def test_mixer_and_mlp(pair):
-    """qk-normed q, k, v and the SwiGLU MLP (qwen3); the Mamba2 block's
-    prefill and one decode step from its state (mamba2)."""
+    """q, k, v (qk-normed for qwen3, with biases for qwen1.5), the SwiGLU
+    MLP and attention; the Mamba2 block's prefill and one decode step from
+    its state (mamba2)."""
     jcfg, jparams, pcfg, pparams = pair
     rng = np.random.default_rng(1)
     x = rng.standard_normal((B, S, jcfg.d_model)).astype(np.float32)
@@ -143,17 +203,20 @@ def test_forward_prefill_and_decode(pair):
         _close(plog[:, 0], ref[:, t], 5e-4, f"decode vs forward {t}")
 
 
-@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b",
-                                  "llama-3.2-vision-90b", "hubert-xlarge",
-                                  "llama4-maverick-400b-a17b",
-                                  "qwen1.5-110b"])
-def test_later_slices_raise(arch):
-    """MoE, cross-attention, frontends and the other configs' features
-    (QKV biases, untied heads) are later slices of the port.  (The
-    layernorm norms came with the training slice: olmo-1b runs, see
-    ``tests/test_torch_train.py``.)"""
+@pytest.mark.parametrize("arch, slice_", [
+    ("qwen3-moe-235b-a22b", "the MoE slice"),
+    ("llama-3.2-vision-90b", "the cross-attention and frontends slice"),
+    ("hubert-xlarge", "the cross-attention and frontends slice"),
+    ("llama4-maverick-400b-a17b", "the MoE slice")])
+def test_later_slices_raise(arch, slice_):
+    """MoE, cross-attention and the frontends are later slices of the
+    port, each refused with the slice it waits for.  (The dense options,
+    QKV biases, the untied head, the GELU MLP, soft-capping in decode and
+    the embedding multiplier, run: see ``tests/test_torch_dense_options.py``
+    and the ``ARCHS`` above.)"""
     cfg = model_config_from_fields(dataclasses.asdict(get_smoke_config(arch)))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    with pytest.raises(NotImplementedError,
+                       match=f"not ported yet: it comes with {slice_}"):
         PM.init_params(cfg, torch.Generator().manual_seed(0))
 
 
@@ -166,10 +229,32 @@ def test_cast_params_keeps_float32_leaves():
         layer = cast["units"][0]["layer0"]
         assert cast["embed"].dtype == torch.bfloat16
         assert layer["norm1"]["scale"].dtype == torch.bfloat16
+        # the untied head and the QKV biases are read in the compute
+        # dtype, as the reference's per-use casts
+        for leaf in [cast.get("head")] + [layer["mixer"].get(b)
+                                          for b in BIASES]:
+            assert leaf is None or leaf.dtype == torch.bfloat16
         for k in PM.F32_LEAVES:
             if k in layer["mixer"]:
                 assert layer["mixer"][k].dtype == torch.float32, k
         assert torch.equal(cast["embed"], params["embed"].to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_init_params_cast_as_drawn(arch):
+    """``init_params(cast=True)``, which casts each piece as it is drawn,
+    gives the same tree, dtypes and values as ``cast_params`` of the
+    float32 masters from the same generator."""
+    from repro_torch.configs import get_smoke_config as p_smoke
+    cfg = p_smoke(arch)
+    want = PM.cast_params(
+        cfg, PM.init_params(cfg, torch.Generator().manual_seed(5)))
+    got = PM.init_params(cfg, torch.Generator().manual_seed(5), cast=True)
+    flat_w = jax.tree_util.tree_flatten_with_path(want)[0]
+    flat_g = jax.tree_util.tree_flatten_with_path(got)[0]
+    assert [p for p, _ in flat_g] == [p for p, _ in flat_w]
+    for (path, w), (_, g) in zip(flat_w, flat_g):
+        assert g.dtype == w.dtype and torch.equal(g, w), path
 
 
 def test_cached_conv_state_does_not_hold_the_prompt():

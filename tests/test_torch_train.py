@@ -2,15 +2,17 @@
 
 * ``loss_fn`` and its gradients against ``jax.value_and_grad`` of
   ``repro.models.model.loss_fn`` on the reference's weights carried
-  across (``convert``), float32 smoke configs of qwen3-1.7b, olmo-1b and
+  across (``convert``), float32 smoke configs of qwen3-1.7b, olmo-1b,
   mamba2-370m (its SSD scan differentiated by the port's
-  ``_SSDChunked``), with and without remat: loss to 1e-5, every gradient leaf to 2e-4 of
-  the largest gradient (float32 sums in other orders through two layers
-  and the tied head).
+  ``_SSDChunked``), command-r-35b and qwen1.5-110b (seeded nonzero QKV
+  biases, an untied head), with and without remat: loss to 1e-5, every
+  gradient leaf to 2e-4 of the largest gradient (float32 sums in other
+  orders through two layers and the head).
 * ``train_loop`` against the reference's ``train_loop`` from the same
   parameters and data, plain and secure (a one-rank mesh: mask,
-  quantize and unmask active), 4 steps: per-step losses to 2e-4
-  relative (the two differ by float32 rounding of the gradients, which
+  quantize and unmask active), 4 steps, AdamW's moments in the full
+  config's ``opt_state_dtype`` (bfloat16 for qwen1.5-110b): per-step
+  losses to 2e-4 relative (the two differ by float32 rounding of the gradients, which
   AdamW's first steps turn into updates of up to lr each).
 * ``train_loop`` resumed from the reference's weights and AdamW state
   after 4 steps (carried across by ``convert``, written as the port's
@@ -30,6 +32,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import get_config as j_full
 from repro.configs import get_smoke_config as j_smoke
 from repro.configs.base import ShapeConfig as JShape
 from repro.launch.mesh import make_host_mesh as j_mesh
@@ -48,11 +51,13 @@ from repro_torch.launch.train import train_loop
 from repro_torch.models import model as PM
 from repro_torch.optim import adamw
 from repro_torch.runtime.fault import FailurePlan, InjectedCrash
+from test_torch_models import seeded_biases
 
 SHAPE = ShapeConfig("t", 64, 4, "train")
 OPT = adamw.OptConfig(lr=1e-3, warmup_steps=5, total_steps=100,
                       grad_clip=1.0)
-ARCHS = ["qwen3-1.7b", "olmo-1b", "mamba2-370m"]
+ARCHS = ["qwen3-1.7b", "olmo-1b", "mamba2-370m", "command-r-35b",
+         "qwen1.5-110b"]
 
 
 def _pair(arch, **kw):
@@ -60,8 +65,12 @@ def _pair(arch, **kw):
     return jcfg, model_config_from_fields(dataclasses.asdict(jcfg))
 
 
-def _params(jcfg, pcfg, seed=0):
+def _params(jcfg, pcfg, seed=0, biases=False):
+    """The reference's draw and its copy in the port; ``biases`` sets the
+    QKV biases (zeros as drawn) to seeded nonzero values in both."""
     jp = JM.init_params(jcfg, jax.random.PRNGKey(seed))
+    if biases:
+        jp = seeded_biases(jp, seed + 1)
     return jp, model_params_from_numpy(
         pcfg, jax.tree.map(np.asarray, jp), "cpu")
 
@@ -78,7 +87,7 @@ def _batch(pcfg, seed=5):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_loss_and_grads_match_reference(arch, remat):
     jcfg, pcfg = _pair(arch, remat=remat)
-    jp, pp = _params(jcfg, pcfg)
+    jp, pp = _params(jcfg, pcfg, biases=True)
     batch = _batch(pcfg)
     jloss, jgrads = jax.value_and_grad(
         lambda p: JM.loss_fn(jcfg, p, batch, total_tokens=64))(jp)
@@ -98,8 +107,10 @@ def test_loss_and_grads_match_reference(arch, remat):
                                    atol=2e-4 * scale, rtol=0)
 
 
-def _j_opt():
-    return JA.OptConfig(**dataclasses.asdict(OPT))
+def _j_opt(arch="qwen3-1.7b"):
+    """``OPT`` with AdamW's moments in ``arch``'s full-config dtype."""
+    return JA.OptConfig(**{**dataclasses.asdict(OPT),
+                           "state_dtype": j_full(arch).opt_state_dtype})
 
 
 @pytest.mark.parametrize("secure", [False, True])
@@ -107,12 +118,12 @@ def _j_opt():
 def test_train_loop_losses_match_reference(arch, secure):
     jcfg, pcfg = _pair(arch)
     jshape = JShape("t", 64, 4, "train")
-    want = j_train(jcfg, j_mesh(), steps=4, shape=jshape, opt_cfg=_j_opt(),
-                   secure=secure, log_every=1000)
+    want = j_train(jcfg, j_mesh(), steps=4, shape=jshape,
+                   opt_cfg=_j_opt(arch), secure=secure, log_every=1000)
     _, pp = _params(jcfg, pcfg)
     got = train_loop(pcfg, steps=4, shape=SHAPE, secure=secure,
                      opt_cfg=opt_config_from_fields(
-                         dataclasses.asdict(_j_opt())),
+                         dataclasses.asdict(_j_opt(arch))),
                      log_every=1000, device="cpu", params=pp)
     np.testing.assert_allclose(got["losses"], want["losses"], rtol=2e-4)
 
@@ -122,7 +133,7 @@ def test_resume_from_reference_opt_state(arch, tmp_path):
     jcfg, pcfg = _pair(arch)
     jshape = JShape("t", 64, 4, "train")
     jdir, pdir = str(tmp_path / "j"), str(tmp_path / "p")
-    kw = dict(shape=jshape, opt_cfg=_j_opt(), log_every=1000)
+    kw = dict(shape=jshape, opt_cfg=_j_opt(arch), log_every=1000)
     first = j_train(jcfg, j_mesh(), steps=4, ckpt_dir=jdir, ckpt_every=4,
                     **kw)
     want = j_train(jcfg, j_mesh(), steps=6, ckpt_dir=jdir, ckpt_every=4,
@@ -136,7 +147,7 @@ def test_resume_from_reference_opt_state(arch, tmp_path):
     PCK.save(pdir + "/opt", 4, state)
     got = train_loop(pcfg, steps=6, shape=SHAPE, ckpt_dir=pdir,
                      opt_cfg=opt_config_from_fields(
-                         dataclasses.asdict(_j_opt())),
+                         dataclasses.asdict(_j_opt(arch))),
                      log_every=1000, device="cpu")
     assert got["resumed_from"] == 4
     np.testing.assert_allclose(got["losses"], want["losses"], rtol=2e-4)
