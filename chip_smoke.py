@@ -23,9 +23,12 @@ with a non-zero exit code:
            tensor-core kernel) (GQA groups 1, 2, 8, causal or not, window
            128, Sq = Skv in {77, 512, 2048}, Sq != Skv, qwen3's prefill
            shape and command-r's / qwen1.5's, 64 query heads over 8 KV
-           heads) and the SSD scan (the kernel tests' shapes, S ragged
+           heads, qwen3-moe's 64 over 4, jamba's 32 over 8, and
+           llama4-maverick's 40 over 8 at 12,288 tokens with its window
+           of 8,192) and the SSD scan (the kernel tests' shapes, S ragged
            against the kernel's 256-row chunk and S below one chunk, N
            in {8, 13, 128}, mamba2's prefill shape with B and C shared,
+           jamba's 4 x 128 heads of N = 16 per head and in the model form,
            the model form also from a carried state h0) within FLASH_TOL
            / SSD_TOL of their plain versions
   main     the secure allreduce at full width -- n = 64 nodes, clusters
@@ -102,7 +105,14 @@ with a non-zero exit code:
            batch runs degraded on the sim; the slowest rank's seconds a
            batch; (f) a ``median`` on 1,024 steps and a ``histogram`` of 64
            bins on the ``mesh`` backend, every rank's result equal to the
-           parent's sim on the card.  Medians of 5 warm runs of (a) and (b) as
+           parent's sim on the card; (g) expert parallelism in its own
+           spawn of 2 ranks: one MoE layer of qwen3-moe-235b at full
+           width in float32, 64 experts a rank, ``moe_distributed`` on
+           each rank's 2 x 512 tokens (two ``all_to_all`` exchanges of
+           168 MB) and ``moe_distributed_replicated`` on one token (a
+           float32 all-reduce), each rank's output within EP_TOL = 2e-4
+           of ``moe_local`` over all 128 experts on the card, the bytes
+           of each exchange.  Medians of 5 warm runs of (a) and (b) as
            the slowest rank's wall ms, each rank's wire ms and profiled
            kernel ms, peak memory per rank
   paillier threshold Paillier at full width (1024-bit n, fixed committed
@@ -114,18 +124,27 @@ with a non-zero exit code:
            with Step 4 on the card, exact and equal in every account to
            the ``pow`` run
   serve    ``repro_torch.launch.serve.serve`` at full width for
-           qwen3-1.7b, mamba2-370m, command-r-35b and qwen1.5-110b (bf16,
-           random weights from the seed, cast as drawn, qwen1.5's QKV
+           qwen3-1.7b, mamba2-370m, command-r-35b, qwen1.5-110b and the
+           MoE models qwen3-moe-235b-a22b, llama4-maverick-400b-a17b and
+           jamba-v0.1-52b (bf16, random weights from the seed, cast as
+           drawn, an MoE layer's experts one at a time, qwen1.5's QKV
            biases seeded nonzero; command-r at all 40 units, qwen1.5 cut
-           to 20 of its 80, SERVE_UNITS; the float32 check on the first
-           8 / 4 of them, SERVE_CHECK_UNITS): batch 4, prompt 2048, 32
-           tokens; prefill seconds, decode tokens/s, peak memory; exactly one
-           ``flash_attention`` launch a layer (28 for qwen3) / 48 ``ssd``
-           in the prefill and none in decode; a float32 prefill through
-           the kernels against the plain versions (last logits within
-           LOGIT_TOL_F32) and its peak memory; the bf16 run on the plain
-           versions (its logit error and token agreement); the config
-           widths against the reference's config files
+           to 20 of its 80, qwen3-moe to 12 of 94, llama4 to 1 of 12,
+           jamba to 2 of 4, SERVE_UNITS; the float32 check on the first
+           8 / 4 / 2 / 0 / 1 of them, SERVE_CHECK_UNITS): batch 4, prompt
+           2048, 32 tokens; prefill seconds, decode tokens/s, peak
+           memory; exactly one ``flash_attention`` call an attention
+           layer and one ``ssd`` call a Mamba2 layer in the prefill (28
+           for qwen3, 48 ``ssd`` for mamba2, 2 and 14 for jamba) and none
+           in decode; a float32 prefill through the kernels against the
+           plain versions (last logits within LOGIT_TOL_F32) and its peak
+           memory; the bf16 run on the plain versions (its logit error and
+           token agreement); for the MoE models, layer by layer, the share
+           of (token, choice) pairs the kernel run and the plain run route
+           alike, each run's dropped pairs and the router-logit gap at
+           every flip, in bf16 and float32; the MoE's spans in the
+           prefill's profile; the config widths against the reference's
+           config files
   train    training on the card.  (a) the flash backward kernel against
            ``attention_bwd_ref`` on the same q, k, v, dO, o and L, the
            forward kernel's L against the plain L, and autograd through
@@ -189,9 +208,13 @@ with a non-zero exit code:
            decryption's rows x 128 limbs and at 1056 x 128; the ladder at
            the decryption's rows, 128 limbs and exponent bits, beside the
            host loop of two ``mont_mul`` launches a bit it replaced, in
-           turns, and its plain version once, held equal to it; flash
+           turns, every row held against Python ``pow``, and its plain
+           version over the first 256 exponent bits, held equal to the
+           kernel over the same bits, its time scaled to the whole; flash
            attention and the SSD scan at the two models' prefill shapes
-           (flash attention also at command-r's and qwen1.5's, H 64),
+           (flash attention also at command-r's and qwen1.5's, H 64, and
+           the MoE models', H 64 over K 4, 32 over 8, 40 over 8; the SSD
+           scan also at jamba's 128 heads of N = 16),
            with ``scaled_dot_product_attention`` timed beside flash
            attention as the library yardstick, the forward also with L
            written, the SSD scan also from a carried state, the flash
@@ -261,7 +284,14 @@ N_MAIN, C_MAIN, T_MAIN = 64, 4, 1 << 22
 N_MESH = 16
 MESH_SHAPE = {"T": 1 << 22, "chunk": 1 << 16, "S": 16, "T_batch": 1 << 16,
               "runs": 5, "svc_S": 16, "svc_T": 1 << 16, "svc_batches": 4,
-              "svc_pool": 1 << 22, "f_steps": 1024, "f_bins": 64}
+              "svc_pool": 1 << 22, "f_steps": 1024, "f_bins": 64,
+              "ep_ranks": 2, "ep_B": 2, "ep_S": 512}
+# mesh (g): expert parallelism of one MoE layer of EP_ARCH at full width in
+# float32 (64 experts a rank), each rank's output within EP_TOL of
+# moe_local over all 128 experts (the reference's
+# tests/test_distributed.py::test_moe_distributed_matches_local_2dev)
+EP_ARCH = "qwen3-moe-235b-a22b"
+EP_TOL = 2e-4
 MESH_FLIP = (0, 4, 8, 12)
 MESH_FLIP_OVER = (0, 1, 4, 5, 8, 9, 12, 13)
 SPLITMIX_OPS = 9              # add, 3 shifts, 3 xors, 2 multiplies
@@ -285,8 +315,10 @@ DECRYPT_BITS = 1 + (math.factorial(C_THRESHOLD)).bit_length() + 2046
 # width, to fit one run beside the other phases
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 2048, 32
 # widths of the reference's config files (src/repro/configs/qwen3_1p7b.py,
-# mamba2_370m.py, command_r_35b.py, qwen15_110b.py), hard-coded: this
-# script imports nothing of the package
+# mamba2_370m.py, command_r_35b.py, qwen15_110b.py, qwen3_moe_235b.py,
+# llama4_maverick.py, jamba_v01_52b.py), hard-coded: this script imports
+# nothing of the package.  ``moe`` and ``ssm`` are the sub-configs'
+# fields, ``pattern`` the unit's (mixer, mlp) kinds
 REFERENCE_WIDTHS = {
     "qwen3-1.7b": dict(d_model=2048, n_heads=16, n_kv_heads=8, hd=128,
                        d_ff=6144, vocab_size=151936, n_units=28, ssm=None,
@@ -307,10 +339,42 @@ REFERENCE_WIDTHS = {
                          ssm=None, norm="rmsnorm", attn_bias=True,
                          tie_embeddings=False, rope_theta=1_000_000.0,
                          dtype="bfloat16", opt_state_dtype="bfloat16"),
+    "qwen3-moe-235b-a22b": dict(
+        d_model=4096, n_heads=64, n_kv_heads=4, hd=128, d_ff=1536,
+        vocab_size=151936, n_units=94, pattern=[("attn", "moe")],
+        qk_norm=True, tie_embeddings=False, rope_theta=1_000_000.0,
+        ssm=None, moe=dict(n_experts=128, top_k=8, d_expert=1536,
+                           capacity_factor=1.25, router_jitter=0.0,
+                           n_shared_experts=0, d_shared=0,
+                           dispatch_dtype=""),
+        dtype="bfloat16", opt_state_dtype="bfloat16"),
+    "llama4-maverick-400b-a17b": dict(
+        d_model=5120, n_heads=40, n_kv_heads=8, hd=128, d_ff=8192,
+        vocab_size=202048, n_units=12,
+        pattern=[("attn_chunked", "dense"), ("attn_chunked", "moe"),
+                 ("attn_chunked", "dense"), ("attn", "moe")],
+        attn_window=8192, tie_embeddings=False, rope_theta=500_000.0,
+        ssm=None, moe=dict(n_experts=128, top_k=1, d_expert=8192,
+                           capacity_factor=1.25, router_jitter=0.0,
+                           n_shared_experts=0, d_shared=8192,
+                           dispatch_dtype=""),
+        dtype="bfloat16", opt_state_dtype="bfloat16"),
+    "jamba-v0.1-52b": dict(
+        d_model=4096, n_heads=32, n_kv_heads=8, hd=128, d_ff=14336,
+        vocab_size=65536, n_units=4,
+        pattern=[("attn" if i == 3 else "mamba2",
+                  "moe" if i % 2 == 1 else "dense") for i in range(8)],
+        tie_embeddings=False,
+        ssm=dict(d_state=16, d_conv=4, expand=2, head_dim=64, chunk=256),
+        moe=dict(n_experts=16, top_k=2, d_expert=14336,
+                 capacity_factor=1.25, router_jitter=0.0,
+                 n_shared_experts=0, d_shared=0, dispatch_dtype=""),
+        dtype="bfloat16", opt_state_dtype="bfloat16"),
 }
-SERVE_KERNEL = {"qwen3-1.7b": "flash_attention", "mamba2-370m": "ssd",
-                "command-r-35b": "flash_attention",
-                "qwen1.5-110b": "flash_attention"}
+# the MoE archs, whose serve also reports how the kernel run and the
+# plain run route
+MOE_ARCHS = ("qwen3-moe-235b-a22b", "llama4-maverick-400b-a17b",
+             "jamba-v0.1-52b")
 # depth cuts of the serve phase (units of the full config's 40 / 80; the
 # widths stay the published ones).  The bf16 serve draws its weights cast
 # unit by unit (``init_params(cast=True)``): command-r's 40 units are
@@ -319,8 +383,21 @@ SERVE_KERNEL = {"qwen3-1.7b": "flash_attention", "mamba2-370m": "ssd",
 # GB a tensor at 64 heads x 2,048^2).  The float32 check holds float32
 # masters (2.89 / 5.50 GB a unit) and float32 scores, so it runs the
 # first SERVE_CHECK_UNITS of the same units
-SERVE_UNITS = {"command-r-35b": 40, "qwen1.5-110b": 20}
-SERVE_CHECK_UNITS = {"command-r-35b": 8, "qwen1.5-110b": 4}
+# first SERVE_CHECK_UNITS of the same units.  The MoE models' bf16
+# weights a unit: qwen3-moe 2.49 B params (its 12 units and 2.49 GB of
+# table and head, 62.2 GB), llama4-maverick 32.97 B (one unit, 70.1 GB
+# with its 4.1 GB of table and head; each MoE layer's expert stacks are
+# drawn an expert at a time), jamba 12.73 B (2 units, 52.0 GB).  Their
+# float32 checks: qwen3-moe 2 units (24.9 GB), jamba 1 (~53 GB);
+# llama4-maverick none (one MoE layer's float32 stacks alone are 128 x 3
+# x 5120 x 8192 x 4 B = 64.4 GB), so its kernels meet their plain versions
+# in bf16 here and in float32 at its attention shape in the kernels phase
+SERVE_UNITS = {"command-r-35b": 40, "qwen1.5-110b": 20,
+               "qwen3-moe-235b-a22b": 12, "llama4-maverick-400b-a17b": 1,
+               "jamba-v0.1-52b": 2}
+SERVE_CHECK_UNITS = {"command-r-35b": 8, "qwen1.5-110b": 4,
+                     "qwen3-moe-235b-a22b": 2,
+                     "llama4-maverick-400b-a17b": 0, "jamba-v0.1-52b": 1}
 # the QKV biases, zeros as drawn, are overwritten with seeded N(0, s^2)
 # values before a serve (from their own generator, unit by unit, so the
 # float32 check's units carry the served ones' biases), so the bias add
@@ -362,6 +439,9 @@ LAUNCH_SHAPE = {"overlay_n": 192, "batch": 16, "sessions": 64,
 # through the kernels against the plain versions, after 28 or 48 layers
 # whose residual streams carry the kernels' float32 rounding differences
 LOGIT_TOL_F32 = 2e-3
+# the timing phase's plain ladder runs over the first this many exponent
+# bits of the decryption's (58 x 128 limbs), its time scaled to the whole
+PLAIN_LADDER_BITS = 256
 
 
 def emit(obj) -> None:
@@ -550,7 +630,12 @@ def within(got: torch.Tensor, want: torch.Tensor, atol: float,
 # GQA groups 1, 2 and 8, causal or not, window 128, Sq = Skv in {77, 512,
 # 2048}, Sq != Skv both ways (a window chunk past the keys leaves rows with
 # no allowed key), qwen3-1.7b's prefill and the prefill of command-r-35b
-# and qwen1.5-110b (64 query heads over 8 KV heads)
+# and qwen1.5-110b (64 query heads over 8 KV heads), then the MoE
+# models': qwen3-moe-235b's (GQA group 16: 64 over 4), jamba's (32 over
+# 8), and llama4-maverick's (GQA group 5: 40 over 8, window 8,192) at
+# the serve's shape, where the window masks nothing, and at 12,288 tokens,
+# where it masks (the plain version's float32 scores there are 24.2 GB a
+# copy, two alive at once)
 FLASH_CASES = [
     (2, 256, 256, 4, 2, 64, True, 0), (1, 128, 128, 2, 2, 32, False, 0),
     (1, 512, 512, 4, 1, 64, True, 128), (2, 128, 384, 2, 1, 32, True, 0),
@@ -562,6 +647,10 @@ FLASH_CASES = [
     (1, 2048, 2048, 16, 16, 128, True, 128), (2, 200, 77, 4, 2, 64, True, 64),
     (4, 2048, 2048, 16, 8, 128, True, 0),
     (4, 2048, 2048, 64, 8, 128, True, 0),
+    (4, 2048, 2048, 64, 4, 128, True, 0),
+    (4, 2048, 2048, 32, 8, 128, True, 0),
+    (4, 2048, 2048, 40, 8, 128, True, 8192),
+    (1, 12288, 12288, 40, 8, 128, True, 8192),
 ]
 
 
@@ -747,12 +836,14 @@ def _check_ssd(rng, dev, errs: dict) -> int:
 
     # the kernel tests' shapes; then S ragged against the kernel's chunk of
     # 256 (over two and three chunks) and below one chunk, N in {8, 13,
-    # 128} (13: rows of B and C off 16-byte boundaries)
+    # 128} (13: rows of B and C off 16-byte boundaries), and jamba's
+    # prefill, 4 x 128 heads a row of N = 16 (512 rows of heads)
     for BH, S, P, N, chunk in ((4, 256, 64, 32, 64), (2, 128, 32, 16, 128),
                                (8, 512, 64, 64, 128), (1, 64, 16, 8, 32),
                                (3, 77, 64, 128, 64), (2, 200, 16, 128, 128),
                                (2, 520, 32, 8, 128), (3, 700, 64, 128, 128),
-                               (2, 40, 64, 8, 32), (2, 300, 16, 13, 100)):
+                               (2, 40, 64, 8, 32), (2, 300, 16, 13, 100),
+                               (512, 2048, 64, 16, 256)):
         args = _ssd_inputs(rng, dev, BH, S, P, N=N, per_head=True)
         got = ssd(*args, chunk=chunk)
         hold(got, ssd(*args, chunk=chunk, impl="torch"),
@@ -761,7 +852,7 @@ def _check_ssd(rng, dev, errs: dict) -> int:
             hold(got, ssd_ref(*args), f"BH={BH} S={S} vs sequential")
     for Bsz, S, H, P, N in ((2, 200, 4, 64, 128), (2, 77, 8, 32, 64),
                             (2, 600, 8, 64, 8), (1, 300, 4, 16, 13),
-                            (4, 2048, 32, 64, 128)):
+                            (4, 2048, 32, 64, 128), (4, 2048, 128, 64, 16)):
         args = _ssd_inputs(rng, dev, Bsz, S, H, P, N=N, per_head=False)
         chunk = min(256, S)
         what = f"model form B={Bsz} S={S} H={H} P={P} N={N}"
@@ -1015,8 +1106,8 @@ def _check_mont_exp(rng, dev, errs: dict) -> int:
             hold(n, L, xs, exps, f"L={L} batch={batch}")
     # the decryption's width; the 2,374-bit row against pow only here:
     # the plain ladder over ~2,400 bits takes ~4 min on the card, so the
-    # timing phase holds it against the kernel once, at the decryption's
-    # own shape
+    # timing phase holds the kernel against pow at the decryption's own
+    # shape and against the plain ladder over its first 256 bits
     n = _rand_below(rng, 1 << 2047) | (1 << 2047) | 1
     exps = [0, 1, _rand_below(rng, 1 << 64) | (1 << 63)]
     hold(n, 128, [_rand_below(rng, n) for _ in exps], exps,
@@ -2309,7 +2400,111 @@ def phase_mesh(dev, seed: int, shape: Optional[dict] = None
                           for k in ("median", "histogram")},
                 "slowest_rank_s": {k: max(r["f"][k] for r in ranks)
                                    for k in ("median", "histogram")}}}
+    line["g_expert_parallel"] = _mesh_ep(dev, seed, shape)
     return line, ranks[0]["a_launches"]
+
+
+def _ep_cfg(shape: dict):
+    """(g)'s config in float32: qwen3-moe-235b's at full width (its smoke
+    config in a CPU rehearsal)."""
+    from repro_torch.configs import get_config, get_smoke_config
+    get = get_smoke_config if shape.get("ep_smoke") else get_config
+    return dataclasses.replace(get(EP_ARCH), dtype="float32")
+
+
+def _ep_rank(rank: int, seed: int, job_dir: str, shape: dict) -> None:
+    """One rank of mesh (g): one MoE layer's experts drawn whole from the
+    seed (the same on every rank), this rank's half of them, its own
+    (B, S) tokens and one token every rank holds; ``moe_forward`` under an
+    expert-axis context (``moe_distributed``, then
+    ``moe_distributed_replicated``) against ``moe_local`` over every
+    expert on the same card.  Writes ``ep{r}.json``."""
+    from repro_torch.models import layers as L
+    from repro_torch.runtime.compat import node_mesh
+    from repro_torch.runtime.context import DistCtx, use_ctx
+    dev = torch.device(shape["device"])
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    cfg = _ep_cfg(shape)
+    n = shape["ep_ranks"]
+    mesh = node_mesh(n)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    full = L.make_moe_params(cfg, g)
+    E, D = cfg.moe.n_experts, cfg.d_model
+    E_loc = E // n
+    mine = {k: v[rank * E_loc:(rank + 1) * E_loc] if v.dim() == 3 else v
+            for k, v in full.items()}
+    g.manual_seed(seed + 1 + rank)
+    x = torch.randn((shape["ep_B"], shape["ep_S"], D), generator=g,
+                    device=dev)
+    g.manual_seed(seed + 1 + n)
+    x1 = torch.randn((1, 1, D), generator=g, device=dev)
+    ctx = DistCtx(mesh=mesh, dp_axes=("data",), ep_axis="data")
+    local, local1 = L.moe_local(cfg, full, x), L.moe_local(cfg, full, x1)
+    local_ms = []
+    for _ in range(3):
+        _sync(dev)
+        t0 = time.perf_counter()
+        L.moe_local(cfg, full, x)
+        _sync(dev)
+        local_ms.append((time.perf_counter() - t0) * 1e3)
+    with use_ctx(ctx):
+        walls = []
+        for _ in range(3):
+            _sync(dev)
+            t0 = time.perf_counter()
+            dist = L.moe_forward(cfg, mine, x)
+            _sync(dev)
+            walls.append((time.perf_counter() - t0) * 1e3)
+        rep = L.moe_forward(cfg, mine, x1)
+    T = x.shape[0] * x.shape[1]
+    idx, _ = L._router(cfg, full, x.reshape(T, D))
+    slot, C = L._dispatch_slots(cfg, idx, T)
+    C1 = L._capacity(cfg, 1)
+    out = {"rank": rank, "tokens": T, "capacity": C,
+           "dropped_pairs": int((slot == E * C).sum()),
+           "err": max_abs_err(dist, local), "err_replicated":
+           max_abs_err(rep, local1),
+           "ok": within(dist, local, EP_TOL, 0.0)
+           and within(rep, local1, EP_TOL, 0.0),
+           "wall_ms": walls, "local_all_experts_ms": local_ms,
+           # each all_to_all sends E * C_e rows of D float32 (1 / n of
+           # them to this rank itself); the replicated path's float32
+           # all-reduce carries E * C_e(1) rows
+           "all_to_all_bytes": E * C * D * 4,
+           "all_to_all_bytes_off_rank": E * C * D * 4 * (n - 1) // n,
+           "all_reduce_bytes": E * C1 * D * 4,
+           "peak_mem_bytes": (torch.cuda.max_memory_allocated(dev)
+                              if dev.type == "cuda" else 0)}
+    (pathlib.Path(job_dir) / f"ep{rank}.json").write_text(json.dumps(out))
+
+
+def _mesh_ep(dev, seed: int, shape: dict) -> dict:
+    """Mesh (g): expert parallelism on ``ep_ranks`` gloo ranks of the
+    card (every exchange staged through pinned host memory), each rank's
+    output within EP_TOL of ``moe_local`` over all the experts."""
+    from repro_torch.runtime.compat import spawn_nodes
+    job = pathlib.Path(tempfile.mkdtemp(prefix="ep-phase-"))
+    try:
+        t0 = time.perf_counter()
+        spawn_nodes(_ep_rank, shape["ep_ranks"], seed, str(job), shape)
+        spawn_s = time.perf_counter() - t0
+        ranks = [json.loads((job / f"ep{r}.json").read_text())
+                 for r in range(shape["ep_ranks"])]
+    finally:
+        shutil.rmtree(job, ignore_errors=True)
+    for r in ranks:
+        check(r["ok"], f"mesh (g) rank {r['rank']}: moe_distributed err "
+              f"{r['err']}, replicated {r['err_replicated']} > {EP_TOL}")
+    cfg = _ep_cfg(shape)
+    return {"arch": cfg.name, "dtype": "float32",
+            "experts": cfg.moe.n_experts, "top_k": cfg.moe.top_k,
+            "experts_per_rank": cfg.moe.n_experts // shape["ep_ranks"],
+            "ranks": shape["ep_ranks"], "tokens_per_rank":
+            [shape["ep_B"], shape["ep_S"]], "tol": EP_TOL,
+            "spawn_to_end_s": spawn_s, "by_rank": ranks}
 
 
 def phase_paillier(dev) -> tuple[dict, dict, tuple[int, int]]:
@@ -2507,25 +2702,41 @@ def phase_launch(dev, shape: Optional[dict] = None) -> tuple[dict, dict]:
 def check_widths(arch: str, cfg) -> None:
     """The port's full config against the reference's published widths."""
     want = REFERENCE_WIDTHS[arch]
-    got = {k: getattr(cfg, k) for k in want if k != "ssm"}
-    got["ssm"] = dataclasses.asdict(cfg.ssm) if cfg.ssm else None
+    got = {k: getattr(cfg, k) for k in want
+           if k not in ("ssm", "moe", "pattern")}
+    for k in ("ssm", "moe"):
+        if k in want:
+            sub = getattr(cfg, k)
+            got[k] = dataclasses.asdict(sub) if sub else None
+    if "pattern" in want:
+        got["pattern"] = [(s.mixer, s.mlp) for s in cfg.pattern]
     check(got == want, f"{arch} widths {got} != reference {want}")
+
+
+def serve_launches(cfg) -> dict:
+    """The kernel calls one prefill makes: one ``flash_attention`` an
+    attention layer, one ``ssd`` (four launches, counted once) a Mamba2
+    layer."""
+    mamba = sum(s.mixer == "mamba2" for s in cfg.pattern)
+    per = {"flash_attention": len(cfg.pattern) - mamba, "ssd": mamba}
+    return {k: v * cfg.n_units for k, v in per.items() if v}
 
 
 def phase_serve(dev, seed: int,
                 shape=(SERVE_BATCH, SERVE_PROMPT, SERVE_GEN), configs=None
                 ) -> tuple[dict, dict]:
-    """Every served model at full width through the kernels (qwen1.5 at
-    SERVE_UNITS' depth), with the float32 prefill held against the plain
-    versions (command-r and qwen1.5 at SERVE_CHECK_UNITS').  ``configs``
-    (arch -> config) replaces the full configs in a CPU rehearsal.  A
-    kernel's launches are those of the first model that runs it (qwen3's
-    for flash attention); each model's own are in its entry."""
+    """Every served model at full width through the kernels (at
+    SERVE_UNITS' depth where it is cut), with the float32 prefill held
+    against the plain versions (at SERVE_CHECK_UNITS' depth where it is
+    cut).  ``configs`` (arch -> config) replaces the full configs in a
+    CPU rehearsal.  A kernel's launches are those of the first model that
+    runs it (qwen3's for flash attention); each model's own are in its
+    entry."""
     from repro_torch.configs import get_config
     batch, prompt, gen = shape
     out, launches = {"phase": "serve", "batch": batch, "prompt_len": prompt,
                      "gen": gen}, {}
-    for arch in REFERENCE_WIDTHS:
+    for arch in (configs or REFERENCE_WIDTHS):
         cfg = configs[arch] if configs else get_config(arch)
         if configs is None:
             check_widths(arch, cfg)
@@ -2539,7 +2750,8 @@ def phase_serve(dev, seed: int,
         out[arch], n = _serve_arch(arch, cfg, cfg_check, dev, seed, shape)
         out[arch].update(n_units=cfg.n_units, n_units_full=full_units,
                          n_units_f32_check=cfg_check.n_units)
-        launches.setdefault(SERVE_KERNEL[arch], n)
+        for k, v in n.items():
+            launches.setdefault(k, v)
         if dev.type == "cuda":
             torch.cuda.empty_cache()
     return out, launches
@@ -2561,17 +2773,80 @@ def _seed_biases(params: dict, seed: int) -> None:
                                         device=b.device) * SERVE_BIAS_STD)
 
 
+class RouteLog:
+    """While active, every MoE router call's expert ids and its top k + 1
+    float32 logits, in call order (``models.layers._router`` wrapped;
+    the logits are computed again beside the router's own, the same
+    product on the same inputs)."""
+
+    def __init__(self, on: bool = True):
+        self.on = on
+        self.calls = []
+
+    def __enter__(self):
+        from repro_torch.models import layers as L
+        self._layers, self._router = L, L._router
+        if self.on:
+            def router(cfg, p, xf):
+                idx, w = self._router(cfg, p, xf)
+                logits = xf.float() @ p["router"].float()
+                top = torch.topk(logits, cfg.moe.top_k + 1, dim=-1).values
+                self.calls.append((cfg, idx, top))
+                return idx, w
+            L._router = router
+        return self
+
+    def __exit__(self, *exc):
+        self._layers._router = self._router
+
+
+def routing_agreement(kern: RouteLog, plain: RouteLog) -> dict:
+    """Layer by layer, how the kernel run and the plain run routed the
+    same prompts: the share of (token, choice) pairs given the same
+    expert and of pairs given the same dispatch slot, each run's dropped
+    pairs, the tokens whose choices differ, and at those tokens the
+    plain run's closest gap between adjacent logits of its top k + 1
+    (the near tie a float difference tipped)."""
+    from repro_torch.models import layers as L
+    check(len(kern.calls) == len(plain.calls),
+          f"router calls {len(kern.calls)} vs {len(plain.calls)}")
+    layers = []
+    for (cfg, ik, _), (_, ip, tp) in zip(kern.calls, plain.calls):
+        T = ik.shape[0]
+        sk, C = L._dispatch_slots(cfg, ik, T)
+        sp, _ = L._dispatch_slots(cfg, ip, T)
+        sink = cfg.moe.n_experts * C
+        flipped = (ik != ip).any(dim=1)
+        gaps = (tp[:, :-1] - tp[:, 1:]).min(dim=1).values[flipped]
+        layers.append({
+            "same_expert_share": float((ik == ip).float().mean()),
+            "same_slot_share": float((sk == sp).float().mean()),
+            "dropped": [int((sk == sink).sum()), int((sp == sink).sum())],
+            "pairs": int(ik.numel()), "capacity": C,
+            "flipped_tokens": int(flipped.sum()),
+            "max_logit_gap_at_flip": (float(gaps.max()) if gaps.numel()
+                                      else None)})
+    gaps = [x["max_logit_gap_at_flip"] for x in layers
+            if x["max_logit_gap_at_flip"] is not None]
+    return {"moe_layers": len(layers),
+            "min_same_expert_share": min(
+                (x["same_expert_share"] for x in layers), default=1.0),
+            "flipped_tokens": sum(x["flipped_tokens"] for x in layers),
+            "max_logit_gap_at_flip": max(gaps, default=None),
+            "by_layer": layers}
+
+
 def _serve_arch(arch: str, cfg, cfg_check, dev, seed: int, shape
-                ) -> tuple[dict, int]:
+                ) -> tuple[dict, dict]:
     """One model: the bf16 serve at ``cfg``'s depth, the float32 check at
-    ``cfg_check``'s (the first units of the same weights).  Every tensor
-    it makes dies when it returns."""
+    ``cfg_check``'s (the first units of the same weights; none where it
+    has no unit).  Every tensor it makes dies when it returns."""
     from repro_torch.kernels import backend
     from repro_torch.launch.serve import serve
     from repro_torch.models import model as M
     batch, prompt, gen = shape
-    kname = SERVE_KERNEL[arch]
-    n_layers = cfg.n_layers
+    want = serve_launches(cfg)
+    moe = cfg.moe is not None
     cuda = dev.type == "cuda"
     tokens = _serve_prompts(cfg, batch, prompt, seed, dev)
     max_seq = prompt + gen
@@ -2611,10 +2886,10 @@ def _serve_arch(arch: str, cfg, cfg_check, dev, seed: int, shape
     check(toks.shape == (batch, gen) and bool(
         ((toks >= 0) & (toks < cfg.vocab_size)).all()),
         f"{arch}: tokens {toks.shape}")
-    # 2. launches: one kernel per layer in the prefill, none in decode
+    # 2. launches: one kernel call a layer in the prefill, none in decode
     pre, dec = res["launches"]["prefill"], res["launches"]["decode"]
-    check(pre[kname] == n_layers and sum(pre.values()) == n_layers,
-          f"{arch}: prefill launches {pre}, want {n_layers} {kname}")
+    check({k: v for k, v in pre.items() if v} == want,
+          f"{arch}: prefill launches {pre}, want {want}")
     check(sum(dec.values()) == 0, f"{arch}: decode launches {dec}")
     # the warm prefill alone, three times
     prefill_s = []
@@ -2625,60 +2900,76 @@ def _serve_arch(arch: str, cfg, cfg_check, dev, seed: int, shape
         sync()
         prefill_s.append(time.perf_counter() - t0)
     # 4. the bf16 serve through the plain versions, and the bf16 prefill
-    # logits of both
+    # logits of both, with how each routed
     plain = serve(cfg, batch=batch, prompt_len=prompt, gen=gen, seed=seed,
                   params=cast, device=dev, kernel_impl="torch")
     check(sum(plain["launches"]["prefill"].values()) == 0,
           f"{arch}: the plain run launched a kernel")
-    lb, _ = M.prefill(cfg, cast, {"tokens": tokens}, max_seq)
-    lbp, _ = M.prefill(cfg, cast, {"tokens": tokens}, max_seq, impl="torch")
+    with RouteLog(moe) as rk:
+        lb, _ = M.prefill(cfg, cast, {"tokens": tokens}, max_seq)
+    with RouteLog(moe) as rp:
+        lbp, _ = M.prefill(cfg, cast, {"tokens": tokens}, max_seq,
+                           impl="torch")
     bf16_err = max_abs_err(lb.float(), lbp.float())
+    routing = {"bf16": routing_agreement(rk, rp)} if moe else None
     profiles = _profile_serve(cfg, cast, tokens, max_seq, prompt) \
         if cuda else {}
-    del cast, lb, lbp
-    # 3. the float32 prefill at the check's depth, kernels against plain
-    # versions, then one float32 decode step, which launches nothing
-    cfg32 = dataclasses.replace(cfg_check, dtype="float32")
-    n_check = cfg32.n_layers
-    if cuda:
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-    params = weights(cfg32, False)
-    backend.reset_launch_counts()
-    lk, cache = M.prefill(cfg32, params, {"tokens": tokens}, max_seq)
-    f32_launches = backend.launch_counts()[kname]
-    lp, _ = M.prefill(cfg32, params, {"tokens": tokens}, max_seq,
-                      impl="torch")
-    check(backend.launch_counts()[kname] == f32_launches == n_check,
-          f"{arch}: float32 prefill launches {f32_launches}")
-    f32_err = max_abs_err(lk, lp)
-    check(bool(torch.isfinite(lk).all()) and f32_err <= LOGIT_TOL_F32,
-          f"{arch}: float32 prefill logits differ by {f32_err}")
-    nxt = torch.argmax(lk[:, -1, :cfg.vocab_size], -1)[:, None]
-    M.decode_step(cfg32, params, cache, nxt, prompt)
-    check(backend.launch_counts()[kname] == n_check,
-          f"{arch}: float32 decode launched a kernel")
-    peak_f32 = torch.cuda.max_memory_allocated() if cuda else 0
-    return {
+    del cast, lb, lbp, rk, rp
+    out = {
         "prefill_s": res["t_prefill_s"],
         "prefill_s_warm": prefill_s,
         "prefill_s_warm_median": statistics.median(prefill_s),
         "decode_s": res["t_decode_s"], "decode_tok_per_s": res["tok_per_s"],
         "peak_mem_bytes": peak, "mem_at_reset_bytes": mem_before,
-        "f32_check_peak_mem_bytes": peak_f32,
         "weight_bytes": weight_bytes, "params": cfg.param_count(),
-        "launches_prefill": pre[kname],
+        "launches_prefill": want,
         "launches_decode": sum(dec.values()),
-        "f32_prefill_logit_max_err": f32_err,
         "f32_logit_tol": LOGIT_TOL_F32,
-        "f32_logit_max_abs": float(lp.abs().max()),
         "bf16_prefill_logit_max_err_vs_plain": bf16_err,
         "bf16_tokens_equal_plain_share": float(
             (plain["tokens"] == toks).mean()),
         "plain_prefill_s": plain["t_prefill_s"],
         "plain_decode_tok_per_s": plain["tok_per_s"],
-        "profiles": profiles,
-        "sample_tokens": toks[0, :8].tolist()}, pre[kname]
+        "routing": routing, "profiles": profiles,
+        "sample_tokens": toks[0, :8].tolist()}
+    if cfg_check.n_units == 0:
+        out["f32_check"] = "none: SERVE_CHECK_UNITS is 0"
+        return out, want
+    # 3. the float32 prefill at the check's depth, kernels against plain
+    # versions, then one float32 decode step, which launches nothing
+    cfg32 = dataclasses.replace(cfg_check, dtype="float32")
+    want32 = serve_launches(cfg32)
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    params = weights(cfg32, False)
+    backend.reset_launch_counts()
+    with RouteLog(moe) as rk:
+        lk, cache = M.prefill(cfg32, params, {"tokens": tokens}, max_seq)
+    f32_launches = {k: backend.launch_counts()[k] for k in want32}
+    with RouteLog(moe) as rp:
+        lp, _ = M.prefill(cfg32, params, {"tokens": tokens}, max_seq,
+                          impl="torch")
+    check(f32_launches == want32 and {k: backend.launch_counts()[k]
+                                      for k in want32} == want32,
+          f"{arch}: float32 prefill launches {f32_launches}, want {want32}")
+    if moe:
+        routing["float32"] = routing_agreement(rk, rp)
+    del rk, rp
+    f32_err = max_abs_err(lk, lp)
+    check(bool(torch.isfinite(lk).all()) and f32_err <= LOGIT_TOL_F32,
+          f"{arch}: float32 prefill logits differ by {f32_err}"
+          + (f" (routing {routing})" if moe else ""))
+    nxt = torch.argmax(lk[:, -1, :cfg.vocab_size], -1)[:, None]
+    M.decode_step(cfg32, params, cache, nxt, prompt)
+    check({k: backend.launch_counts()[k] for k in want32} == want32,
+          f"{arch}: float32 decode launched a kernel")
+    out.update({
+        "f32_check_peak_mem_bytes": (torch.cuda.max_memory_allocated()
+                                     if cuda else 0),
+        "f32_prefill_logit_max_err": f32_err,
+        "f32_logit_max_abs": float(lp.abs().max())})
+    return out, want
 
 
 def _leaves(tree):
@@ -2692,25 +2983,56 @@ def _leaves(tree):
         yield tree
 
 
+class MoESpans:
+    """While active, ``record_function`` ranges around every MoE MLP
+    (``moe_mlp``) and around its expert products (``moe_experts``), so a
+    profile splits the MoE's time from the rest and its dispatch and
+    combine from its products."""
+
+    def __enter__(self):
+        from torch.profiler import record_function
+
+        from repro_torch.models import layers as L
+        self._layers = L
+        self._saved = L.moe_forward, L._expert_ffn
+
+        def span(name, fn):
+            def inner(*a, **kw):
+                with record_function(name):
+                    return fn(*a, **kw)
+            return inner
+
+        L.moe_forward = span("moe_mlp", self._saved[0])
+        L._expert_ffn = span("moe_experts", self._saved[1])
+        return self
+
+    def __exit__(self, *exc):
+        self._layers.moe_forward, self._layers._expert_ffn = self._saved
+
+
 def _profile_serve(cfg, params, tokens, max_seq: int, prompt: int) -> dict:
     """One profiled prefill and 4 profiled decode steps: device time by
-    kernel and the device's busy share."""
+    kernel and the device's busy share (and the MoE's spans, for an MoE
+    model)."""
     from repro_torch.models import model as M
     holder = {}
+    spans = ("moe_mlp", "moe_experts") if cfg.moe else ()
 
     def prefill():
         holder["out"] = M.prefill(cfg, params, {"tokens": tokens}, max_seq)
 
-    out = {"prefill": profile_device(prefill, ("ssd_", "flash_"))}
-    logits, cache = holder.pop("out")
-    nxt = torch.argmax(logits[:, -1, :cfg.vocab_size], -1)[:, None]
+    with MoESpans():
+        out = {"prefill": profile_device(prefill, ("ssd_", "flash_"),
+                                         spans)}
+        logits, cache = holder.pop("out")
+        nxt = torch.argmax(logits[:, -1, :cfg.vocab_size], -1)[:, None]
 
-    def decode():
-        c = cache
-        for i in range(4):
-            _, c = M.decode_step(cfg, params, c, nxt, prompt + i)
+        def decode():
+            c = cache
+            for i in range(4):
+                _, c = M.decode_step(cfg, params, c, nxt, prompt + i)
 
-    out["decode_4_steps"] = profile_device(decode)
+        out["decode_4_steps"] = profile_device(decode, spans=spans)
     return out
 
 
@@ -3068,7 +3390,9 @@ def phase_timing(rng, dev, xs, decrypt: tuple[int, int]
     out["mont_mul"] = mm[f"{rows}x128"]
     out["mont_exp"] = time_mont_exp(rng, dev, rows, 128, nbits)
     out["flash_attention"] = time_flash(rng, dev)
-    out["flash_attention"]["h64_k8"] = time_flash(rng, dev, H=64, K=8)
+    for H, K in ((64, 8), (64, 4), (32, 8), (40, 8)):
+        out["flash_attention"][f"h{H}_k{K}"] = time_flash(rng, dev, H=H,
+                                                          K=K)
     out["flash_attention_bwd"] = time_flash_bwd(rng, dev)
     out["ssd_bwd"] = time_ssd_bwd(rng, dev)
     from repro_torch.kernels.ssd.ops import CHUNK
@@ -3077,7 +3401,8 @@ def phase_timing(rng, dev, xs, decrypt: tuple[int, int]
     out["ssd"] = {**time_ssd(rng, dev), "kernel_chunk": CHUNK,
                   "ms_from_h0": time_ssd_from_h0(rng, dev),
                   "scratch_state_bytes": 4 * Bsz * H * (-(-S // CHUNK))
-                  * P * N}
+                  * P * N,
+                  "jamba_h128_n16": time_ssd(rng, dev, H=128, N=16)}
     return {"phase": "timing", "shapes": {"rows": B, "T": T, "r": r},
             "kernels": out, "mont_mul": mm,
             "allreduce": _time_allreduce(xs, dev),
@@ -3171,8 +3496,17 @@ def mont_exp_work(rows: int, L: int, nbits: int) -> tuple[int, int]:
 def time_mont_exp(rng, dev, rows: int, L: int, nbits: int) -> dict:
     """The one-launch ladder at the decryption's shape, beside the host
     loop of two ``mont_mul`` launches a bit that it replaced (in turns:
-    ladder, loop, loop, ladder) and its plain version, timed once and
-    held equal to it."""
+    ladder, loop, loop, ladder), every row held against Python ``pow``.
+    The plain ladder runs over the first PLAIN_LADDER_BITS exponent bits
+    at the same rows x L, held limb for limb against the kernel over the
+    same bits (and both against ``pow`` of those leading bits).  Its time
+    over those ``plain_bits`` is ``plain_ms``, beside the kernel's over the
+    same bits (``ms_at_plain_bits``); ``plain_ms_scaled_to_nbits`` scales
+    it to ``nbits`` (the plain ladder is one host loop of the same two
+    products a bit) and is an estimate, not a measurement.  The
+    full-length plain ladder (4,744 plain products, 199-295 s on the card)
+    no longer runs here."""
+    from repro_torch.crypto.limb import batch_from_limbs
     from repro_torch.kernels.modmul import ops as mm
     n = _rand_below(rng, 1 << (16 * L - 1)) | (1 << (16 * L - 2)) | 1
     xs = [_rand_below(rng, n) for _ in range(rows)]
@@ -3190,22 +3524,41 @@ def time_mont_exp(rng, dev, rows: int, L: int, nbits: int) -> dict:
     ladder_ms, loop_ms = [cuda_ms(ladder, reps=3)], [cuda_ms(loop, reps=1)]
     loop_ms.append(cuda_ms(loop, reps=1))
     ladder_ms.append(cuda_ms(ladder, reps=3))
-    got = ladder()
+    R_inv = pow(mp["R"], -1, n)
+
+    def held_to_pow(out, es, what):
+        vals = batch_from_limbs(out.cpu().numpy().astype(np.uint32))
+        check([v * R_inv % n for v in vals] ==
+              [pow(x, e, n) for x, e in zip(xs, es)],
+              f"mont_exp at the decryption's shape, {what}: pow")
+
+    held_to_pow(ladder(), exps, f"{nbits} bits")
+    head = min(PLAIN_LADDER_BITS, nbits)
+    bits_head = bits[:, :head].contiguous()
+    got = mm.mont_exp_op(a, bits_head, mp["n_limbs"], mp["n0inv"], one)
+    head_ms = cuda_ms(lambda: mm.mont_exp_op(a, bits_head, mp["n_limbs"],
+                                             mp["n0inv"], one), reps=3)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    want = mm.mont_exp_op(a, bits, mp["n_limbs"], mp["n0inv"], one,
+    want = mm.mont_exp_op(a, bits_head, mp["n_limbs"], mp["n0inv"], one,
                           impl="torch")
     end.record()
     end.synchronize()
-    check(torch.equal(got, want), "mont_exp at the decryption's shape "
-          "equals the plain ladder")
+    check(torch.equal(got, want), "mont_exp at the decryption's rows x L "
+          f"equals the plain ladder over the first {head} bits")
+    held_to_pow(got, [e >> (nbits - head) for e in exps],
+                f"the first {head} bits")
+    plain_head_ms = start.elapsed_time(end)
     nbytes, int_ops = mont_exp_work(rows, L, nbits)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = int_ops / INT32_OPS_PER_S * 1e3
     ms = statistics.median(ladder_ms)
     return {"ms": ms, "ladder_ms": ladder_ms, "loop_ms": loop_ms,
-            "plain_ms": start.elapsed_time(end), "rows": rows, "L": L,
+            "plain_ms": plain_head_ms, "plain_bits": head,
+            "ms_at_plain_bits": head_ms,
+            "plain_ms_scaled_to_nbits": plain_head_ms * nbits / head,
+            "rows": rows, "L": L,
             "nbits": nbits, "us_per_product": ms * 1e3 / (2 * nbits),
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
@@ -3225,7 +3578,8 @@ def bound(nbytes: float, flops: float, flops_per_s: float) -> dict:
 def time_flash(rng, dev, H: int = 16, K: int = 8) -> dict:
     """``flash_attention`` at qwen3-1.7b's prefill (B 4, S 2048, H 16,
     K 8, hd 128, causal, bf16; command-r-35b's and qwen1.5-110b's with H
-    64), its plain version, and ``scaled_dot_product_attention`` on the
+    64; qwen3-moe-235b's H 64 over K 4, jamba's H 32, llama4-maverick's H
+    40, whose window of 8,192 masks nothing at 2,048), its plain version, and ``scaled_dot_product_attention`` on the
     same inputs in its (B, H, S, hd) layout (timed here only; the port
     never calls it)."""
     from repro_torch.kernels.flash_attention import flash_attention
@@ -3343,9 +3697,10 @@ def ssd_flops(Bsz: int, S: int, H: int, P: int, N: int) -> tuple[int, int]:
     return min((ssd_flops_at(Bsz, S, H, P, N, Q), Q) for Q in range(1, S + 1))
 
 
-def time_ssd(rng, dev) -> dict:
+def time_ssd(rng, dev, H: int = 32, N: int = 128) -> dict:
     """``ssd_chunked`` at mamba2-370m's prefill (B 4, S 2048, 32 heads of
-    P = 64, N = 128, B and C shared by the heads) and its plain version.
+    P = 64, N = 128, B and C shared by the heads; jamba's with 128 heads
+    of N = 16) and its plain version.
     ``ms`` is the CUDA-event median of single calls, the host's enqueueing
     of the wrapper's launches and scratch included; ``queued_ms`` the
     device time of one of 20 calls queued back to back; ``by_kernel_ms``
@@ -3357,7 +3712,7 @@ def time_ssd(rng, dev) -> dict:
     runs on (3xTF32 on the tensor cores), with the float32 CUDA-core
     rate's beside it."""
     from repro_torch.kernels.ssd import ssd_chunked
-    Bsz, S, H, P, N = SERVE_BATCH, SERVE_PROMPT, 32, 64, 128
+    Bsz, S, P = SERVE_BATCH, SERVE_PROMPT, 64
     args = _ssd_inputs(rng, dev, Bsz, S, H, P, N=N, per_head=False)
 
     def call():
@@ -3635,6 +3990,10 @@ def main() -> int:
             "plain_ms": t.get("plain_ms"), "bound_ms": t.get("bound_ms"),
             "bound_by": t.get("bound_by"),
             "library_ms": t.get("library_ms"),
+            # where the plain version ran over fewer exponent bits than
+            # ``ms`` (the ladder), the bits and the kernel's time over them
+            **{key: t[key] for key in ("plain_bits", "ms_at_plain_bits")
+               if key in t},
             "mesh_launches_per_rank": (None if mesh_launches is None
                                        else mesh_launches[k.name]),
             "service_launches": (None if service_launches is None

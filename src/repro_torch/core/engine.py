@@ -46,20 +46,10 @@ from repro_torch.kernels.secure_agg import (mask_encrypt_batch_fn,
                                             unmask_decrypt_batch_fn,
                                             vote_combine_batch_fn)
 from repro_torch.kernels.secure_agg.secure_agg import narrow, wide
-from repro_torch.runtime.compat import TAG_SPACE
+from repro_torch.runtime.compat import (TAG_SPACE, flat_node_id,
+                                        ranks_by_node, slice_of, subgroup)
 
 _ENC_MODE = {"global": "mask", "pairwise": "pairwise", "none": "quantize"}
-
-
-def flat_node_id(mesh, dp_axes: Sequence[str],
-                 rank: Optional[int] = None) -> int:
-    """Row-major flat protocol node id over the dp mesh axes, read from
-    the mesh's coordinates of ``rank`` (default: this rank) -- not
-    assumed to be the global rank."""
-    nid = 0
-    for ax in dp_axes:
-        nid = nid * mesh.shape[ax] + mesh.coord(ax, rank)
-    return nid
 
 
 def _active_bases(items, rnd_idx: int) -> set:
@@ -570,40 +560,6 @@ def tree_allreduce(tree, cfg, mesh, dp_axes: Sequence[str] = ("data",),
 # ---------------------------------------------------------------------------
 
 
-def _slice_of(mesh, dp_axes: Sequence[str], rank: int) -> tuple:
-    """``rank``'s coordinates on the mesh axes outside ``dp_axes``."""
-    return tuple(mesh.coord(ax, rank) for ax in mesh.axis_names
-                 if ax not in dp_axes)
-
-
-def _ranks_by_node(mesh, dp_axes: Sequence[str], sl: tuple) -> dict:
-    """node id -> global rank, over the ranks of slice ``sl``."""
-    return {flat_node_id(mesh, dp_axes, r): r for r in range(mesh.size)
-            if _slice_of(mesh, dp_axes, r) == sl}
-
-
-def _subgroup(mesh, dp_axes: Sequence[str], node_groups) -> tuple:
-    """(group, sorted member ranks) of this rank among ``node_groups``
-    (node ids), one group per node group in every slice of the other
-    axes.  ``dist.new_group`` is collective over the default group, so
-    every rank creates every group, in the same order, even those it is
-    not in; they are built once per (mesh, dp axes, node groups) and
-    cached on the mesh."""
-    key = (tuple(dp_axes), tuple(tuple(g) for g in node_groups))
-    if key not in mesh.groups:
-        mine = None
-        for sl in sorted({_slice_of(mesh, dp_axes, r)
-                          for r in range(mesh.size)}):
-            by_node = _ranks_by_node(mesh, dp_axes, sl)
-            for nodes in key[1]:
-                members = sorted(by_node[i] for i in nodes)
-                group = dist.new_group(members)
-                if mesh.rank in members:
-                    mine = (group, members)
-        mesh.groups[key] = mine
-    return mesh.groups[key]
-
-
 WIRE_KINDS = ("hop", "cluster", "gather")
 
 
@@ -741,8 +697,8 @@ class ManualTransport(Transport):
                 raise ConfigError(f"dp axis {ax!r} is not a mesh axis "
                                   f"{mesh.axis_names}")
         self.node_id = flat_node_id(mesh, self.dp_axes)
-        self._ranks = _ranks_by_node(mesh, self.dp_axes,
-                                     _slice_of(mesh, self.dp_axes, mesh.rank))
+        self._ranks = ranks_by_node(mesh, self.dp_axes,
+                                     slice_of(mesh, self.dp_axes, mesh.rank))
         if len(self._ranks) != plan.n_nodes:
             raise ConfigError(
                 f"the plan has {plan.n_nodes} nodes, the mesh's dp axes "
@@ -772,7 +728,7 @@ class ManualTransport(Transport):
         wraps mod 2^32, which is the ring's sum."""
         if self.plan.cluster_size == 1:
             return q
-        group, _ = _subgroup(self.mesh, self.dp_axes, self.plan.groups)
+        group, _ = subgroup(self.mesh, self.dp_axes, self.plan.groups)
         t = self.link.put(q, "cluster")
         self.link.wait([dist.all_reduce(t, op=dist.ReduceOp.SUM,
                                         group=group, async_op=True)],
@@ -879,7 +835,7 @@ class ManualTransport(Transport):
         """Every node's ``x`` (equal shapes), in node order, on every rank
         of the dp slice."""
         n = self.plan.n_nodes
-        group, members = _subgroup(self.mesh, self.dp_axes, [tuple(range(n))])
+        group, members = subgroup(self.mesh, self.dp_axes, [tuple(range(n))])
         t = self.link.put(x, "gather")
         parts = [self.link.empty(x) for _ in members]
         self.link.wait([dist.all_gather(parts, t, group=group,

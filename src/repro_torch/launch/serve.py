@@ -9,7 +9,9 @@ the reference's (the same ``SyntheticStream``), the cache is sized at
 ``max_seq`` from the start (the reference prefills a prompt-length cache
 and grows it), and the reference's ``mesh`` has no counterpart yet (the
 sharded serve comes with the distributed slice).  ``device=None`` is the
-card and raises without one.
+card and raises without one.  Every registered arch serves, the MoE ones
+included: a decode step sends its B tokens through the MoE with the
+capacity of B tokens (at least 8 slots an expert), as the reference's.
 """
 from __future__ import annotations
 

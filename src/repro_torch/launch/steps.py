@@ -17,7 +17,8 @@ body, ``dp_body``):
 
 Dense configs have no expert-sharded leaves, so every leaf syncs over
 every dp axis (the reference's ``_dp_leaf_axes`` reduces to that case;
-MoE waits for its slice).  The baseline step sums its gradients with a
+MoE training, with its expert-sharded leaves and the expert-parallel
+backward, waits for its slice: ``ROADMAP.md`` Queue 1).  The baseline step sums its gradients with a
 plain ``all_reduce`` (the reference's GSPMD psum) where the mesh has more
 than one dp rank.  Gloo takes host memory, so a CUDA tensor's plain sum
 is staged through the host.  The reference's ``input_specs`` /

@@ -1,8 +1,9 @@
 """Model layer primitives of the port: norms, rotary, GQA attention (full
-and chunked-window), the dense MLP, the Mamba2 SSD mixer.
+and chunked-window), the dense MLP, the Mixture-of-Experts MLP (local and
+expert-parallel), the Mamba2 SSD mixer.
 
-Counterpart of ``repro/models/layers.py``, for what the dense models
-and mamba2-370m use.  Functions are plain functions of tensors and parameter
+Counterpart of ``repro/models/layers.py``, for what the dense, MoE and
+Mamba2 models use.  Functions are plain functions of tensors and parameter
 dicts, with the reference's weight layout (``x @ W``, W of shape
 ``(in, out)``), so carrying weights across is a copy.  Every prefill goes
 through a kernel wrapper: attention through ``flash_attention``, the SSD
@@ -12,16 +13,19 @@ tensor and runs its plain version on a CPU tensor (or under
 reference.  The reference's ``constrain`` (sharding hints) has no
 counterpart on one device and is left out.
 
-Not ported yet, each raising with the slice it waits for (see
-``model.check_supported``): the MoE MLP and the cross-attention media
-path.  Logit soft-capping runs in decode only: a prefill with it raises,
-as the reference's does.
+The MoE's expert products are plain batched products over every slot of
+the fixed-capacity buffer, as the reference's einsums (no Pallas kernel
+there either).  Not ported yet, raising with the slice it waits for (see
+``model.check_supported``): the cross-attention media path.  Logit
+soft-capping runs in decode only: a prefill with it raises, as the
+reference's does.
 Training differentiates through everything here with autograd;
 attention's and the SSD scan's backwards are their wrappers' own (CUDA
 kernels on the card).
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Optional
 
@@ -31,6 +35,8 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ATTN_CHUNKED, CROSS_ATTN, ModelConfig
 from repro_torch.kernels.flash_attention import flash_attention as _flash
 from repro_torch.kernels.ssd import ssd_chunked
+from repro_torch.runtime.context import (all_reduce_sum, all_to_all,
+                                         ep_group, get_ctx)
 
 NEG_INF = -1e30
 
@@ -269,6 +275,219 @@ def mlp_forward(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     else:
         h = F.gelu(x @ _w(p, "w_up", dtype), approximate="tanh")
     return h @ _w(p, "w_down", dtype)
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts (token-choice top-k, fixed capacity, EP over an axis)
+# ---------------------------------------------------------------------------
+
+
+def make_moe_params(cfg: ModelConfig, gen: torch.Generator,
+                    expert_dtype: torch.dtype = torch.float32) -> dict:
+    """The router, the (E, ...) expert stacks and the shared expert.  Each
+    expert's matrix is drawn on its own, in float32, and stored in
+    ``expert_dtype``: the same numbers at any storage dtype, and one
+    expert's float32 draw alive at a time (a llama4-maverick layer's
+    stacks are 64 GB in float32)."""
+    m = cfg.moe
+    d, f, E = cfg.d_model, m.d_expert, m.n_experts
+    std = d ** -0.5
+    dev = gen.device
+
+    def normal(shape, s):
+        return torch.randn(shape, generator=gen, device=dev) * s
+
+    def experts(shape, s):
+        out = torch.empty((E, *shape), dtype=expert_dtype, device=dev)
+        for e in range(E):
+            out[e] = normal(shape, s)
+        return out
+
+    p = {"router": normal((d, E), std), "w_gate": experts((d, f), std),
+         "w_up": experts((d, f), std), "w_down": experts((f, d), f ** -0.5)}
+    if m.d_shared:
+        p["shared"] = {"w_gate": normal((d, m.d_shared), std),
+                       "w_up": normal((d, m.d_shared), std),
+                       "w_down": normal((m.d_shared, d),
+                                        m.d_shared ** -0.5)}
+    return p
+
+
+def _router(cfg: ModelConfig, p: dict, xf: torch.Tensor):
+    """xf: (T, D) -> top-k expert ids (T, k) int64 and their softmax
+    weights (T, k) float32, from float32 logits.  Among equal logits the
+    lower id comes first, as ``jax.lax.top_k`` orders them: a stable
+    descending sort (``torch.topk`` promises no order among ties)."""
+    logits = xf.float() @ p["router"].float()
+    w, idx = torch.sort(logits, dim=-1, descending=True, stable=True)
+    k = cfg.moe.top_k
+    return idx[:, :k], torch.softmax(w[:, :k], dim=-1)
+
+
+def _capacity(cfg: ModelConfig, n_tokens: int) -> int:
+    m = cfg.moe
+    c = int(math.ceil(n_tokens * m.top_k / m.n_experts * m.capacity_factor))
+    return max(8, -(-c // 8) * 8)  # round up to 8
+
+
+def _expert_ffn(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """x: (E, C, D) -> (E, C, D): every slot, empty ones included."""
+    dtype = x.dtype
+    h = F.silu(torch.bmm(x, _w(p, "w_gate", dtype))) \
+        * torch.bmm(x, _w(p, "w_up", dtype))
+    return torch.bmm(h, _w(p, "w_down", dtype))
+
+
+def _dispatch_slots(cfg: ModelConfig, idx: torch.Tensor, T: int):
+    """Slot of every (token, choice) pair in a buffer of E * C_e rows: its
+    expert's block, at its rank among the pairs routed to that expert in
+    the flat token-major order ``idx.reshape(T * k)``.  Pairs ranked at
+    C_e or past it are dropped: their slot is E * C_e, the sink row.
+
+    The reference ranks the pairs by a cumsum of their (T*k, E) one-hot
+    rows; here a stable sort by expert keeps each expert's pairs in flat
+    order, and a pair's rank is its place in the sort less its expert's
+    first place (a binary search of the sorted ids): the same ranks,
+    without the (T*k, E) scan (on the card that scan took 25 ms a layer
+    at qwen3-moe's prefill) and without a read back to the host."""
+    m = cfg.moe
+    E, k = m.n_experts, m.top_k
+    C_e = _capacity(cfg, T)
+    flat_e = idx.reshape(T * k)
+    sorted_e, order = torch.sort(flat_e, stable=True)
+    pos = torch.empty_like(flat_e)
+    pos[order] = torch.arange(T * k, device=flat_e.device) \
+        - torch.searchsorted(sorted_e, sorted_e)
+    slot = torch.where(pos < C_e, flat_e * C_e + pos,
+                       torch.full_like(pos, E * C_e))
+    return slot.reshape(T, k), C_e
+
+
+def _scatter(xf: torch.Tensor, slot: torch.Tensor, rows: int
+             ) -> torch.Tensor:
+    """(rows, D) buffer holding each kept pair's token at its slot, zeros
+    elsewhere; the dropped pairs land in a sink row past ``rows``, which
+    is cut off."""
+    buf = xf.new_zeros((rows + 1, xf.shape[1]))
+    for j in range(slot.shape[1]):
+        buf.index_copy_(0, slot[:, j], xf)
+    return buf[:rows]
+
+
+def _combine(xf: torch.Tensor, ret: torch.Tensor, slot: torch.Tensor,
+             w: torch.Tensor) -> torch.Tensor:
+    """ret: (E*C_e, D) expert outputs; each token's k slots gathered (a
+    dropped pair reads the zero sink row) and mixed in float32, j = 0 ..
+    k-1 in order."""
+    ret = torch.cat([ret, ret.new_zeros((1, ret.shape[1]))])
+    out = torch.zeros(xf.shape, dtype=torch.float32, device=xf.device)
+    for j in range(slot.shape[1]):
+        out = out + w[:, j:j + 1] * ret[slot[:, j]].float()
+    return out
+
+
+def _shared_expert(p: dict, xf: torch.Tensor) -> torch.Tensor:
+    sh = p["shared"]
+    dt = xf.dtype
+    h = F.silu(xf @ _w(sh, "w_gate", dt)) * (xf @ _w(sh, "w_up", dt))
+    return (h @ _w(sh, "w_down", dt)).float()
+
+
+def _finish(cfg: ModelConfig, p: dict, xf: torch.Tensor, out: torch.Tensor,
+            x: torch.Tensor) -> torch.Tensor:
+    """The shared expert added in float32, then the input's shape and
+    dtype."""
+    if cfg.moe.d_shared:
+        out = out + _shared_expert(p, xf)
+    return out.reshape(x.shape).to(x.dtype)
+
+
+def moe_local(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+    """Single-device MoE. x: (B, S, D)."""
+    E = cfg.moe.n_experts
+    B, S, D = x.shape
+    T = B * S
+    xf = x.reshape(T, D)
+    idx, w = _router(cfg, p, xf)
+    slot, C_e = _dispatch_slots(cfg, idx, T)
+    buf = _scatter(xf, slot, E * C_e)
+    yb = _expert_ffn(p, buf.view(E, C_e, D)).reshape(E * C_e, D)
+    return _finish(cfg, p, xf, _combine(xf, yb, slot, w), x)
+
+
+def moe_distributed_replicated(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                               ctx) -> torch.Tensor:
+    """EP with *replicated* tokens (small-batch decode: fewer sequences
+    than data-parallel ranks).  Every rank routes all tokens through its
+    own experts; one float32 all-reduce over the expert axis combines the
+    outputs, with no all_to_all."""
+    B, S, D = x.shape
+    T = B * S
+    _, my, n_ep = ep_group(ctx)
+    E_loc = p["w_gate"].shape[0]
+    E = E_loc * n_ep
+    xf = x.reshape(T, D)
+    idx, w = _router(cfg, p, xf)
+    slot, C_e = _dispatch_slots(cfg, idx, T)
+    buf = _scatter(xf, slot, E * C_e)
+    rows = slice(my * E_loc * C_e, (my + 1) * E_loc * C_e)
+    yout = _expert_ffn(p, buf[rows].view(E_loc, C_e, D))
+    full = torch.zeros((E * C_e, D), dtype=torch.float32, device=x.device)
+    full[rows] = yout.reshape(E_loc * C_e, D).float()
+    full = all_reduce_sum(ctx, full)
+    return _finish(cfg, p, xf, _combine(xf, full, slot, w), x)
+
+
+def moe_distributed(cfg: ModelConfig, p: dict, x: torch.Tensor, ctx
+                    ) -> torch.Tensor:
+    """Expert-parallel MoE on a rank's own tokens x (B_loc, S, D) and its
+    own experts (E_loc, ...): one all_to_all ships every top-k choice in a
+    single (E * C_e)-row buffer (in ``moe.dispatch_dtype`` where set),
+    another brings the expert outputs back in the activation dtype."""
+    m = cfg.moe
+    B, S, D = x.shape
+    T = B * S
+    _, _, n_ep = ep_group(ctx)
+    E_loc = p["w_gate"].shape[0]
+    E = E_loc * n_ep
+    xf = x.reshape(T, D)
+    idx, w = _router(cfg, p, xf)        # router replicated; runs locally
+    slot, C_e = _dispatch_slots(cfg, idx, T)
+    send = _scatter(xf, slot, E * C_e).view(n_ep, E_loc * C_e, D)
+    if m.dispatch_dtype:  # e.g. fp8 dispatch (combine stays in act dtype)
+        send = send.to(getattr(torch, m.dispatch_dtype))
+    recv = all_to_all(ctx, send).to(xf.dtype)
+    # recv: (n_ep, E_loc*C_e, D), every source rank's rows for my experts
+    xin = recv.reshape(n_ep, E_loc, C_e, D).transpose(0, 1) \
+              .reshape(E_loc, n_ep * C_e, D)
+    yout = _expert_ffn(p, xin)
+    back = yout.reshape(E_loc, n_ep, C_e, D).transpose(0, 1) \
+               .reshape(n_ep, E_loc * C_e, D)
+    ret = all_to_all(ctx, back).reshape(E * C_e, D)
+    return _finish(cfg, p, xf, _combine(xf, ret, slot, w), x)
+
+
+def moe_forward(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+    """Without an expert axis in the context, ``moe_local``; on one,
+    ``moe_distributed``, or ``moe_distributed_replicated`` where a rank
+    holds fewer sequences than there are data-parallel ranks (the
+    reference's test).  ``cfg.moe_seq_chunks > 1`` splits the dispatch
+    over sequence chunks, each with the capacity of its own tokens."""
+    n = cfg.moe_seq_chunks
+    B, S, D = x.shape
+    if n > 1 and S % n == 0:
+        sub = dataclasses.replace(cfg, moe_seq_chunks=1)
+        ys = [moe_forward(sub, p, xc)
+              for xc in x.reshape(B, n, S // n, D).unbind(1)]
+        return torch.stack(ys, dim=1).reshape(B, S, D)
+    ctx = get_ctx()
+    if ctx.mesh is None or ctx.ep_axis is None \
+            or ctx.mesh.shape[ctx.ep_axis] == 1:
+        return moe_local(cfg, p, x)
+    dp_div = math.prod(ctx.mesh.shape[a] for a in ctx.dp_axes)
+    if B % dp_div != 0 or B < dp_div:
+        return moe_distributed_replicated(cfg, p, x, ctx)
+    return moe_distributed(cfg, p, x, ctx)
 
 
 # ---------------------------------------------------------------------------

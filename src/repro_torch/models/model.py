@@ -29,9 +29,10 @@ from repro_torch.models import layers as L
 Params = Any
 Cache = Any
 
-# leaves the reference reads in float32 whatever the compute dtype; every
-# other leaf it reads only as ``.astype(cfg.dtype)``
-F32_LEAVES = ("q_norm", "k_norm", "dt_bias", "A_log", "out_norm")
+# leaves the reference reads in float32 whatever the compute dtype (the
+# MoE router too: its logits, and so the experts picked, come from the
+# float32 router); every other leaf it reads only as ``.astype(cfg.dtype)``
+F32_LEAVES = ("q_norm", "k_norm", "dt_bias", "A_log", "out_norm", "router")
 
 
 def padded_vocab(cfg: ModelConfig) -> int:
@@ -52,8 +53,6 @@ def check_supported(cfg: ModelConfig) -> None:
         if spec.mixer == CROSS_ATTN:
             raise L.not_ported("cross-attention",
                                "cross-attention and frontends")
-        if spec.mlp == MOE:
-            raise L.not_ported("the MoE MLP", "MoE")
 
 
 # ---------------------------------------------------------------------------
@@ -61,7 +60,8 @@ def check_supported(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _init_unit(cfg: ModelConfig, gen: torch.Generator) -> dict:
+def _init_unit(cfg: ModelConfig, gen: torch.Generator,
+               expert_dtype: torch.dtype = torch.float32) -> dict:
     unit = {}
     for i, spec in enumerate(cfg.pattern):
         lp = {"norm1": L.make_norm_params(cfg, gen)}
@@ -72,6 +72,9 @@ def _init_unit(cfg: ModelConfig, gen: torch.Generator) -> dict:
         if spec.mlp == DENSE:
             lp["norm2"] = L.make_norm_params(cfg, gen)
             lp["mlp"] = L.make_mlp_params(cfg, gen)
+        elif spec.mlp == MOE:
+            lp["norm2"] = L.make_norm_params(cfg, gen)
+            lp["mlp"] = L.make_moe_params(cfg, gen, expert_dtype)
         unit[f"layer{i}"] = lp
     return unit
 
@@ -84,8 +87,10 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *,
     weights carries the reference's across (``convert``).  ``cast=True``
     gives ``cast_params(cfg, init_params(cfg, gen))``, the same draws,
     with each piece cast as soon as it is drawn: at most one unit's
-    float32 masters (or the float32 table) live at once, so a model whose
-    weights fit the card only in the compute dtype can be served."""
+    float32 masters (or the float32 table) live at once, and of an MoE
+    layer's expert stacks one expert's matrix (each is drawn in float32
+    and stored cast), so a model whose weights fit the card only in the
+    compute dtype can be served."""
     check_supported(cfg)
     keep = (lambda t: cast_params(cfg, t)) if cast else (lambda t: t)
     d = cfg.d_model
@@ -98,7 +103,8 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *,
                                                 device=gen.device)
                             * (d ** -0.5)}))
     params["final_norm"] = keep(L.make_norm_params(cfg, gen))
-    params["units"] = [keep(_init_unit(cfg, gen))
+    expert_dtype = compute_dtype(cfg) if cast else torch.float32
+    params["units"] = [keep(_init_unit(cfg, gen, expert_dtype))
                        for _ in range(cfg.n_units)]
     return params
 
@@ -153,6 +159,8 @@ def _mlp(cfg: ModelConfig, spec, lp: dict, x: torch.Tensor) -> torch.Tensor:
     if spec.mlp == NONE:
         return x
     h = L.apply_norm(cfg, lp["norm2"], x)
+    if spec.mlp == MOE:
+        return x + L.moe_forward(cfg, lp["mlp"], h)
     return x + L.mlp_forward(cfg, lp["mlp"], h)
 
 

@@ -92,6 +92,51 @@ class NodeMesh:
         return self.coords(rank)[self.axis_names.index(axis)]
 
 
+def flat_node_id(mesh, dp_axes: Sequence[str],
+                 rank: Optional[int] = None) -> int:
+    """Row-major flat protocol node id over the dp mesh axes, read from
+    the mesh's coordinates of ``rank`` (default: this rank) -- not
+    assumed to be the global rank."""
+    nid = 0
+    for ax in dp_axes:
+        nid = nid * mesh.shape[ax] + mesh.coord(ax, rank)
+    return nid
+
+
+def slice_of(mesh, dp_axes: Sequence[str], rank: int) -> tuple:
+    """``rank``'s coordinates on the mesh axes outside ``dp_axes``."""
+    return tuple(mesh.coord(ax, rank) for ax in mesh.axis_names
+                 if ax not in dp_axes)
+
+
+def ranks_by_node(mesh, dp_axes: Sequence[str], sl: tuple) -> dict:
+    """node id -> global rank, over the ranks of slice ``sl``."""
+    return {flat_node_id(mesh, dp_axes, r): r for r in range(mesh.size)
+            if slice_of(mesh, dp_axes, r) == sl}
+
+
+def subgroup(mesh, dp_axes: Sequence[str], node_groups) -> tuple:
+    """(group, sorted member ranks) of this rank among ``node_groups``
+    (node ids), one group per node group in every slice of the other
+    axes.  ``dist.new_group`` is collective over the default group, so
+    every rank creates every group, in the same order, even those it is
+    not in; they are built once per (mesh, dp axes, node groups) and
+    cached on the mesh."""
+    key = (tuple(dp_axes), tuple(tuple(g) for g in node_groups))
+    if key not in mesh.groups:
+        mine = None
+        for sl in sorted({slice_of(mesh, dp_axes, r)
+                          for r in range(mesh.size)}):
+            by_node = ranks_by_node(mesh, dp_axes, sl)
+            for nodes in key[1]:
+                members = sorted(by_node[i] for i in nodes)
+                group = dist.new_group(members)
+                if mesh.rank in members:
+                    mine = (group, members)
+        mesh.groups[key] = mine
+    return mesh.groups[key]
+
+
 def make_mesh(shape: Sequence[int], axes: Sequence[str]) -> NodeMesh:
     """A mesh of the given shape over the default group."""
     return NodeMesh(shape, axes)

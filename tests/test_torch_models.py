@@ -2,11 +2,18 @@
 
 The served archs (qwen3-1.7b: GQA attention with qk-norm and a SwiGLU
 MLP; mamba2-370m: Mamba2 SSD layers; command-r-35b: LayerNorm with a
-scale, rope theta 4e6; qwen1.5-110b: QKV biases and an untied head) run
+scale, rope theta 4e6; qwen1.5-110b: QKV biases and an untied head;
+qwen3-moe-235b: the MoE MLP, top-8 of 128 at full width; llama4-maverick:
+MoE every other layer with a shared expert, chunked attention; jamba:
+Mamba2 and attention layers, MoE every other layer) run
 in float32 on the weights the reference draws (``M.init_params(cfg,
 PRNGKey(2))``, its zero QKV biases replaced by seeded nonzero ones so the
 bias add is tested), carried across by ``repro_torch.convert``, on CPU
-tensors, so the kernel wrappers run their plain versions.  Tolerances are those of
+tensors, so the kernel wrappers run their plain versions.  The MoE
+configs run at a capacity factor of 16, as the reference's own
+``tests/test_models.py`` does, so that no pair drops and a decode step's
+routing of one token matches the full forward's; the capacity's drops
+are held against the reference in ``tests/test_torch_moe.py``.  Tolerances are those of
 ``tests/test_models.py``: 2e-4 for prefill logits, 5e-4 for decode
 logits (float32 sums taken in other orders by XLA and torch); the layers
 are held at 1e-5, where only a few float32 roundings separate the two.
@@ -28,7 +35,9 @@ from repro_torch.convert import (model_config_from_fields,
 from repro_torch.models import layers as PL
 from repro_torch.models import model as PM
 
-ARCHS = ["qwen3-1.7b", "mamba2-370m", "command-r-35b", "qwen1.5-110b"]
+ARCHS = ["qwen3-1.7b", "mamba2-370m", "command-r-35b", "qwen1.5-110b",
+         "qwen3-moe-235b-a22b", "llama4-maverick-400b-a17b",
+         "jamba-v0.1-52b"]
 B, S, S_MAX = 2, 24, 48
 LAYER_TOL = 1e-5
 BIASES = ("bq", "bk", "bv")
@@ -52,6 +61,9 @@ def pair(request):
     """(jax cfg, jax params, port cfg, port params) for one arch."""
     jcfg = dataclasses.replace(get_smoke_config(request.param),
                                dtype="float32")
+    if jcfg.moe:
+        jcfg = dataclasses.replace(jcfg, moe=dataclasses.replace(
+            jcfg.moe, capacity_factor=16.0))
     jparams = seeded_biases(JM.init_params(jcfg, jax.random.PRNGKey(2)))
     pcfg = model_config_from_fields(dataclasses.asdict(jcfg))
     pparams = model_params_from_numpy(
@@ -140,8 +152,8 @@ def test_params_carry_across(pair):
 
 def test_mixer_and_mlp(pair):
     """q, k, v (qk-normed for qwen3, with biases for qwen1.5), the SwiGLU
-    MLP and attention; the Mamba2 block's prefill and one decode step from
-    its state (mamba2)."""
+    MLP (the MoE MLP where layer 0 has it) and attention; the Mamba2
+    block's prefill and one decode step from its state (mamba2, jamba)."""
     jcfg, jparams, pcfg, pparams = pair
     rng = np.random.default_rng(1)
     x = rng.standard_normal((B, S, jcfg.d_model)).astype(np.float32)
@@ -152,8 +164,14 @@ def test_mixer_and_mlp(pair):
                        jnp.float32)
         for g, w, name in zip(got, want, "qkv"):
             _close(g, w, LAYER_TOL, name)
-        _close(PL.mlp_forward(pcfg, pl["mlp"], _t(x)),
-               JL.mlp_forward(jcfg, jl["mlp"], jnp.asarray(x)), LAYER_TOL)
+        if jcfg.pattern[0].mlp == "moe":
+            _close(PL.moe_forward(pcfg, pl["mlp"], _t(x)),
+                   JL.moe_forward(jcfg, jl["mlp"], jnp.asarray(x)),
+                   LAYER_TOL)
+        else:
+            _close(PL.mlp_forward(pcfg, pl["mlp"], _t(x)),
+                   JL.mlp_forward(jcfg, jl["mlp"], jnp.asarray(x)),
+                   LAYER_TOL)
         _close(PL.attn_forward(pcfg, pl["mixer"], _t(x), mixer="attn"),
                JL.attn_forward(jcfg, jl["mixer"], jnp.asarray(x),
                                mixer="attn"), LAYER_TOL)
@@ -209,12 +227,24 @@ def test_forward_prefill_and_decode(pair):
     ("hubert-xlarge", "the cross-attention and frontends slice"),
     ("llama4-maverick-400b-a17b", "the MoE slice")])
 def test_later_slices_raise(arch, slice_):
-    """MoE, cross-attention and the frontends are later slices of the
-    port, each refused with the slice it waits for.  (The dense options,
-    QKV biases, the untied head, the GELU MLP, soft-capping in decode and
-    the embedding multiplier, run: see ``tests/test_torch_dense_options.py``
-    and the ``ARCHS`` above.)"""
+    """Cross-attention and the frontends are a later slice of the port,
+    refused with the slice it waits for.  The MoE configs came with the
+    MoE slice: they init and run a forward, prefill and decode step of
+    finite logits.  (The dense options, QKV biases, the untied head, the
+    GELU MLP, soft-capping in decode and the embedding multiplier, run:
+    see ``tests/test_torch_dense_options.py`` and the ``ARCHS`` above.)"""
     cfg = model_config_from_fields(dataclasses.asdict(get_smoke_config(arch)))
+    if slice_ == "the MoE slice":
+        params = PM.init_params(cfg, torch.Generator().manual_seed(0))
+        toks = torch.randint(0, cfg.vocab_size, (2, 16),
+                             generator=torch.Generator().manual_seed(1))
+        logits = PM.forward(cfg, params, {"tokens": toks})
+        assert logits.shape == (2, 16, PM.padded_vocab(cfg))
+        last, cache = PM.prefill(cfg, params, {"tokens": toks}, 20)
+        step, _ = PM.decode_step(cfg, params, cache, toks[:, -1:], 16)
+        for t in (logits, last, step):
+            assert bool(torch.isfinite(t.float()).all())
+        return
     with pytest.raises(NotImplementedError,
                        match=f"not ported yet: it comes with {slice_}"):
         PM.init_params(cfg, torch.Generator().manual_seed(0))
@@ -238,6 +268,22 @@ def test_cast_params_keeps_float32_leaves():
             if k in layer["mixer"]:
                 assert layer["mixer"][k].dtype == torch.float32, k
         assert torch.equal(cast["embed"], params["embed"].to(torch.bfloat16))
+        # the MoE router is read in float32 (the reference's
+        # ``xf.astype(f32) @ p["router"].astype(f32)``): a bf16 router
+        # would pick other experts; the expert stacks and the shared
+        # expert are read in the compute dtype
+        for name, lp in cast["units"][0].items():
+            moe = lp.get("mlp", {})
+            if "router" in moe:
+                assert moe["router"].dtype == torch.float32
+                assert torch.equal(
+                    moe["router"],
+                    params["units"][0][name]["mlp"]["router"])
+                for leaf in ("w_gate", "w_up", "w_down"):
+                    assert moe[leaf].dtype == torch.bfloat16
+                for leaf in moe.get("shared", {}).values():
+                    assert leaf.dtype == torch.bfloat16
+    assert "router" in PM.F32_LEAVES
 
 
 @pytest.mark.parametrize("arch", ARCHS)

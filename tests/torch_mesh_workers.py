@@ -427,11 +427,56 @@ def run_funcs(case, inputs, mesh) -> dict:
     return out
 
 
+def run_moe(case, inputs, mesh) -> dict:
+    """Expert parallelism over the mesh's one axis: this rank's tokens
+    through ``moe_forward`` under an expert-axis context, on its own
+    experts (rank r holds experts r E_loc .. (r + 1) E_loc - 1 of
+    ``inputs[case["params"] + "/..."]``): ``moe_distributed`` for its
+    own (B, S) tokens, ``moe_distributed_replicated`` for one token held
+    by every rank, and the distributed path with the dispatch in
+    float8.  Each beside ``moe_local`` over every expert on this rank."""
+    import dataclasses
+
+    from repro_torch.convert import model_config_from_fields
+    from repro_torch.models import layers as L
+    from repro_torch.runtime.context import DistCtx, use_ctx
+    cfg = model_config_from_fields(case["cfg"])
+    ax = mesh.axis_names[0]
+    n, r = mesh.shape[ax], mesh.coord(ax)
+    full: dict = {}
+    for key, v in inputs.items():
+        path = key.split("/")
+        if path[0] == case["params"]:
+            node = full
+            for part in path[1:-1]:
+                node = node.setdefault(part, {})
+            node[path[-1]] = torch.from_numpy(v)
+    E_loc = cfg.moe.n_experts // n
+    # the expert stacks split on their leading axis; the router and the
+    # shared expert replicated
+    mine = {k: (v[r * E_loc:(r + 1) * E_loc]
+                if isinstance(v, torch.Tensor) and v.dim() == 3 else v)
+            for k, v in full.items()}
+    ctx = DistCtx(mesh=mesh, dp_axes=(ax,), ep_axis=ax)
+    x = torch.from_numpy(inputs[case["x"]][r])
+    x1 = torch.from_numpy(inputs[case["x1"]])
+    fp8 = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, dispatch_dtype="float8_e4m3fn"))
+    with use_ctx(ctx):
+        dist = L.moe_forward(cfg, mine, x)
+        rep = L.moe_forward(cfg, mine, x1)
+        dist8 = L.moe_forward(fp8, mine, x)
+    return {"dist": dist.numpy(), "rep": rep.numpy(),
+            "dist_fp8": dist8.numpy(),
+            "local": L.moe_local(cfg, full, x).numpy(),
+            "local1": L.moe_local(cfg, full, x1).numpy()}
+
+
 RUN = {"execute": run_execute, "tree": run_tree, "reorder": run_reorder,
        "host_mesh": run_host_mesh, "cluster_sum": run_cluster_sum,
        "facade": run_facade, "wrong_world": run_wrong_world,
        "stale_wire": run_stale_wire, "service": run_service,
-       "funcs": run_funcs}
+       "funcs": run_funcs, "moe": run_moe}
 
 
 def worker(rank: int, job_dir: str) -> None:
