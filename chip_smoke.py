@@ -23,11 +23,15 @@ with a non-zero exit code:
            tensor-core kernel) (GQA groups 1, 2, 8, causal or not, window
            128, Sq = Skv in {77, 512, 2048}, Sq != Skv, qwen3's prefill
            shape and command-r's / qwen1.5's, 64 query heads over 8 KV
-           heads, qwen3-moe's 64 over 4, jamba's 32 over 8, and
+           heads, qwen3-moe's 64 over 4, jamba's 32 over 8,
            llama4-maverick's 40 over 8 at 12,288 tokens with its window
-           of 8,192) and the SSD scan (the kernel tests' shapes, S ragged
-           against the kernel's 256-row chunk and S below one chunk, N
-           in {8, 13, 128}, mamba2's prefill shape with B and C shared,
+           of 8,192, hubert-xlarge's bidirectional 16 heads at head dim
+           80 and ragged hd 80 cases, llama-3.2-vision's cross-attention
+           of 2,048 queries over 4,096 media tokens at 64 over 8 heads and
+           a ragged cross case) and the SSD scan (the kernel tests'
+           shapes, S ragged against the kernel's 256-row chunk and S
+           below one chunk, N in {8, 13, 128}, mamba2's prefill shape
+           with B and C shared,
            jamba's 4 x 128 heads of N = 16 per head and in the model form,
            the model form also from a carried state h0) within FLASH_TOL
            / SSD_TOL of their plain versions
@@ -124,27 +128,36 @@ with a non-zero exit code:
            with Step 4 on the card, exact and equal in every account to
            the ``pow`` run
   serve    ``repro_torch.launch.serve.serve`` at full width for
-           qwen3-1.7b, mamba2-370m, command-r-35b, qwen1.5-110b and the
-           MoE models qwen3-moe-235b-a22b, llama4-maverick-400b-a17b and
-           jamba-v0.1-52b (bf16, random weights from the seed, cast as
-           drawn, an MoE layer's experts one at a time, qwen1.5's QKV
-           biases seeded nonzero; command-r at all 40 units, qwen1.5 cut
-           to 20 of its 80, qwen3-moe to 12 of 94, llama4 to 1 of 12,
-           jamba to 2 of 4, SERVE_UNITS; the float32 check on the first
-           8 / 4 / 2 / 0 / 1 of them, SERVE_CHECK_UNITS): batch 4, prompt
-           2048, 32 tokens; prefill seconds, decode tokens/s, peak
-           memory; exactly one ``flash_attention`` call an attention
-           layer and one ``ssd`` call a Mamba2 layer in the prefill (28
-           for qwen3, 48 ``ssd`` for mamba2, 2 and 14 for jamba) and none
-           in decode; a float32 prefill through the kernels against the
-           plain versions (last logits within LOGIT_TOL_F32) and its peak
-           memory; the bf16 run on the plain versions (its logit error and
-           token agreement); for the MoE models, layer by layer, the share
-           of (token, choice) pairs the kernel run and the plain run route
-           alike, each run's dropped pairs and the router-logit gap at
-           every flip, in bf16 and float32; the MoE's spans in the
-           prefill's profile; the config widths against the reference's
-           config files
+           qwen3-1.7b, mamba2-370m, command-r-35b, qwen1.5-110b, the MoE
+           models qwen3-moe-235b-a22b, llama4-maverick-400b-a17b and
+           jamba-v0.1-52b, and llama-3.2-vision-90b (its prompts with
+           4,096 seeded media tokens, a cross-attention layer every
+           fifth) (bf16, random weights from the seed, cast as drawn, an
+           MoE layer's experts one at a time, qwen1.5's QKV biases seeded
+           nonzero; command-r at all 40 units, qwen1.5 cut to 20 of its
+           80, qwen3-moe to 12 of 94, llama4 to 1 of 12, jamba to 2 of 4,
+           llama-vision to 6 of 20, SERVE_UNITS; the float32 check on the
+           first 8 / 4 / 2 / 0 / 1 / 2 of them, SERVE_CHECK_UNITS): batch
+           4, prompt 2048, 32 tokens; prefill seconds, decode tokens/s,
+           peak memory of the kernel run and of the plain run; exactly
+           one ``flash_attention`` call an attention layer (cross layers
+           included) and one ``ssd`` call a Mamba2 layer in the prefill
+           (28 for qwen3, 48 ``ssd`` for mamba2, 2 and 14 for jamba, 30
+           for llama-vision) and none in decode; a float32 prefill
+           through the kernels against the plain versions (last logits
+           within LOGIT_TOL_F32) and its peak memory; the bf16 run on the
+           plain versions (its logit error and token agreement); the
+           cross layers' attention spans in the prefill's profile; for
+           the MoE models, layer by layer, the share of (token, choice)
+           pairs the kernel run and the plain run route alike, each run's
+           dropped pairs and the router-logit gap at every flip, in bf16
+           and float32; the MoE's spans in the prefill's profile; then
+           hubert-xlarge, encoder-only, through ``launch.serve.encode``
+           at all 48 units on 4 x 2,048 seeded frames (48
+           ``flash_attention`` calls at head dim 80), its float32 forward
+           at all 48 units against the plain versions within
+           LOGIT_TOL_F32 over every position; the config widths against
+           the reference's config files
   train    training on the card.  (a) the flash backward kernel against
            ``attention_bwd_ref`` on the same q, k, v, dO, o and L, the
            forward kernel's L against the plain L, and autograd through
@@ -212,8 +225,10 @@ with a non-zero exit code:
            version over the first 256 exponent bits, held equal to the
            kernel over the same bits, its time scaled to the whole; flash
            attention and the SSD scan at the two models' prefill shapes
-           (flash attention also at command-r's and qwen1.5's, H 64, and
-           the MoE models', H 64 over K 4, 32 over 8, 40 over 8; the SSD
+           (flash attention also at command-r's and qwen1.5's, H 64, the
+           MoE models', H 64 over K 4, 32 over 8, 40 over 8, hubert's 16
+           heads at hd 80, bidirectional, and llama-vision's cross
+           attention, 2,048 queries over 4,096 keys, no mask; the SSD
            scan also at jamba's 128 heads of N = 16),
            with ``scaled_dot_product_attention`` timed beside flash
            attention as the library yardstick, the forward also with L
@@ -316,9 +331,10 @@ DECRYPT_BITS = 1 + (math.factorial(C_THRESHOLD)).bit_length() + 2046
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 2048, 32
 # widths of the reference's config files (src/repro/configs/qwen3_1p7b.py,
 # mamba2_370m.py, command_r_35b.py, qwen15_110b.py, qwen3_moe_235b.py,
-# llama4_maverick.py, jamba_v01_52b.py), hard-coded: this script imports
-# nothing of the package.  ``moe`` and ``ssm`` are the sub-configs'
-# fields, ``pattern`` the unit's (mixer, mlp) kinds
+# llama4_maverick.py, jamba_v01_52b.py, llama32_vision_90b.py,
+# hubert_xlarge.py), hard-coded: this script imports nothing of the
+# package.  ``moe`` and ``ssm`` are the sub-configs' fields, ``pattern``
+# the unit's (mixer, mlp) kinds
 REFERENCE_WIDTHS = {
     "qwen3-1.7b": dict(d_model=2048, n_heads=16, n_kv_heads=8, hd=128,
                        d_ff=6144, vocab_size=151936, n_units=28, ssm=None,
@@ -370,6 +386,19 @@ REFERENCE_WIDTHS = {
                  capacity_factor=1.25, router_jitter=0.0,
                  n_shared_experts=0, d_shared=0, dispatch_dtype=""),
         dtype="bfloat16", opt_state_dtype="bfloat16"),
+    "llama-3.2-vision-90b": dict(
+        d_model=8192, n_heads=64, n_kv_heads=8, hd=128, d_ff=28672,
+        vocab_size=128256, n_units=20,
+        pattern=[("attn", "dense")] * 4 + [("cross_attn", "dense")],
+        rope_theta=500_000.0, tie_embeddings=False, ssm=None, moe=None,
+        frontend="vision_patches", n_media_tokens=4096, causal=True,
+        decoder=True, dtype="bfloat16", opt_state_dtype="bfloat16"),
+    "hubert-xlarge": dict(
+        d_model=1280, n_heads=16, n_kv_heads=16, hd=80, d_ff=5120,
+        vocab_size=504, n_units=48, pattern=[("attn", "dense")],
+        causal=False, decoder=False, norm="layernorm", mlp_gated=False,
+        attn_bias=True, frontend="audio_frames", n_media_tokens=0,
+        ssm=None, moe=None, dtype="bfloat16"),
 }
 # the MoE archs, whose serve also reports how the kernel run and the
 # plain run route
@@ -392,12 +421,22 @@ MOE_ARCHS = ("qwen3-moe-235b-a22b", "llama4-maverick-400b-a17b",
 # llama4-maverick none (one MoE layer's float32 stacks alone are 128 x 3
 # x 5120 x 8192 x 4 B = 64.4 GB), so its kernels meet their plain versions
 # in bf16 here and in float32 at its attention shape in the kernels phase
+# llama-3.2-vision-90b: 4.28 B params a unit (8.56 GB in bf16: four
+# self-attention layers and a cross-attention layer), 4.20 GB of table and
+# head; the plain run's cross-attention holds two float32 score tensors
+# of (4, 64, 2,048, 4,096), 8.6 GB each, at once.  6 of its 20 units
+# (55.5 GB) leave ~7 GB of the card beside those 17.2 GB, the caches
+# and the activations; 7 would not fit.  Its float32 check holds 17.1 GB
+# of masters a unit and 8.4 GB of table and head: 2 units (42.6 GB and
+# the same scores).  hubert-xlarge (0.95 B params) serves whole, its
+# float32 check too.
 SERVE_UNITS = {"command-r-35b": 40, "qwen1.5-110b": 20,
                "qwen3-moe-235b-a22b": 12, "llama4-maverick-400b-a17b": 1,
-               "jamba-v0.1-52b": 2}
+               "jamba-v0.1-52b": 2, "llama-3.2-vision-90b": 6}
 SERVE_CHECK_UNITS = {"command-r-35b": 8, "qwen1.5-110b": 4,
                      "qwen3-moe-235b-a22b": 2,
-                     "llama4-maverick-400b-a17b": 0, "jamba-v0.1-52b": 1}
+                     "llama4-maverick-400b-a17b": 0, "jamba-v0.1-52b": 1,
+                     "llama-3.2-vision-90b": 2}
 # the QKV biases, zeros as drawn, are overwritten with seeded N(0, s^2)
 # values before a serve (from their own generator, unit by unit, so the
 # float32 check's units carry the served ones' biases), so the bias add
@@ -635,7 +674,12 @@ def within(got: torch.Tensor, want: torch.Tensor, atol: float,
 # 8), and llama4-maverick's (GQA group 5: 40 over 8, window 8,192) at
 # the serve's shape, where the window masks nothing, and at 12,288 tokens,
 # where it masks (the plain version's float32 scores there are 24.2 GB a
-# copy, two alive at once)
+# copy, two alive at once); then the frontend models': hubert-xlarge's
+# bidirectional prefill at head dim 80 (B 4, S 2,048, 16 heads), ragged
+# hd 80 cases (GQA 1 and 2, causal, bidirectional, windowed with Sq !=
+# Skv), llama-3.2-vision's cross-attention (2,048 queries over 4,096
+# media tokens, 64 / 8 heads, no mask; the plain version's float32 scores
+# are 8.6 GB a copy) and a ragged cross case
 FLASH_CASES = [
     (2, 256, 256, 4, 2, 64, True, 0), (1, 128, 128, 2, 2, 32, False, 0),
     (1, 512, 512, 4, 1, 64, True, 128), (2, 128, 384, 2, 1, 32, True, 0),
@@ -651,6 +695,11 @@ FLASH_CASES = [
     (4, 2048, 2048, 32, 8, 128, True, 0),
     (4, 2048, 2048, 40, 8, 128, True, 8192),
     (1, 12288, 12288, 40, 8, 128, True, 8192),
+    (4, 2048, 2048, 16, 16, 80, False, 0),
+    (2, 77, 77, 4, 4, 80, True, 0), (2, 77, 77, 4, 2, 80, False, 0),
+    (2, 200, 77, 4, 2, 80, True, 64),
+    (4, 2048, 4096, 64, 8, 128, False, 0),
+    (2, 77, 200, 8, 2, 128, False, 0),
 ]
 
 
@@ -2747,7 +2796,8 @@ def phase_serve(dev, seed: int,
                                                        full_units))
             cfg_check = dataclasses.replace(
                 cfg, n_units=min(SERVE_CHECK_UNITS[arch], cfg.n_units))
-        out[arch], n = _serve_arch(arch, cfg, cfg_check, dev, seed, shape)
+        run = _serve_arch if cfg.decoder else _encode_arch
+        out[arch], n = run(arch, cfg, cfg_check, dev, seed, shape)
         out[arch].update(n_units=cfg.n_units, n_units_full=full_units,
                          n_units_f32_check=cfg_check.n_units)
         for k, v in n.items():
@@ -2842,13 +2892,14 @@ def _serve_arch(arch: str, cfg, cfg_check, dev, seed: int, shape
     ``cfg_check``'s (the first units of the same weights; none where it
     has no unit).  Every tensor it makes dies when it returns."""
     from repro_torch.kernels import backend
-    from repro_torch.launch.serve import serve
+    from repro_torch.launch.serve import prompt_batch, serve
     from repro_torch.models import model as M
     batch, prompt, gen = shape
     want = serve_launches(cfg)
     moe = cfg.moe is not None
     cuda = dev.type == "cuda"
-    tokens = _serve_prompts(cfg, batch, prompt, seed, dev)
+    # the prompts ``serve`` builds (with a vision model's media)
+    prompts = prompt_batch(cfg, batch, prompt, seed, dev)
     max_seq = prompt + gen
 
     def weights(c, cast: bool):
@@ -2896,23 +2947,26 @@ def _serve_arch(arch: str, cfg, cfg_check, dev, seed: int, shape
     for _ in range(3):
         sync()
         t0 = time.perf_counter()
-        M.prefill(cfg, cast, {"tokens": tokens}, max_seq)
+        M.prefill(cfg, cast, prompts, max_seq)
         sync()
         prefill_s.append(time.perf_counter() - t0)
-    # 4. the bf16 serve through the plain versions, and the bf16 prefill
+    # 4. the bf16 serve through the plain versions (its peak memory: its
+    # float32 scores are what bounds SERVE_UNITS), and the bf16 prefill
     # logits of both, with how each routed
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
     plain = serve(cfg, batch=batch, prompt_len=prompt, gen=gen, seed=seed,
                   params=cast, device=dev, kernel_impl="torch")
+    plain_peak = torch.cuda.max_memory_allocated() if cuda else 0
     check(sum(plain["launches"]["prefill"].values()) == 0,
           f"{arch}: the plain run launched a kernel")
     with RouteLog(moe) as rk:
-        lb, _ = M.prefill(cfg, cast, {"tokens": tokens}, max_seq)
+        lb, _ = M.prefill(cfg, cast, prompts, max_seq)
     with RouteLog(moe) as rp:
-        lbp, _ = M.prefill(cfg, cast, {"tokens": tokens}, max_seq,
-                           impl="torch")
+        lbp, _ = M.prefill(cfg, cast, prompts, max_seq, impl="torch")
     bf16_err = max_abs_err(lb.float(), lbp.float())
     routing = {"bf16": routing_agreement(rk, rp)} if moe else None
-    profiles = _profile_serve(cfg, cast, tokens, max_seq, prompt) \
+    profiles = _profile_serve(cfg, cast, prompts, max_seq, prompt) \
         if cuda else {}
     del cast, lb, lbp, rk, rp
     out = {
@@ -2921,6 +2975,7 @@ def _serve_arch(arch: str, cfg, cfg_check, dev, seed: int, shape
         "prefill_s_warm_median": statistics.median(prefill_s),
         "decode_s": res["t_decode_s"], "decode_tok_per_s": res["tok_per_s"],
         "peak_mem_bytes": peak, "mem_at_reset_bytes": mem_before,
+        "plain_peak_mem_bytes": plain_peak,
         "weight_bytes": weight_bytes, "params": cfg.param_count(),
         "launches_prefill": want,
         "launches_decode": sum(dec.values()),
@@ -2945,11 +3000,10 @@ def _serve_arch(arch: str, cfg, cfg_check, dev, seed: int, shape
     params = weights(cfg32, False)
     backend.reset_launch_counts()
     with RouteLog(moe) as rk:
-        lk, cache = M.prefill(cfg32, params, {"tokens": tokens}, max_seq)
+        lk, cache = M.prefill(cfg32, params, prompts, max_seq)
     f32_launches = {k: backend.launch_counts()[k] for k in want32}
     with RouteLog(moe) as rp:
-        lp, _ = M.prefill(cfg32, params, {"tokens": tokens}, max_seq,
-                          impl="torch")
+        lp, _ = M.prefill(cfg32, params, prompts, max_seq, impl="torch")
     check(f32_launches == want32 and {k: backend.launch_counts()[k]
                                       for k in want32} == want32,
           f"{arch}: float32 prefill launches {f32_launches}, want {want32}")
@@ -3010,20 +3064,68 @@ class MoESpans:
         self._layers.moe_forward, self._layers._expert_ffn = self._saved
 
 
-def _profile_serve(cfg, params, tokens, max_seq: int, prompt: int) -> dict:
+class CrossSpans:
+    """While active (``on``: for a cross-attention model), ranges of
+    ``record_function`` around a cross-attention layer's q, k, v
+    projections (``cross_qkv``: ``models.layers._qkv`` where k, v come
+    from the media) and its flash call (``cross_flash``: the non-causal
+    call; the self-attention layers of a decoder are causal), so a profile
+    splits the cross layers' attention from the rest."""
+
+    def __init__(self, on: bool = True):
+        self.on = on
+
+    def __enter__(self):
+        from torch.profiler import record_function
+
+        from repro_torch.models import layers as L
+        self._layers = L
+        self._saved = L._qkv, L.flash_attention
+        if not self.on:
+            return self
+        qkv, flash = self._saved
+
+        def cross_qkv(cfg, p, x, kv_src, dtype):
+            if kv_src is x:
+                return qkv(cfg, p, x, kv_src, dtype)
+            with record_function("cross_qkv"):
+                return qkv(cfg, p, x, kv_src, dtype)
+
+        def cross_flash(q, k, v, **kw):
+            if kw["causal"]:
+                return flash(q, k, v, **kw)
+            with record_function("cross_flash"):
+                return flash(q, k, v, **kw)
+
+        L._qkv, L.flash_attention = cross_qkv, cross_flash
+        return self
+
+    def __exit__(self, *exc):
+        self._layers._qkv, self._layers.flash_attention = self._saved
+
+
+# kernel-name parts a serve profile splits out: the flash and SSD kernels,
+# and cuBLAS's products (``nvjet`` and ``gemm`` kernels)
+SERVE_PARTS = ("ssd_", "flash_", "nvjet", "gemm")
+
+
+def _profile_serve(cfg, params, prompts: dict, max_seq: int,
+                   prompt: int) -> dict:
     """One profiled prefill and 4 profiled decode steps: device time by
     kernel and the device's busy share (and the MoE's spans, for an MoE
+    model, the cross layers' attention spans for a cross-attention
     model)."""
     from repro_torch.models import model as M
     holder = {}
-    spans = ("moe_mlp", "moe_experts") if cfg.moe else ()
+    cross = any(sp.mixer == "cross_attn" for sp in cfg.pattern)
+    spans = (("moe_mlp", "moe_experts") if cfg.moe else ()) + \
+        (("cross_qkv", "cross_flash") if cross else ())
 
     def prefill():
-        holder["out"] = M.prefill(cfg, params, {"tokens": tokens}, max_seq)
+        holder["out"] = M.prefill(cfg, params, prompts, max_seq)
 
-    with MoESpans():
-        out = {"prefill": profile_device(prefill, ("ssd_", "flash_"),
-                                         spans)}
+    with MoESpans(), CrossSpans(cross):
+        out = {"prefill": profile_device(prefill, SERVE_PARTS, spans)}
         logits, cache = holder.pop("out")
         nxt = torch.argmax(logits[:, -1, :cfg.vocab_size], -1)[:, None]
 
@@ -3036,12 +3138,98 @@ def _profile_serve(cfg, params, tokens, max_seq: int, prompt: int) -> dict:
     return out
 
 
-def _serve_prompts(cfg, batch: int, prompt: int, seed: int, dev):
-    """The prompts ``serve`` builds: the reference's synthetic stream."""
-    from repro_torch.data.pipeline import DataConfig, SyntheticStream
-    stream = SyntheticStream(DataConfig(seq_len=prompt, global_batch=batch,
-                                        seed=seed), cfg)
-    return torch.from_numpy(stream.global_batch(0)["tokens"]).to(dev)
+def _encode_arch(arch: str, cfg, cfg_check, dev, seed: int, shape
+                 ) -> tuple[dict, dict]:
+    """An encoder-only model through ``launch.serve.encode``: the bf16
+    inference forward over ``batch`` rows of ``prompt`` frames at
+    ``cfg``'s depth (one flash call a layer), its seconds, peak memory and
+    profile; the same forward on the plain versions (logit error, the
+    share of positions whose argmax agrees); and the float32 forward at
+    ``cfg_check``'s depth, kernels against plain versions within
+    LOGIT_TOL_F32 over every position's logits."""
+    from repro_torch.kernels import backend
+    from repro_torch.launch.serve import encode, prompt_batch
+    from repro_torch.models import model as M
+    batch, frames_len = shape[0], shape[1]
+    want = serve_launches(cfg)
+    cuda = dev.type == "cuda"
+    frames = prompt_batch(cfg, batch, frames_len, seed, dev)
+
+    def weights(c, cast: bool):
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed)
+        return M.init_params(c, g, cast=cast)
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    cast = weights(cfg, True)
+    weight_bytes = sum(t.numel() * t.element_size() for t in _leaves(cast))
+    encode(cfg, batch=batch, seq_len=64, seed=seed, params=cast, device=dev)
+    if cuda:
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+    res = encode(cfg, batch=batch, seq_len=frames_len, seed=seed,
+                 params=cast, device=dev)
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    lk = res["logits"]
+    check(tuple(lk.shape) == (batch, frames_len, M.padded_vocab(cfg))
+          and bool(torch.isfinite(lk.float()).all()),
+          f"{arch}: encode logits {tuple(lk.shape)}")
+    got = {k: v for k, v in res["launches"].items() if v}
+    check(got == want, f"{arch}: encode launches {got}, want {want}")
+    warm = []
+    for _ in range(3):
+        sync()
+        t0 = time.perf_counter()
+        M.forward(cfg, cast, frames)
+        sync()
+        warm.append(time.perf_counter() - t0)
+    plain = encode(cfg, batch=batch, seq_len=frames_len, seed=seed,
+                   params=cast, device=dev, kernel_impl="torch")
+    check(sum(plain["launches"].values()) == 0,
+          f"{arch}: the plain run launched a kernel")
+    lp = plain["logits"]
+    voc = cfg.vocab_size
+    out = {
+        "encode_s": res["t_s"], "encode_s_warm": warm,
+        "encode_s_warm_median": statistics.median(warm),
+        "frames_per_s": batch * frames_len / statistics.median(warm),
+        "plain_encode_s": plain["t_s"], "peak_mem_bytes": peak,
+        "weight_bytes": weight_bytes, "params": cfg.param_count(),
+        "launches_encode": want, "f32_logit_tol": LOGIT_TOL_F32,
+        "bf16_logit_max_err_vs_plain": max_abs_err(lk.float(), lp.float()),
+        "bf16_argmax_equal_plain_share": float(
+            (lk[..., :voc].argmax(-1) == lp[..., :voc].argmax(-1))
+            .float().mean()),
+        "profiles": ({"forward": profile_device(
+            lambda: M.forward(cfg, cast, frames), SERVE_PARTS)}
+            if cuda else {})}
+    del cast, res, plain, lk, lp
+    # the float32 forward at the check's depth, kernels against plain
+    cfg32 = dataclasses.replace(cfg_check, dtype="float32")
+    want32 = serve_launches(cfg32)
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    params = weights(cfg32, False)
+    backend.reset_launch_counts()
+    lk = M.forward(cfg32, params, frames)
+    f32_launches = {k: backend.launch_counts()[k] for k in want32}
+    lp = M.forward(cfg32, params, frames, impl="torch")
+    check(f32_launches == want32 and {k: backend.launch_counts()[k]
+                                      for k in want32} == want32,
+          f"{arch}: float32 forward launches {f32_launches}, want {want32}")
+    f32_err = max_abs_err(lk, lp)
+    check(bool(torch.isfinite(lk).all()) and f32_err <= LOGIT_TOL_F32,
+          f"{arch}: float32 logits differ by {f32_err}")
+    out.update({
+        "f32_check_peak_mem_bytes": (torch.cuda.max_memory_allocated()
+                                     if cuda else 0),
+        "f32_logit_max_err": f32_err,
+        "f32_logit_max_abs": float(lp.abs().max())})
+    return out, want
 
 
 def phase_train(dev, seed: int, errs: dict) -> tuple[list, dict, dict]:
@@ -3393,6 +3581,10 @@ def phase_timing(rng, dev, xs, decrypt: tuple[int, int]
     for H, K in ((64, 8), (64, 4), (32, 8), (40, 8)):
         out["flash_attention"][f"h{H}_k{K}"] = time_flash(rng, dev, H=H,
                                                           K=K)
+    out["flash_attention"]["hubert_h16_hd80"] = time_flash(
+        rng, dev, H=16, K=16, hd=80, causal=False)
+    out["flash_attention"]["cross_h64_k8_skv4096"] = time_flash(
+        rng, dev, H=64, K=8, Skv=4096, causal=False)
     out["flash_attention_bwd"] = time_flash_bwd(rng, dev)
     out["ssd_bwd"] = time_ssd_bwd(rng, dev)
     from repro_torch.kernels.ssd.ops import CHUNK
@@ -3575,44 +3767,50 @@ def bound(nbytes: float, flops: float, flops_per_s: float) -> dict:
             "operations_ms": ops_ms}
 
 
-def time_flash(rng, dev, H: int = 16, K: int = 8) -> dict:
+def time_flash(rng, dev, H: int = 16, K: int = 8, hd: int = 128,
+               Skv: Optional[int] = None, causal: bool = True) -> dict:
     """``flash_attention`` at qwen3-1.7b's prefill (B 4, S 2048, H 16,
     K 8, hd 128, causal, bf16; command-r-35b's and qwen1.5-110b's with H
     64; qwen3-moe-235b's H 64 over K 4, jamba's H 32, llama4-maverick's H
-    40, whose window of 8,192 masks nothing at 2,048), its plain version, and ``scaled_dot_product_attention`` on the
-    same inputs in its (B, H, S, hd) layout (timed here only; the port
-    never calls it)."""
+    40, whose window of 8,192 masks nothing at 2,048; hubert-xlarge's H = K
+    = 16 at hd 80, bidirectional; llama-3.2-vision's cross-attention, H 64
+    over K 8 and ``Skv`` 4,096 media tokens, no mask), its plain version,
+    and ``scaled_dot_product_attention`` on the same inputs in its (B, H,
+    S, hd) layout (timed here only; the port never calls it)."""
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.flash_attention.ops import flash_attention_cuda
-    B, S, hd = SERVE_BATCH, SERVE_PROMPT, 128
-    q, k, v = (torch.from_numpy(rng.standard_normal((B, S, n, hd),
+    B, S = SERVE_BATCH, SERVE_PROMPT
+    Skv = Skv or S
+    q, k, v = (torch.from_numpy(rng.standard_normal((B, n_s, n, hd),
                                                     np.float32)
                                 ).to(dev, torch.bfloat16)
-               for n in (H, K, K))
-    kernel_ms = cuda_ms(lambda: flash_attention(q, k, v, causal=True),
+               for n_s, n in ((S, H), (Skv, K), (Skv, K)))
+    kernel_ms = cuda_ms(lambda: flash_attention(q, k, v, causal=causal),
                         reps=10)
     # the training forward: the same kernel, also writing L
-    lse_ms = cuda_ms(lambda: flash_attention_cuda(q, k, v, True, 0,
+    lse_ms = cuda_ms(lambda: flash_attention_cuda(q, k, v, causal, 0,
                                                   lse=True), reps=10)
-    plain_ms = cuda_ms(lambda: flash_attention(q, k, v, causal=True,
+    plain_ms = cuda_ms(lambda: flash_attention(q, k, v, causal=causal,
                                                impl="torch"), reps=3)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    library_ms = cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
+    library_ms = cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=causal,
                                       enable_gqa=True), reps=10)
-    got = flash_attention(q, k, v, causal=True).transpose(1, 2).float()
-    lib_err = max_abs_err(got, sdpa(qt, kt, vt, is_causal=True,
+    got = flash_attention(q, k, v, causal=causal).transpose(1, 2).float()
+    lib_err = max_abs_err(got, sdpa(qt, kt, vt, is_causal=causal,
                                     enable_gqa=True).float())
-    # the causal pairs (i >= j) of two products, 2 FLOP a multiply-add
-    flops = 4 * B * H * hd * S * (S + 1) // 2
-    nbytes = 2 * (2 * B * S * H * hd + 2 * B * S * K * hd)
+    # two products over the allowed (query, key) pairs (i >= j where
+    # causal), 2 FLOP a multiply-add
+    pairs = S * (S + 1) // 2 if causal else S * Skv
+    flops = 4 * B * H * hd * pairs
+    nbytes = 2 * (2 * B * S * H * hd + 2 * B * Skv * K * hd)
     return {"ms": kernel_ms, "ms_with_lse": lse_ms, "plain_ms": plain_ms,
             "library_ms": library_ms,
-            "library": "scaled_dot_product_attention(is_causal=True, "
+            "library": f"scaled_dot_product_attention(is_causal={causal}, "
                        "enable_gqa=True)",
             "library_max_abs_err": lib_err,
-            "shape": [B, S, H, K, hd], **bound(nbytes, flops,
-                                                BF16_FLOPS_PER_S)}
+            "shape": [B, S, Skv, H, K, hd, causal], **bound(
+                nbytes, flops, BF16_FLOPS_PER_S)}
 
 
 def time_flash_bwd(rng, dev) -> dict:

@@ -21,7 +21,9 @@
 // on mbarriers; rows past the sequence arrive as zeros), in the swizzled
 // layout wgmma's shared-memory descriptors read (128-byte swizzle, hd 128
 // as two 64-column panels; hd 32 and 16 swizzle their whole 64- or
-// 32-byte rows).  S = q k^T is wgmma on bf16 operands from shared memory
+// 32-byte rows; hd 80, whose 160-byte rows no 128- or 64-byte swizzle
+// divides, as five 16-column panels of 32-byte rows, one TMA box each, so
+// nothing is padded in HBM or in shared memory).  S = q k^T is wgmma on bf16 operands from shared memory
 // with float32 accumulators; the scale 1/sqrt(hd) is applied to S in
 // float32 (the Pallas kernel scales q in float32 before a float32 product
 // of bf16 values, which is exact: the same function up to one float32
@@ -39,10 +41,15 @@
 // 66 KB of shared memory) waits on its own products and shuffles, and
 // three blocks an SM hide each other's waits.  So the ring is kept
 // shallow: a V ring of two as well (82 KB a block) would fit only two
-// blocks an SM.  No producer warp, no register reallocation.
+// blocks an SM.  No producer warp, no register reallocation.  The same
+// kernel serves hubert-xlarge's bidirectional prefill at hd 80 (B 4, S
+// 2048, H = K = 16: 8.59e10 FLOP, 0.087 ms at that rate) and
+// llama-3.2-vision's cross-attention, 2,048 queries over 4,096 media
+// tokens with no mask (H 64, K 8, hd 128: 1.10e12 FLOP, 1.11 ms).
 //
 // float32 (flash_kernel): the products on the CUDA cores in float32 from
-// float32 tiles in shared memory with 4 x 4 register tiles per thread;
+// float32 tiles in shared memory, each thread 4 query rows by 4 keys of
+// the scores and 4 rows by HD / 16 columns of the output (5 at hd 80);
 // bound by the 67 TFLOP/s float32 rate it cannot approach.  It stays for
 // float32 inputs because TF32 tensor cores keep about three decimal
 // digits, too few for the float32 gates.
@@ -510,6 +517,8 @@ int dispatch(const void* q, const void* k, const void* v, void* o,
                                      causal, window, scale, stream);
     case 64: return launch<BF16, 64>(q, k, v, o, lse, B, H, K, Sq, Skv,
                                      causal, window, scale, stream);
+    case 80: return launch<BF16, 80>(q, k, v, o, lse, B, H, K, Sq, Skv,
+                                     causal, window, scale, stream);
     case 128: return launch<BF16, 128>(q, k, v, o, lse, B, H, K, Sq, Skv,
                                        causal, window, scale, stream);
     default: return 1001;
@@ -529,7 +538,8 @@ int fa_flash_attention(const void* q, const void* k, const void* v, void* o,
                        float* lse, int B, int H, int K, int Sq, int Skv,
                        int hd, int causal, int window, float scale,
                        int is_bf16, void* stream) {
-  if (hd != 16 && hd != 32 && hd != 64 && hd != 128) return 1001;
+  if (hd != 16 && hd != 32 && hd != 64 && hd != 80 && hd != 128)
+    return 1001;
   if (K < 1 || H < K || H % K != 0) return 1002;
   if (B < 1 || Sq < 1 || Skv < 1 || (int64_t)B * H > 0x7FFFFFFF ||
       (Sq + BQ - 1) / BQ > 65535)

@@ -211,6 +211,36 @@ template <> struct Wgmma<64> {
   }
 };
 
+template <> struct Wgmma<80> {
+  // d (64 x 80, f32) += A (registers, bf16 pairs) * B (smem desc,
+  // MN-major: the transpose bit); B's 80 columns are five 16-column
+  // panels of 32-byte rows, one leading byte offset apart
+  __device__ __forceinline__ static void rs(float (&d)[40], const uint32_t (&a)[4],
+                            uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %45, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+        "{" "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39" "}, "
+        "{%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+};
+
 template <> struct Wgmma<128> {
   // d (64 x 128, f32) += A (registers, bf16 pairs) * B (smem desc,
   // MN-major: the transpose bit)
@@ -249,13 +279,19 @@ template <> struct Wgmma<128> {
   }
 };
 
-// Shared-memory geometry of one head dim: rows of SWZ bytes (the swizzle
-// width, 128 B or the whole row when it is shorter), NP panels of PW
-// columns side by side for hd 128, every panel 1024-byte aligned.
+// Shared-memory geometry of one head dim: rows of SWZ bytes, the widest
+// swizzle (128, 64 or 32 B) that divides the row's HD * 2 bytes, so a
+// tile is NP panels of PW columns side by side with no padding: hd 128
+// two panels of 64 columns (128 B), hd 64 one, hd 32 one of 64 B, hd 16
+// one of 32 B, and hd 80 (160-byte rows, which no 128- or 64-byte
+// swizzle divides) five panels of 16 columns (32 B).  Every panel starts
+// on a 1024-byte boundary.
 template <int HD> struct Tiles {
-  static constexpr int SWZ = HD * 2 < 128 ? HD * 2 : 128;
+  static constexpr int SWZ = (HD * 2) % 128 == 0 ? 128
+                             : (HD * 2) % 64 == 0 ? 64 : 32;
   static constexpr int PW = SWZ / 2;                 // columns a panel
   static constexpr int NP = HD / PW;
+  static_assert(HD % 16 == 0 && NP * PW == HD, "head dim of 16-col steps");
   static constexpr uint32_t MODE = SWZ == 128 ? 1 : SWZ == 64 ? 2 : 3;
   static constexpr int Q_PANEL = BQ * SWZ;
   static constexpr int KV_PANEL = BKV * SWZ;

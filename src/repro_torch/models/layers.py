@@ -2,10 +2,10 @@
 and chunked-window), the dense MLP, the Mixture-of-Experts MLP (local and
 expert-parallel), the Mamba2 SSD mixer.
 
-Counterpart of ``repro/models/layers.py``, for what the dense, MoE and
-Mamba2 models use.  Functions are plain functions of tensors and parameter
-dicts, with the reference's weight layout (``x @ W``, W of shape
-``(in, out)``), so carrying weights across is a copy.  Every prefill goes
+Counterpart of ``repro/models/layers.py``, for what the dense, MoE,
+Mamba2 and cross-attention models use.  Functions are plain functions of
+tensors and parameter dicts, with the reference's weight layout (``x @
+W``, W of shape ``(in, out)``), so carrying weights across is a copy.  Every prefill goes
 through a kernel wrapper: attention through ``flash_attention``, the SSD
 scan through ``ssd_chunked``; each launches its CUDA kernel on a CUDA
 tensor and runs its plain version on a CPU tensor (or under
@@ -15,10 +15,11 @@ counterpart on one device and is left out.
 
 The MoE's expert products are plain batched products over every slot of
 the fixed-capacity buffer, as the reference's einsums (no Pallas kernel
-there either).  Not ported yet, raising with the slice it waits for (see
-``model.check_supported``): the cross-attention media path.  Logit
-soft-capping runs in decode only: a prefill with it raises, as the
-reference's does.
+there either).  A cross-attention layer attends from the sequence to the
+normed media tokens with no mask and no rope, through the same kernel
+wrapper (Sq != Skv), and decodes against the media's K / V, computed
+once by the prefill.  Logit soft-capping runs in decode only: a prefill
+with it raises, as the reference's does.
 Training differentiates through everything here with autograd;
 attention's and the SSD scan's backwards are their wrappers' own (CUDA
 kernels on the card).
@@ -39,11 +40,6 @@ from repro_torch.runtime.context import (all_reduce_sum, all_to_all,
                                          ep_group, get_ctx)
 
 NEG_INF = -1e30
-
-
-def not_ported(what: str, slice_: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet: it comes with "
-                               f"the {slice_} slice")
 
 
 def _w(p: dict, name: str, dtype: torch.dtype) -> torch.Tensor:
@@ -159,7 +155,11 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     return o.reshape(B, 1, H, hd).to(q.dtype)
 
 
-def make_attn_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
+def make_attn_params(cfg: ModelConfig, gen: torch.Generator,
+                     cross: bool = False) -> dict:
+    """Self- or cross-attention weights: the same shapes for both (a
+    cross layer's wk, wv read the media, of width d_model), as the
+    reference draws them."""
     d, hd, H, K = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads
     std = d ** -0.5
     dev = gen.device
@@ -201,11 +201,14 @@ def _qkv(cfg: ModelConfig, p: dict, x: torch.Tensor, kv_src: torch.Tensor,
 
 
 def attn_forward(cfg: ModelConfig, p: dict, x: torch.Tensor, *, mixer: str,
+                 media: Optional[torch.Tensor] = None,
                  positions: Optional[torch.Tensor] = None,
                  impl: Optional[str] = None) -> torch.Tensor:
-    """Full-sequence attention (train / prefill). x: (B, S, D)."""
+    """Full-sequence attention (train / prefill). x: (B, S, D); a
+    cross-attention layer's ``media`` (B, M, D), already normed: q from x,
+    k and v from the media, no rope, no mask."""
     if mixer == CROSS_ATTN:
-        raise not_ported("cross-attention", "cross-attention and frontends")
+        return cross_attention(cfg, p, x, media, impl=impl)[0]
     dtype = x.dtype
     B, S, _ = x.shape
     q, k, v = _qkv(cfg, p, x, x, dtype)
@@ -219,6 +222,20 @@ def attn_forward(cfg: ModelConfig, p: dict, x: torch.Tensor, *, mixer: str,
     return out.reshape(B, S, cfg.n_heads * cfg.hd) @ _w(p, "wo", dtype)
 
 
+def cross_attention(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                    media: torch.Tensor, *, impl: Optional[str] = None
+                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """A cross-attention layer's output for x (B, S, D) over the normed
+    media (B, M, D): q from x, k and v from the media, no rope, no mask.
+    Returns (output, k, v); k and v (B, M, K, hd) are the decode cache."""
+    B, S, _ = x.shape
+    q, k, v = _qkv(cfg, p, x, media, x.dtype)
+    out = flash_attention(q, k, v, causal=False, softcap=cfg.logit_softcap,
+                          impl=impl)
+    y = out.reshape(B, S, cfg.n_heads * cfg.hd) @ _w(p, "wo", x.dtype)
+    return y, k, v
+
+
 def attn_decode(cfg: ModelConfig, p: dict, x: torch.Tensor, cache: dict,
                 t: int, *, mixer: str, slot: Optional[int] = None
                 ) -> tuple[torch.Tensor, dict]:
@@ -227,12 +244,20 @@ def attn_decode(cfg: ModelConfig, p: dict, x: torch.Tensor, cache: dict,
     ``t`` is the absolute position (rope); ``slot`` is the cache write/read
     index (differs from ``t`` for chunked-local ring-buffer caches).  The
     cache is updated in place (the reference returns a new one), so a
-    cache sized at ``max_seq`` is written once per token.
+    cache sized at ``max_seq`` is written once per token.  A
+    cross-attention layer's cache holds the media's K / V (B, M, K, hd)
+    from the prefill: the token's q attends to all of it, and the cache
+    is returned unchanged.
     """
-    if mixer == CROSS_ATTN:
-        raise not_ported("cross-attention", "cross-attention and frontends")
     dtype = x.dtype
     B = x.shape[0]
+    if mixer == CROSS_ATTN:
+        q, _, _ = _qkv(cfg, p, x, x[:, :1], dtype)       # only q matters
+        M = cache["k"].shape[1]
+        out = decode_attention(q, cache["k"], cache["v"], M - 1,
+                               softcap=cfg.logit_softcap)
+        y = out.reshape(B, 1, cfg.n_heads * cfg.hd) @ _w(p, "wo", dtype)
+        return y, cache
     if slot is None:
         slot = t
     q, k, v = _qkv(cfg, p, x, x, dtype)

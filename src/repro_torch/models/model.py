@@ -43,18 +43,6 @@ def compute_dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise for what the port's model stack does not run yet, naming the
-    slice it comes with."""
-    if cfg.frontend != "none":
-        raise L.not_ported(f"the {cfg.frontend} frontend",
-                           "cross-attention and frontends")
-    for spec in cfg.pattern:
-        if spec.mixer == CROSS_ATTN:
-            raise L.not_ported("cross-attention",
-                               "cross-attention and frontends")
-
-
 # ---------------------------------------------------------------------------
 # Init
 # ---------------------------------------------------------------------------
@@ -68,7 +56,10 @@ def _init_unit(cfg: ModelConfig, gen: torch.Generator,
         if spec.mixer == MAMBA2:
             lp["mixer"] = L.make_mamba_params(cfg, gen)
         else:
-            lp["mixer"] = L.make_attn_params(cfg, gen)
+            cross = spec.mixer == CROSS_ATTN
+            lp["mixer"] = L.make_attn_params(cfg, gen, cross=cross)
+            if cross:
+                lp["media_norm"] = L.make_norm_params(cfg, gen)
         if spec.mlp == DENSE:
             lp["norm2"] = L.make_norm_params(cfg, gen)
             lp["mlp"] = L.make_mlp_params(cfg, gen)
@@ -90,15 +81,18 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *,
     float32 masters (or the float32 table) live at once, and of an MoE
     layer's expert stacks one expert's matrix (each is drawn in float32
     and stored cast), so a model whose weights fit the card only in the
-    compute dtype can be served."""
-    check_supported(cfg)
+    compute dtype can be served.  An audio-frames model has no embedding
+    table (its inputs are frame embeddings) and always its own head."""
     keep = (lambda t: cast_params(cfg, t)) if cast else (lambda t: t)
     d = cfg.d_model
     Vp = padded_vocab(cfg)
-    params: dict = keep({"embed": torch.randn((Vp, d), generator=gen,
-                                              device=gen.device)
-                         * (d ** -0.5)})
-    if not cfg.tie_embeddings:
+    audio = cfg.frontend == "audio_frames"
+    params: dict = {}
+    if not audio:
+        params.update(keep({"embed": torch.randn((Vp, d), generator=gen,
+                                                 device=gen.device)
+                            * (d ** -0.5)}))
+    if not cfg.tie_embeddings or audio:
         params.update(keep({"head": torch.randn((d, Vp), generator=gen,
                                                 device=gen.device)
                             * (d ** -0.5)}))
@@ -133,7 +127,10 @@ def cast_params(cfg: ModelConfig, params: Params) -> Params:
 
 def embed_inputs(cfg: ModelConfig, params: Params, batch: dict
                  ) -> torch.Tensor:
-    check_supported(cfg)
+    """The token embeddings, or an audio model's frames (B, S, D) cast to
+    the compute dtype."""
+    if cfg.frontend == "audio_frames":
+        return batch["frames"].to(compute_dtype(cfg))
     # gather, then cast: the reference casts the table first, the same
     # values for the rows gathered; the multiplier in the compute dtype
     x = params["embed"][batch["tokens"]].to(compute_dtype(cfg))
@@ -144,8 +141,8 @@ def embed_inputs(cfg: ModelConfig, params: Params, batch: dict
 
 def lm_head(cfg: ModelConfig, params: Params, x: torch.Tensor
             ) -> torch.Tensor:
-    """x @ embed^T with tied embeddings, else x @ head."""
-    if cfg.tie_embeddings:
+    """x @ embed^T with tied embeddings (and a table), else x @ head."""
+    if cfg.tie_embeddings and "embed" in params:
         return x @ params["embed"].to(x.dtype).T
     return x @ params["head"].to(x.dtype)
 
@@ -164,13 +161,26 @@ def _mlp(cfg: ModelConfig, spec, lp: dict, x: torch.Tensor) -> torch.Tensor:
     return x + L.mlp_forward(cfg, lp["mlp"], h)
 
 
+def _media(cfg: ModelConfig, batch: dict, x: torch.Tensor
+           ) -> Optional[torch.Tensor]:
+    """The batch's media embeddings (B, M, D) in x's dtype, if it has
+    any."""
+    media = batch.get("media")
+    return None if media is None else media.to(x.dtype)
+
+
 def _unit_forward(cfg: ModelConfig, unit: dict, x: torch.Tensor,
+                  media: Optional[torch.Tensor],
                   impl: Optional[str]) -> torch.Tensor:
     for i, spec in enumerate(cfg.pattern):
         lp = unit[f"layer{i}"]
         h = L.apply_norm(cfg, lp["norm1"], x)
         if spec.mixer == MAMBA2:
             y, _ = L.mamba_forward(cfg, lp["mixer"], h, impl=impl)
+        elif spec.mixer == CROSS_ATTN:
+            med = L.apply_norm(cfg, lp["media_norm"], media)
+            y = L.attn_forward(cfg, lp["mixer"], h, mixer=spec.mixer,
+                               media=med, impl=impl)
         else:
             y = L.attn_forward(cfg, lp["mixer"], h, mixer=spec.mixer,
                                impl=impl)
@@ -180,16 +190,20 @@ def _unit_forward(cfg: ModelConfig, unit: dict, x: torch.Tensor,
 
 def forward(cfg: ModelConfig, params: Params, batch: dict,
             impl: Optional[str] = None) -> torch.Tensor:
-    """Returns logits (B, S, Vp).  Under autograd with ``cfg.remat`` each
+    """Returns logits (B, S, Vp) of ``batch["tokens"]`` (or an audio
+    model's ``batch["frames"]``; a cross-attention model also reads
+    ``batch["media"]``).  Under autograd with ``cfg.remat`` each
     unit keeps only its input and runs again in the backward pass."""
     x = embed_inputs(cfg, params, batch)
+    media = _media(cfg, batch, x)
     remat = cfg.remat and torch.is_grad_enabled()
     for unit in params["units"]:
         if remat:
             x = torch.utils.checkpoint.checkpoint(
-                _unit_forward, cfg, unit, x, impl, use_reentrant=False)
+                _unit_forward, cfg, unit, x, media, impl,
+                use_reentrant=False)
         else:
-            x = _unit_forward(cfg, unit, x, impl)
+            x = _unit_forward(cfg, unit, x, media, impl)
     x = L.apply_norm(cfg, params["final_norm"], x)
     return lm_head(cfg, params, x)
 
@@ -224,7 +238,7 @@ def loss_fn(cfg: ModelConfig, params: Params, batch: dict,
 
 
 def _layer_cache(cfg: ModelConfig, spec, B: int, max_seq: int,
-                 device) -> dict:
+                 device, media_len: int = 0) -> dict:
     K, hd = cfg.n_kv_heads, cfg.hd
     dtype = compute_dtype(cfg)
     if spec.mixer == MAMBA2:
@@ -241,15 +255,23 @@ def _layer_cache(cfg: ModelConfig, spec, B: int, max_seq: int,
             "ssd": torch.zeros((B, nh, s.head_dim, s.d_state),
                                dtype=torch.float32, device=device),
         }
-    S = min(max_seq, cfg.attn_window) if spec.mixer == ATTN_CHUNKED \
-        else max_seq
+    if spec.mixer == CROSS_ATTN:
+        S = media_len
+    elif spec.mixer == ATTN_CHUNKED:
+        S = min(max_seq, cfg.attn_window)
+    else:
+        S = max_seq
     return {"k": torch.zeros((B, S, K, hd), dtype=dtype, device=device),
             "v": torch.zeros((B, S, K, hd), dtype=dtype, device=device)}
 
 
-def init_cache(cfg: ModelConfig, B: int, max_seq: int, device) -> Cache:
-    check_supported(cfg)
-    return [{f"layer{i}": _layer_cache(cfg, spec, B, max_seq, device)
+def init_cache(cfg: ModelConfig, B: int, max_seq: int, device,
+               media_len: int = 0) -> Cache:
+    """Zero caches: an attention layer's K / V at ``max_seq`` positions
+    (a chunked layer's at its window), a cross-attention layer's at
+    ``media_len`` media tokens, a Mamba2 layer's conv and SSD states."""
+    return [{f"layer{i}": _layer_cache(cfg, spec, B, max_seq, device,
+                                       media_len)
              for i, spec in enumerate(cfg.pattern)}
             for _ in range(cfg.n_units)]
 
@@ -259,9 +281,9 @@ def init_cache(cfg: ModelConfig, B: int, max_seq: int, device) -> Cache:
 # ---------------------------------------------------------------------------
 
 
-def _unit_prefill(cfg: ModelConfig, unit: dict, x: torch.Tensor, *,
-                  max_seq: int, impl: Optional[str]
-                  ) -> tuple[torch.Tensor, dict]:
+def _unit_prefill(cfg: ModelConfig, unit: dict, x: torch.Tensor,
+                  media: Optional[torch.Tensor], *, max_seq: int,
+                  impl: Optional[str]) -> tuple[torch.Tensor, dict]:
     B, S, _ = x.shape
     dtype = x.dtype
     caches = {}
@@ -271,6 +293,12 @@ def _unit_prefill(cfg: ModelConfig, unit: dict, x: torch.Tensor, *,
         if spec.mixer == MAMBA2:
             y, st = L.mamba_forward(cfg, lp["mixer"], h, impl=impl)
             caches[f"layer{i}"] = st
+        elif spec.mixer == CROSS_ATTN:
+            # the media's k, v projected once, for the output and the
+            # decode cache (the reference projects them twice)
+            med = L.apply_norm(cfg, lp["media_norm"], media)
+            y, k, v = L.cross_attention(cfg, lp["mixer"], h, med, impl=impl)
+            caches[f"layer{i}"] = {"k": k, "v": v}
         else:
             positions = torch.arange(S, dtype=torch.int32, device=x.device)
             q, k, v = L._qkv(cfg, lp["mixer"], h, h, dtype)
@@ -295,12 +323,16 @@ def _unit_prefill(cfg: ModelConfig, unit: dict, x: torch.Tensor, *,
 
 def prefill(cfg: ModelConfig, params: Params, batch: dict, max_seq: int,
             impl: Optional[str] = None) -> tuple[torch.Tensor, Cache]:
-    """Run the prompt; returns (last-position logits (B, 1, Vp), cache
-    sized for ``max_seq`` positions)."""
+    """Run the prompt (``batch["tokens"]``, with ``batch["media"]`` for a
+    cross-attention model); returns (last-position logits (B, 1, Vp),
+    cache sized for ``max_seq`` positions, a cross-attention layer's
+    holding the media's K / V)."""
     x = embed_inputs(cfg, params, batch)
+    media = _media(cfg, batch, x)
     caches = []
     for unit in params["units"]:
-        x, cache_u = _unit_prefill(cfg, unit, x, max_seq=max_seq, impl=impl)
+        x, cache_u = _unit_prefill(cfg, unit, x, media, max_seq=max_seq,
+                                   impl=impl)
         caches.append(cache_u)
     x = L.apply_norm(cfg, params["final_norm"], x)
     return lm_head(cfg, params, x[:, -1:]), caches

@@ -6,7 +6,11 @@ Pallas kernel in interpret mode (``flash_attention_op``, as
 ``tests/test_kernels.py`` runs it) and through the port's
 ``flash_attention`` on CPU tensors, at the five shapes of
 ``tests/test_kernels.py`` and with its tolerances: 2e-6 in float32, 2e-2
-in bfloat16 (one bf16 rounding of outputs computed in float32).  At the
+in bfloat16 (one bf16 rounding of outputs computed in float32); then at
+the shapes the frontend models bring (``FRONTEND_SHAPES``): head dim 80,
+hubert-xlarge's, causal and bidirectional, and a cross-attention's
+non-causal Sq != Skv under GQA 4, as llama-3.2-vision's 2,048 queries
+attend to 4,096 media tokens.  At the
 ragged lengths the Pallas kernel refuses (it asserts Sq % bq == 0) the
 port is held against ``attention_ref`` and the model's jnp
 ``layers.flash_attention``.  The CUDA kernel is held against the same
@@ -35,6 +39,11 @@ SHAPES = [
     (2, 128, 384, 2, 1, 32, True, 0),
     (1, 256, 256, 8, 8, 16, True, 0),
 ]
+FRONTEND_SHAPES = [
+    (2, 128, 128, 4, 4, 80, True, 0),
+    (2, 128, 128, 4, 2, 80, False, 0),
+    (1, 64, 128, 8, 2, 32, False, 0),
+]
 
 
 def _inputs(seed, B, Sq, Skv, H, K, hd):
@@ -49,7 +58,8 @@ def _port(arrays, dtype, **kw):
     return flash_attention(q, k, v, **kw).float().numpy()
 
 
-@pytest.mark.parametrize("B,Sq,Skv,H,K,hd,causal,window", SHAPES)
+@pytest.mark.parametrize("B,Sq,Skv,H,K,hd,causal,window",
+                         SHAPES + FRONTEND_SHAPES)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_plain_matches_pallas_kernel(B, Sq, Skv, H, K, hd, causal, window,
                                      dtype):
@@ -142,7 +152,8 @@ def tensor_core_numerics(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.permute(0, 2, 1, 3).to(torch.bfloat16)
 
 
-@pytest.mark.parametrize("B,Sq,Skv,H,K,hd,causal,window", SHAPES)
+@pytest.mark.parametrize("B,Sq,Skv,H,K,hd,causal,window",
+                         SHAPES + FRONTEND_SHAPES)
 def test_tensor_core_numerics_hold_the_bf16_tolerance(B, Sq, Skv, H, K, hd,
                                                       causal, window):
     """Why 2e-2 still holds for the bf16 kernel on the tensor cores: its
@@ -175,3 +186,14 @@ def test_tensor_core_numerics_at_ragged_lengths(Sq, Skv, causal, window):
     ref = np.asarray(attention_ref(jq, jk, jv, causal=causal, window=window),
                      np.float32)
     np.testing.assert_allclose(got, ref, atol=2e-2, rtol=2e-2)
+
+
+def test_backward_refuses_head_dim_80_with_its_own_message():
+    """The forward takes hd 80; the backward does not yet, and says so in
+    its own words (training of the frontend models waits for it)."""
+    assert 80 in fa_ops.HEAD_DIMS and 80 not in fa_ops.BWD_HEAD_DIMS
+    with pytest.raises(ValueError, match=r"backward kernel's instantiations "
+                                         r"\(16, 32, 64, 128\).*hd 80"):
+        backend.raise_on(1001, "flash_attention_bwd", fa_ops._REFUSED_BWD)
+    with pytest.raises(ValueError, match=r"\(16, 32, 64, 80, 128\)"):
+        backend.raise_on(1001, "flash_attention", fa_ops._REFUSED)

@@ -227,27 +227,37 @@ def test_forward_prefill_and_decode(pair):
     ("hubert-xlarge", "the cross-attention and frontends slice"),
     ("llama4-maverick-400b-a17b", "the MoE slice")])
 def test_later_slices_raise(arch, slice_):
-    """Cross-attention and the frontends are a later slice of the port,
-    refused with the slice it waits for.  The MoE configs came with the
-    MoE slice: they init and run a forward, prefill and decode step of
-    finite logits.  (The dense options, QKV biases, the untied head, the
-    GELU MLP, soft-capping in decode and the embedding multiplier, run:
-    see ``tests/test_torch_dense_options.py`` and the ``ARCHS`` above.)"""
+    """The configs of later slices of the port, once refused with the
+    slice they waited for, now run: the MoE configs came with the MoE
+    slice, llama-3.2-vision-90b and hubert-xlarge with the
+    cross-attention and frontends slice.  Each inits and runs a forward,
+    a prefill and (a decoder) a decode step of finite logits; the
+    frontend models on seeded media or frames.  (Their agreement with the
+    reference is held in ``tests/test_torch_moe.py``,
+    ``tests/test_torch_cross_attention.py`` and
+    ``tests/test_torch_frontends.py``; the dense options, QKV biases, the
+    untied head, the GELU MLP, soft-capping in decode and the embedding
+    multiplier, in ``tests/test_torch_dense_options.py`` and the
+    ``ARCHS`` above.)"""
     cfg = model_config_from_fields(dataclasses.asdict(get_smoke_config(arch)))
-    if slice_ == "the MoE slice":
-        params = PM.init_params(cfg, torch.Generator().manual_seed(0))
-        toks = torch.randint(0, cfg.vocab_size, (2, 16),
-                             generator=torch.Generator().manual_seed(1))
-        logits = PM.forward(cfg, params, {"tokens": toks})
-        assert logits.shape == (2, 16, PM.padded_vocab(cfg))
-        last, cache = PM.prefill(cfg, params, {"tokens": toks}, 20)
-        step, _ = PM.decode_step(cfg, params, cache, toks[:, -1:], 16)
-        for t in (logits, last, step):
-            assert bool(torch.isfinite(t.float()).all())
-        return
-    with pytest.raises(NotImplementedError,
-                       match=f"not ported yet: it comes with {slice_}"):
-        PM.init_params(cfg, torch.Generator().manual_seed(0))
+    params = PM.init_params(cfg, torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (2, 16), generator=gen)
+    if cfg.frontend == "audio_frames":
+        batch = {"frames": torch.randn((2, 16, cfg.d_model), generator=gen)}
+    else:
+        batch = {"tokens": toks}
+    if cfg.frontend == "vision_patches":
+        batch["media"] = torch.randn((2, cfg.n_media_tokens, cfg.d_model),
+                                     generator=gen)
+    logits = PM.forward(cfg, params, batch)
+    assert logits.shape == (2, 16, PM.padded_vocab(cfg))
+    last, cache = PM.prefill(cfg, params, batch, 20)
+    outs = [logits, last]
+    if cfg.decoder:
+        outs.append(PM.decode_step(cfg, params, cache, toks[:, -1:], 16)[0])
+    for t in outs:
+        assert bool(torch.isfinite(t.float()).all())
 
 
 def test_cast_params_keeps_float32_leaves():
