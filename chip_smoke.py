@@ -116,7 +116,13 @@ with a non-zero exit code:
            168 MB) and ``moe_distributed_replicated`` on one token (a
            float32 all-reduce), each rank's output within EP_TOL = 2e-4
            of ``moe_local`` over all 128 experts on the card, the bytes
-           of each exchange.  Medians of 5 warm runs of (a) and (b) as
+           of each exchange; (g2) in the same spawn, the layer's backward
+           at capacity 16 (nothing drops): the gradient of a seeded
+           cotangent's loss with respect to each rank's tokens and its 64
+           experts' three stacks, through ``moe_distributed`` and the
+           exchange's backward, against ``moe_local`` over all 128 experts
+           on both ranks' tokens, within EP_TOL of max(1, the largest
+           |entry|).  Medians of 5 warm runs of (a) and (b) as
            the slowest rank's wall ms, each rank's wire ms and profiled
            kernel ms, peak memory per rank
   paillier threshold Paillier at full width (1024-bit n, fixed committed
@@ -164,11 +170,15 @@ with a non-zero exit code:
            both kernels against autograd of ``attention_ref``, in float32
            and bf16 over GQA groups 1, 2 and 8, causal or not, window
            128, ragged Sq = Skv = 77, Sq = Skv in {512, 2048}, Sq != Skv
-           and qwen3's training shape, within FLASH_BWD_TOL, each
-           output's largest error beside its plain version's mean and
-           largest |entry|; at the ragged windowed case and qwen3's
-           shape the kernel twice on the same inputs, bit-equal
-           (FLASH_BWD_REPEAT).  (b) ``train_loop`` on qwen3-1.7b at full
+           qwen3's training shape, hubert-xlarge's (16 heads at hd 80,
+           bidirectional), a ragged hd 80 case, llama-3.2-vision's cross
+           shape (2,048 queries over 4,096 keys, 64 / 8 heads, no mask),
+           a ragged non-causal case with Sq < Skv and qwen3-moe's
+           training shape (64 / 4 heads, a GQA group of 16), within
+           FLASH_BWD_TOL, each output's largest error beside its plain
+           version's mean and largest |entry|; at the ragged windowed
+           case and qwen3's, hubert's and the cross shape the kernel
+           twice on the same inputs, bit-equal (FLASH_BWD_REPEAT).  (b) ``train_loop`` on qwen3-1.7b at full
            width (bf16 compute, float32 weights and AdamW moments,
            remat), batch 4 x 2,048 tokens: 4 plain steps, then 4 secure
            steps from the same init on a one-rank mesh (train_loop's
@@ -194,7 +204,8 @@ with a non-zero exit code:
            the same card inputs and the forward kernel's y (SSD_BWD_CASES:
            S ragged against the 256-row chunk and below one chunk, N in
            {8, 13, 128}, P in {16, 32, 64}, with and without h0 and a
-           final state's gradient, and mamba2's training shape), each of
+           final state's gradient, mamba2's training shape and jamba's
+           128 heads of N = 16), each of
            dx, ddt, da, dB, dC and dinit within SSD_BWD_TOL of its largest
            |entry| (da, a cancelling sum, also within SSD_BWD_DA_UNIT of
            its summands' magnitude); two cases run twice, bit-equal
@@ -206,7 +217,35 @@ with a non-zero exit code:
            memory and launches (a step: ``ssd`` 96 with remat, ``ssd_bwd``
            48), the secure losses within TRAIN_LOSS_TOL of the plain ones,
            one more plain step profiled (busy share, each SSD kernel by
-           name, each of the backward's own kernels seen in it)
+           name, each of the backward's own kernels seen in it).  (g)
+           ``train_loop`` on hubert-xlarge at full width and depth (48
+           units, hd 80) on the stream's frames, and (i) on
+           qwen3-moe-235b-a22b at full width, 1 of its 94 units
+           (TRAIN_MOE_UNITS), capacity 1.25: 4 plain steps, then 4
+           secure steps from the same init, batch 4 x 2,048, each step's
+           loss and seconds, tokens/s, peak memory and launches (a step:
+           one flash backward and two forwards an attention layer, mask
+           and unmask one a chunk of the synced leaves; on one rank an
+           expert stack syncs over no axis), hubert's secure losses
+           within TRAIN_LOSS_TOL of the plain ones; then the first
+           step's loss and gradients on the seeded weights and the first
+           batch through the kernels and through the plain versions
+           (``impl="torch"``, which launches no kernel) and through the
+           plain versions in float32 compute: the loss and grad norm
+           within TRAIN_LOSS_TOL relative, each attention layer's wq, wk
+           and wv gradients (hubert's first and last unit) within the
+           larger of TRAIN_LEAF_TOL and twice the plain bf16 run's own
+           error against float32, as shares of their largest |entry|;
+           qwen3-moe's at batch 2 (TRAIN_MOE_CHECK_BATCH), its later
+           steps finite and reported, not gated; (i) runs with expandable
+           allocator segments.  (h) llama-3.2-vision-90b at full width, 1
+           of its 20 units (4 self layers and a cross layer to 4,096
+           seeded media tokens): the loss and gradients of one step at
+           batch 4 x 2,048 (twice, the second timed; 5 backward and 10
+           forward flash calls), then the same comparison at batch 1,
+           the cross layer's and the first self layer's wq, wk and wv
+           leaf by leaf (the plain version's score tensors do not fit at
+           batch 4)
   launch   (a) ``launch.serve_agg --transport mesh`` at --overlay-n 192:
            16 rank processes on the card, 64 additive sessions of 2^16 and
            16 medians on 1,024 steps in batches of 16, each beside the
@@ -233,7 +272,8 @@ with a non-zero exit code:
            with ``scaled_dot_product_attention`` timed beside flash
            attention as the library yardstick, the forward also with L
            written, the SSD scan also from a carried state, the flash
-           backward at qwen3's training shape beside SDPA's backward, and
+           backward at qwen3's, hubert's and the cross shape beside
+           SDPA's backward, and
            the SSD backward at mamba2's training shape, for which no
            PyTorch call exists), and the end-to-end allreduce time
 
@@ -307,6 +347,9 @@ MESH_SHAPE = {"T": 1 << 22, "chunk": 1 << 16, "S": 16, "T_batch": 1 << 16,
 # tests/test_distributed.py::test_moe_distributed_matches_local_2dev)
 EP_ARCH = "qwen3-moe-235b-a22b"
 EP_TOL = 2e-4
+# mesh (g2)'s capacity factor: nothing drops, so a token's expert outputs
+# do not depend on which rank's buffer it shares
+EP_GRAD_CF = 16.0
 MESH_FLIP = (0, 4, 8, 12)
 MESH_FLIP_OVER = (0, 1, 4, 5, 8, 9, 12, 13)
 SPLITMIX_OPS = 9              # add, 3 shifts, 3 xors, 2 multiplies
@@ -455,6 +498,24 @@ TRAIN_STEPS = 4
 MAMBA_STEPS = 3
 TRAIN_OPT = dict(lr=3e-4, warmup_steps=2, total_steps=100)
 TRAIN_LOSS_TOL = 2e-3
+TRAIN_MOE_UNITS = 1           # train (i): qwen3-moe units (of 94)
+TRAIN_VISION_CHECK_BATCH = 1  # train (h): the batch of its plain check
+TRAIN_MOE_CHECK_BATCH = 2     # train (i): the batch of its plain check
+# (g)-(i): one step's gradients through the kernels against the plain
+# versions, leaf by leaf for attention layers' wq, wk and wv: max |a - b|
+# as a share of the plain leaf's largest |entry|, within the larger of
+# TRAIN_LEAF_TOL and twice the plain bf16 run's own share against the
+# plain run in float32 compute on the same weights and batch (if the
+# kernels are no further from float32 than the plain versions, the two
+# bf16 runs differ by at most twice that).  In bf16 compute each
+# attention output and input gradient is rounded to bf16 (2^-8
+# relative) in both runs, differently; wv's gradient sums those over the
+# tokens (2e-2 is five bf16 ulps of its largest entry), but wq's and
+# wk's pass through dS = P (dP - delta), which at a near-uniform softmax
+# cancels, so their rounding shares are larger (1.9-4.8% at hubert's
+# first and last unit, my chip run 7).  A wrong dQ, dK or dV moves a
+# leaf by its own scale.
+TRAIN_LEAF_TOL = 2e-2
 BYZ_RANKS, BYZ_STEPS = 8, 8
 RESTART_RTOL = 1e-5
 # Tolerances of the float kernels against their plain versions on the
@@ -731,14 +792,23 @@ def _check_flash(rng, dev, errs: dict) -> int:
 # (B, Sq, Skv, H, K, hd, causal, window) of the backward: GQA groups 1, 2
 # and 8, causal or not, window 128, ragged Sq = Skv = 77, Sq = Skv in
 # {512, 2048}, each head dim, Sq != Skv with rows that have no allowed key,
-# and qwen3-1.7b's training shape
+# qwen3-1.7b's training shape, hubert-xlarge's (16 heads at hd 80,
+# bidirectional), a ragged hd 80 case, llama-3.2-vision's cross shape
+# (2,048 queries over 4,096 media keys, 64 / 8 heads, no mask), a ragged
+# non-causal case with Sq < Skv and qwen3-moe-235b's training shape (64
+# query heads over 4 KV heads: a GQA group of 16, causal)
+FLASH_BWD_HUBERT = (4, 2048, 2048, 16, 16, 80, False, 0)
+FLASH_BWD_CROSS = (4, 2048, 4096, 64, 8, 128, False, 0)
+FLASH_BWD_QWEN3_MOE = (4, 2048, 2048, 64, 4, 128, True, 0)
 FLASH_BWD_CASES = [
     (2, 77, 77, 8, 8, 128, True, 0), (2, 77, 77, 8, 4, 64, False, 0),
     (1, 77, 77, 8, 1, 32, True, 16), (1, 256, 256, 8, 8, 16, True, 0),
     (2, 512, 512, 16, 16, 128, False, 0), (2, 512, 512, 16, 8, 128, True, 128),
     (1, 512, 512, 16, 2, 64, True, 0), (1, 2048, 2048, 16, 8, 128, True, 0),
     (1, 2048, 2048, 8, 1, 128, False, 0), (2, 200, 77, 4, 2, 64, True, 64),
-    (4, 2048, 2048, 16, 8, 128, True, 0),
+    (4, 2048, 2048, 16, 8, 128, True, 0), FLASH_BWD_HUBERT,
+    (2, 77, 77, 4, 2, 80, True, 0), FLASH_BWD_CROSS,
+    (2, 200, 333, 8, 2, 128, False, 0), FLASH_BWD_QWEN3_MOE,
 ]
 # The backward's tolerances, (atol, atol as a share of the output's
 # largest |entry|, rtol): max |a - b| <= atol + share max|b| + rtol |b|.
@@ -759,10 +829,12 @@ FLASH_BWD_TOL = {torch.float32: (1e-4, 0.0, 1e-4),
                  torch.bfloat16: (0.0, 2 ** -10, 2 ** -6)}
 FLASH_BWD_AUTOGRAD_TOL_BF16 = (0.0, 2 ** -7, 2 ** -6)
 # the cases whose backward runs twice and must repeat bit for bit (the
-# ragged windowed case and qwen3-1.7b's training shape): every sum is in
-# one fixed order, so a restart retraces the uninterrupted run
+# ragged windowed case, qwen3-1.7b's, hubert-xlarge's training shape and
+# the cross shape): every sum is in one fixed order, so a restart
+# retraces the uninterrupted run
 FLASH_BWD_REPEAT = [(2, 200, 77, 4, 2, 64, True, 64),
-                    (4, 2048, 2048, 16, 8, 128, True, 0)]
+                    (4, 2048, 2048, 16, 8, 128, True, 0), FLASH_BWD_HUBERT,
+                    FLASH_BWD_CROSS]
 
 
 def _check_flash_bwd(rng, dev, errs: dict) -> int:
@@ -784,7 +856,8 @@ def _check_flash_bwd(rng, dev, errs: dict) -> int:
     from repro_torch.kernels.flash_attention.ref import attention_mask
     checks = 0
     by = errs.setdefault("flash_attention_bwd_by_output", {})
-    for B, Sq, Skv, H, K, hd, causal, window in FLASH_BWD_CASES:
+    for case in FLASH_BWD_CASES:
+        B, Sq, Skv, H, K, hd, causal, window = case
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = (torch.from_numpy(rng.standard_normal(
                 (B, S, n, hd), np.float32)).to(dev, dtype)
@@ -795,7 +868,7 @@ def _check_flash_bwd(rng, dev, errs: dict) -> int:
                     f"causal={causal} window={window}")
             o, L = attention_fwd_ref(q, k, v, causal=causal, window=window)
             got = flash_attention_bwd_cuda(q, k, v, o, do, L, causal, window)
-            if (B, Sq, Skv, H, K, hd, causal, window) in FLASH_BWD_REPEAT:
+            if case in FLASH_BWD_REPEAT:
                 again = flash_attention_bwd_cuda(q, k, v, o, do, L, causal,
                                                  window)
                 check(all(torch.equal(a, b) for a, b in zip(got, again)),
@@ -941,7 +1014,7 @@ SSD_BWD_CASES = [
     (2, 77, 4, 16, 32, True, True), (1, 20, 3, 16, 13, False, False),
     (2, 300, 4, 64, 13, True, False), (1, 600, 2, 64, 128, False, True),
     (1, 260, 2, 32, 8, True, True), (2, 512, 8, 64, 128, True, True),
-    (4, 2048, 32, 64, 128, False, False),
+    (4, 2048, 32, 64, 128, False, False), (4, 2048, 128, 64, 16, False, False),
 ]
 SSD_BWD_TOL = 1e-4
 SSD_BWD_DA_UNIT = 2.0 ** -21
@@ -2527,7 +2600,84 @@ def _ep_rank(rank: int, seed: int, job_dir: str, shape: dict) -> None:
            "all_reduce_bytes": E * C1 * D * 4,
            "peak_mem_bytes": (torch.cuda.max_memory_allocated(dev)
                               if dev.type == "cuda" else 0)}
+    del dist, rep, local, local1
+    out["g2_backward"] = _ep_grad(cfg, full, mesh, ctx, rank, seed, shape,
+                                  dev)
     (pathlib.Path(job_dir) / f"ep{rank}.json").write_text(json.dumps(out))
+
+
+def _ep_grad(cfg, full: dict, mesh, ctx, rank: int, seed: int, shape: dict,
+             dev) -> dict:
+    """Mesh (g2) in one rank: the expert-parallel layer's backward at
+    capacity EP_GRAD_CF (nothing drops): the gradient of sum(out * w) for
+    a seeded cotangent w, with respect to this rank's tokens and its
+    expert slice, through ``moe_distributed`` and the exchange's backward;
+    against ``moe_local`` over every expert on both ranks' tokens (one
+    call a rank's tokens: with no drop a token's output does not depend
+    on the others), the ranks taking the reference in turn so that one
+    reference's activations are alive at a time."""
+    import torch.distributed as dist
+    from repro_torch.models import layers as L
+    from repro_torch.runtime.context import use_ctx
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=EP_GRAD_CF))
+    n, D = shape["ep_ranks"], cfg.d_model
+    E_loc = cfg.moe.n_experts // n
+    rows = slice(rank * E_loc, (rank + 1) * E_loc)
+    stacks = ("w_gate", "w_up", "w_down")
+    g = torch.Generator(device=dev)
+
+    def tokens(r):
+        # rank r's tokens (as in (g)) and cotangent
+        g.manual_seed(seed + 1 + r)
+        x = torch.randn((shape["ep_B"], shape["ep_S"], D), generator=g,
+                        device=dev)
+        g.manual_seed(seed + 100 + r)
+        return x, torch.randn(x.shape, generator=g, device=dev)
+
+    x, w = tokens(rank)
+    x.requires_grad_(True)
+    mine = {k: (v[rows].clone().requires_grad_(True) if k in stacks else v)
+            for k, v in full.items()}
+    _sync(dev)
+    t0 = time.perf_counter()
+    with use_ctx(ctx):
+        loss = (L.moe_forward(cfg, mine, x) * w).sum()
+        got = torch.autograd.grad(loss, [x] + [mine[k] for k in stacks])
+    _sync(dev)
+    ep_ms = (time.perf_counter() - t0) * 1e3
+    del loss, mine
+    errs, tops, ref_ms = {}, {}, None
+    for turn in range(n):
+        if turn == rank:
+            ref = {k: (v.detach().requires_grad_(True) if k in stacks
+                       else v) for k, v in full.items()}
+            _sync(dev)
+            t0 = time.perf_counter()
+            total = None
+            for r in range(n):
+                xr, wr = tokens(r)
+                if r == rank:
+                    xr.requires_grad_(True)
+                    mine_x = xr
+                part = (L.moe_local(cfg, ref, xr) * wr).sum()
+                total = part if total is None else total + part
+            want = torch.autograd.grad(total, [mine_x] +
+                                       [ref[k] for k in stacks])
+            want = [want[0]] + [t[rows] for t in want[1:]]
+            _sync(dev)
+            ref_ms = (time.perf_counter() - t0) * 1e3
+            for name, a, b in zip(("dx",) + stacks, got, want):
+                errs[name] = max_abs_err(a, b)
+                tops[name] = float(b.abs().max())
+            del ref, total, want
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+        dist.barrier(group=mesh.group)
+    ok = all(errs[k] <= EP_TOL * max(1.0, tops[k]) for k in errs)
+    return {"capacity_factor": EP_GRAD_CF, "ok": ok, "max_abs_err": errs,
+            "max_abs_ref": tops, "ep_fwd_bwd_ms": ep_ms,
+            "local_reference_ms": ref_ms}
 
 
 def _mesh_ep(dev, seed: int, shape: dict) -> dict:
@@ -2547,6 +2697,10 @@ def _mesh_ep(dev, seed: int, shape: dict) -> dict:
     for r in ranks:
         check(r["ok"], f"mesh (g) rank {r['rank']}: moe_distributed err "
               f"{r['err']}, replicated {r['err_replicated']} > {EP_TOL}")
+        g2 = r["g2_backward"]
+        check(g2["ok"], f"mesh (g2) rank {r['rank']}: gradient errors "
+              f"{g2['max_abs_err']} against largest entries "
+              f"{g2['max_abs_ref']}, tol {EP_TOL} of max(1, largest)")
     cfg = _ep_cfg(shape)
     return {"arch": cfg.name, "dtype": "float32",
             "experts": cfg.moe.n_experts, "top_k": cfg.moe.top_k,
@@ -3237,9 +3391,12 @@ def phase_train(dev, seed: int, errs: dict) -> tuple[list, dict, dict]:
     against its plain version; (b) qwen3-1.7b at full width, plain then
     secure steps; (c) the byzantine training across gloo ranks; (d) a
     crash and restart; (e) the SSD backward kernel against its plain
-    version; (f) mamba2-370m at full width, plain then secure steps.
-    Returns one JSON line a sub-run and the launch counts of the secure
-    runs of (b) and (f)."""
+    version; (f) mamba2-370m at full width, plain then secure steps; (g)
+    hubert-xlarge at full width and depth, plain then secure steps; (h)
+    one unit of llama-3.2-vision-90b, the loss and gradients through the
+    kernels and the plain versions; (i) one unit of qwen3-moe-235b,
+    plain then secure steps.  Returns one JSON line a sub-run and the
+    launch counts of the secure runs of (b) and (f)."""
     n = _check_flash_bwd(np.random.default_rng(seed), dev, errs)
     lines = [{"phase": "train", "part": "a_flash_bwd", "checks": n,
               "tol_atol_share_rtol": {
@@ -3261,6 +3418,9 @@ def phase_train(dev, seed: int, errs: dict) -> tuple[list, dict, dict]:
                   "seconds": time.perf_counter() - t0})
     line, mamba_launches = _train_mamba(dev, seed)
     lines.append(line)
+    lines.append(_train_hubert(dev, seed))
+    lines.append(_train_vision(dev, seed))
+    lines.append(_train_moe(dev, seed))
     return lines, launches, mamba_launches
 
 
@@ -3459,6 +3619,283 @@ def _train_mamba(dev, seed: int) -> tuple[dict, dict]:
         secure["launches"]
 
 
+def _train_steps(arch: str, cfg, dev, seed: int, part: str,
+                 line: dict) -> dict:
+    """TRAIN_STEPS plain steps of ``train_loop``, then as many secure
+    steps from the same seeded init (batch SERVE_BATCH x SERVE_PROMPT,
+    the config's own dtypes and remat); each run's losses, step seconds,
+    tokens/s, peak memory and launches, the secure sync's chunks.  The
+    flash backward must launch once an attention layer a step, the
+    forward twice with remat, and the sync's kernels once a chunk in the
+    secure run only.  Returns the part's line (``line`` merged in)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.engine import tree_flatten
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.train import default_agg
+    from repro_torch.optim import adamw
+    sh = ShapeConfig("chip_train", SERVE_PROMPT, SERVE_BATCH, "train")
+    opt = adamw.OptConfig(state_dtype=cfg.opt_state_dtype, **TRAIN_OPT)
+    agg = default_agg(1)
+    n_attn = cfg.n_units * sum(s.mixer != "mamba2" for s in cfg.pattern)
+    out = {}
+    for secure in (False, True):
+        res, run = _train_run(cfg, sh, opt, dev, seed, TRAIN_STEPS, secure)
+        # on one rank an expert stack syncs over no axis (the reference's
+        # _dp_leaf_axes: its gradient is complete along "data"), so the
+        # sync carries the other leaves
+        leaves = tree_flatten(res["params"])[0]
+        n_elems = sum(t.numel() for t, ex in
+                      zip(leaves, ST.expert_leaves(cfg, res["params"]))
+                      if not ex)
+        n_chunks = -(-n_elems // agg.chunk_elems)
+        del leaves
+        del res
+        torch.cuda.empty_cache()
+        c = run["launches"]
+        check(c["flash_attention_bwd"] == TRAIN_STEPS * n_attn and
+              c["flash_attention"] == TRAIN_STEPS * n_attn * (1 + cfg.remat)
+              and c["mask_encrypt"] == c["unmask_decrypt"]
+              == (TRAIN_STEPS * n_chunks if secure else 0),
+              f"{arch} {'secure' if secure else 'plain'} launches {c}, "
+              f"{n_attn} attention layers, {n_chunks} chunks")
+        out["secure" if secure else "plain"] = run
+    plain, secure = out["plain"], out["secure"]
+    diff = [x - y for x, y in zip(secure["losses"], plain["losses"])]
+    return {"phase": "train", "part": part, "arch": arch,
+            "batch": SERVE_BATCH, "seq_len": SERVE_PROMPT,
+            "dtype": cfg.dtype, "remat": cfg.remat, "n_units": cfg.n_units,
+            "params": cfg.param_count(), "synced_grad_elems": n_elems,
+            "opt": {**TRAIN_OPT, "state_dtype": opt.state_dtype},
+            "agg": {"n_nodes": agg.n_nodes, "chunk_elems": agg.chunk_elems,
+                    "chunks": n_chunks},
+            "plain": plain, "secure": secure, "secure_minus_plain": diff,
+            "tol": TRAIN_LOSS_TOL, **line}
+
+
+def _train_hubert(dev, seed: int) -> dict:
+    """(g): hubert-xlarge at full width and depth (48 units, head dim 80:
+    the flash backward's hd 80 instantiation, bidirectional) on the
+    synthetic stream's frames; the secure losses within TRAIN_LOSS_TOL
+    of the plain ones; the first step through the kernels against the
+    plain versions (``_kernels_vs_plain``, the first and last unit's
+    attention weights leaf by leaf)."""
+    from repro_torch.configs import get_config
+    cfg = get_config("hubert-xlarge")
+    check_widths("hubert-xlarge", cfg)
+    line = _train_steps("hubert-xlarge", cfg, dev, seed, "g_hubert", {})
+    check(all(map(math.isfinite, line["plain"]["losses"]
+                  + line["secure"]["losses"])), "hubert: non-finite loss")
+    check(max(map(abs, line["secure_minus_plain"])) <= TRAIN_LOSS_TOL,
+          f"hubert: secure - plain losses {line['secure_minus_plain']}")
+    params, batch = _first_step(cfg, dev, seed, SERVE_BATCH)
+    line["check"] = _kernels_vs_plain(
+        "hubert", cfg, params, batch, _attn_paths(cfg, (0, cfg.n_units - 1)))
+    del params, batch
+    torch.cuda.empty_cache()
+    return line
+
+
+def _train_moe(dev, seed: int) -> dict:
+    """(i): qwen3-moe-235b-a22b at full width, TRAIN_MOE_UNITS of its 94
+    units, capacity 1.25 (pairs drop): plain then secure steps, finite
+    and reported; the first step's loss and gradients through the
+    kernels against the plain versions (``_kernels_vs_plain``) at
+    TRAIN_MOE_CHECK_BATCH.  Later steps are not gated: a bf16 routing
+    flip changes the path."""
+    from repro_torch.configs import get_config
+    arch = "qwen3-moe-235b-a22b"
+    full = get_config(arch)
+    check_widths(arch, full)
+    cfg = dataclasses.replace(full, n_units=TRAIN_MOE_UNITS)
+    # the secure step's sync holds the gradients and their sum beside the
+    # float32 weights and bf16 moments, ~66 GB: segments that grow in
+    # place keep the allocator's split blocks (15 GB in a first run) from
+    # failing it; the setting is put back after the part
+    torch.cuda.empty_cache()
+    torch._C._accelerator_setAllocatorSettings("expandable_segments:True")
+    try:
+        line = _train_steps(arch, cfg, dev, seed, "i_qwen3_moe",
+                            {"units_of": full.n_units,
+                             "allocator": "expandable_segments:True"})
+        check(all(map(math.isfinite, line["plain"]["losses"]
+                      + line["secure"]["losses"])),
+              "qwen3-moe: non-finite loss")
+        params, batch = _first_step(cfg, dev, seed, TRAIN_MOE_CHECK_BATCH)
+        line["check"] = _kernels_vs_plain(
+            "qwen3-moe", cfg, params, batch,
+            _attn_paths(cfg, range(cfg.n_units)))
+        line["check_batch_cut"] = (
+            "the plain versions' float32 scores, 4.3 GB a copy at batch "
+            "4, beside 30 GB of weights and gradients and the MoE "
+            "layer's activations leave too thin a margin on 80 GB")
+        del params, batch
+    finally:
+        torch.cuda.empty_cache()
+        torch._C._accelerator_setAllocatorSettings(
+            "expandable_segments:False")
+    return line
+
+
+def _at(tree, path: tuple):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _attn_paths(cfg, units) -> list:
+    """(name, key path) of the wq, wk and wv of each attention layer of
+    the given units."""
+    from repro_torch.configs.base import MAMBA2
+    return [(f"unit{u}.layer{i}.{spec.mixer}.{w}",
+             ("units", u, f"layer{i}", "mixer", w))
+            for u in units for i, spec in enumerate(cfg.pattern)
+            if spec.mixer != MAMBA2 for w in ("wq", "wk", "wv")]
+
+
+def _first_step(cfg, dev, seed: int, rows: int) -> tuple:
+    """``train_loop``'s seeded weights and the first ``rows`` rows of its
+    first batch (SERVE_BATCH x SERVE_PROMPT), on the card."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticStream
+    from repro_torch.models import model as M
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    params = M.init_params(cfg, gen)
+    stream = SyntheticStream(DataConfig(seq_len=SERVE_PROMPT,
+                                        global_batch=SERVE_BATCH,
+                                        seed=seed), cfg)
+    batch = {k: torch.from_numpy(v[:rows].copy()).to(dev)
+             for k, v in stream.global_batch(0).items()}
+    return params, batch
+
+
+def _grads_of(cfg, params, batch: dict, impl, keep=()) -> tuple:
+    """One loss and gradient computation (``impl`` as ``loss_fn``'s):
+    ({loss, grad norm, seconds, peak bytes}, {name: the gradient at each
+    ``keep`` path}); the other gradients are dropped."""
+    from repro_torch.core.engine import tree_flatten
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    leaves, rebuild = tree_flatten(params)
+    tokens = batch["labels"].numel()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with torch.enable_grad():
+        for p in leaves:
+            p.requires_grad_(True)
+        loss = M.loss_fn(cfg, params, batch, total_tokens=tokens, impl=impl)
+        grads = rebuild(list(torch.autograd.grad(loss, leaves)))
+    gnorm = float(adamw.global_norm(grads))
+    loss = float(loss.detach())
+    seconds = time.perf_counter() - t0
+    for p in leaves:
+        p.requires_grad_(False)
+    kept = {name: _at(grads, path) for name, path in keep}
+    del grads
+    return {"loss": loss, "grad_norm": gnorm, "seconds": seconds,
+            "peak_mem_bytes": torch.cuda.max_memory_allocated()}, kept
+
+
+def _kernels_vs_plain(what: str, cfg, params, batch: dict, keep) -> dict:
+    """The loss and gradients of one step on ``params`` and ``batch``
+    through the kernels and through the plain versions (``impl="torch"``,
+    which must launch no kernel), and through the plain versions in
+    float32 compute as the yardstick of bf16 rounding: the loss and grad
+    norm within TRAIN_LOSS_TOL relative; each ``keep`` leaf's gradient
+    within the larger of TRAIN_LEAF_TOL and twice the plain bf16 run's
+    own error against float32, as shares of the plain leaf's largest
+    |entry|.  Returns the comparison for the part's line."""
+    from repro_torch.kernels import backend
+    runs = {}
+    for name, c, impl in (("kernels", cfg, None), ("plain", cfg, "torch"),
+                          ("plain_f32", dataclasses.replace(
+                              cfg, dtype="float32"), "torch")):
+        backend.reset_launch_counts()
+        runs[name] = (*_grads_of(c, params, batch, impl, keep),
+                      backend.launch_counts())
+    (kern, kg, kc), (plain, pg, pc), (f32, fg, fc) = runs.values()
+    check(kc["flash_attention_bwd"] > 0 and not any(pc.values())
+          and not any(fc.values()),
+          f"{what}: launches through the kernels {kc}, the plain "
+          f"versions {pc}, in float32 {fc}")
+    rel = {k: abs(kern[k] - plain[k]) / abs(plain[k])
+           for k in ("loss", "grad_norm")}
+
+    def share(a, b):
+        return max_abs_err(a, b) / float(b.abs().max())
+    leaf = {n: {"kernels": share(kg[n], pg[n]),
+                "plain_vs_f32": share(pg[n], fg[n])} for n in pg}
+    for v in leaf.values():
+        v["tol"] = max(TRAIN_LEAF_TOL, 2 * v["plain_vs_f32"])
+    check(all(math.isfinite(r[k]) for r in (kern, plain, f32)
+              for k in ("loss", "grad_norm"))
+          and max(rel.values()) <= TRAIN_LOSS_TOL
+          and all(v["kernels"] <= v["tol"] for v in leaf.values()),
+          f"{what}: kernels against plain versions {rel}, leaves (shares "
+          f"of the largest entry) {leaf}")
+    return {"batch": int(batch["labels"].shape[0]), "kernels": kern,
+            "plain": plain, "plain_f32": f32, "rel_diff": rel,
+            "tol": TRAIN_LOSS_TOL, "leaf_err_share_of_largest": leaf,
+            "leaf_tol_floor": TRAIN_LEAF_TOL, "kernel_launches": kc}
+
+
+def _train_vision(dev, seed: int) -> dict:
+    """(h): llama-3.2-vision-90b at full width, one unit of its 20 (4 self
+    layers and a cross layer to 4,096 seeded media tokens), float32
+    weights, bf16 compute: the loss and gradients of one step through
+    the kernels at SERVE_BATCH x SERVE_PROMPT (twice: the second timed),
+    then at TRAIN_VISION_CHECK_BATCH through the kernels against the
+    plain versions (``_kernels_vs_plain``, the cross layer's and the
+    first self layer's attention weights leaf by leaf).  No optimizer step: weights, gradients and
+    AdamW's moments would not fit."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import backend
+    arch = "llama-3.2-vision-90b"
+    full = get_config(arch)
+    check_widths(arch, full)
+    cfg = dataclasses.replace(full, n_units=1)
+    params, batch = _first_step(cfg, dev, seed, SERVE_BATCH)
+    n_attn = len(cfg.pattern)
+    runs = []
+    for _ in range(2):
+        backend.reset_launch_counts()
+        runs.append(_grads_of(cfg, params, batch, None)[0])
+        c = backend.launch_counts()
+        check(c["flash_attention_bwd"] == n_attn and c["flash_attention"]
+              == n_attn * (1 + cfg.remat), f"llama-vision launches {c}")
+    b = TRAIN_VISION_CHECK_BATCH
+    small = {k: v[:b] for k, v in batch.items()}
+    del batch
+    torch.cuda.empty_cache()
+    from repro_torch.configs.base import CROSS_ATTN
+    cross = [i for i, sp in enumerate(cfg.pattern) if sp.mixer == CROSS_ATTN]
+    keep = [(n, p) for n, p in _attn_paths(cfg, (0,))
+            if p[2] in (f"layer{cross[0]}", "layer0")]
+    chk = _kernels_vs_plain("llama-vision", cfg, params, small, keep)
+    check(all(math.isfinite(r[k]) for r in runs
+              for k in ("loss", "grad_norm")), "llama-vision: non-finite")
+    del params, small
+    torch.cuda.empty_cache()
+    warm = runs[1]
+    tokens = SERVE_BATCH * SERVE_PROMPT
+    return {"phase": "train", "part": "h_llama_vision", "arch": arch,
+            "n_units": 1, "units_of": full.n_units,
+            "media_tokens": cfg.n_media_tokens, "batch": SERVE_BATCH,
+            "seq_len": SERVE_PROMPT, "dtype": cfg.dtype,
+            "remat": cfg.remat, "params": cfg.param_count(),
+            "what": "loss and gradients of one step, no optimizer step",
+            "loss": warm["loss"], "grad_norm": warm["grad_norm"],
+            "step_s": [r["seconds"] for r in runs],
+            "step_s_warm": warm["seconds"],
+            "tokens_per_s": tokens / warm["seconds"],
+            "peak_mem_bytes": warm["peak_mem_bytes"],
+            "launches_per_step": c, "check": chk,
+            "check_batch_cut": "the plain versions' float32 score tensors "
+                               "(8.6 GB a cross-layer copy at batch 4) "
+                               "do not fit beside the weights and "
+                               "gradients"}
+
+
 def _train_byzantine(dev) -> dict:
     """(c): ``launch.byzantine_training`` on the card."""
     from repro_torch.launch import byzantine_training as BT
@@ -3586,6 +4023,10 @@ def phase_timing(rng, dev, xs, decrypt: tuple[int, int]
     out["flash_attention"]["cross_h64_k8_skv4096"] = time_flash(
         rng, dev, H=64, K=8, Skv=4096, causal=False)
     out["flash_attention_bwd"] = time_flash_bwd(rng, dev)
+    out["flash_attention_bwd"]["hubert_h16_hd80"] = time_flash_bwd(
+        rng, dev, H=16, K=16, hd=80, causal=False)
+    out["flash_attention_bwd"]["cross_h64_k8_skv4096"] = time_flash_bwd(
+        rng, dev, H=64, K=8, Skv=4096, causal=False)
     out["ssd_bwd"] = time_ssd_bwd(rng, dev)
     from repro_torch.kernels.ssd.ops import CHUNK
     Bsz, S, H, P, N = SERVE_BATCH, SERVE_PROMPT, 32, 64, 128
@@ -3813,27 +4254,33 @@ def time_flash(rng, dev, H: int = 16, K: int = 8, hd: int = 128,
                 nbytes, flops, BF16_FLOPS_PER_S)}
 
 
-def time_flash_bwd(rng, dev) -> dict:
+def time_flash_bwd(rng, dev, H: int = 16, K: int = 8, hd: int = 128,
+                   Skv: Optional[int] = None, causal: bool = True) -> dict:
     """The flash backward at qwen3-1.7b's training shape (B 4, S 2048, H
-    16, K 8, hd 128, causal, bf16) from the forward kernel's o and L, its
-    plain version, and the backward of ``scaled_dot_product_attention``
-    (causal, GQA) on the same inputs in its (B, H, S, hd) layout (timed
-    here only; the port never calls it).  ``ms`` is the CUDA-event median
-    of lone calls, ``by_kernel_ms`` each launch's mean device time in a
-    profiled run of 20 calls; the bound counts the function's five
-    products, ``design_bound_ms`` the kernels' ten."""
+    16, K 8, hd 128, causal, bf16; hubert-xlarge's with H = K = 16 at hd
+    80, bidirectional; llama-3.2-vision's cross-attention with H 64 over
+    K 8 and ``Skv`` 4,096 media keys, no mask) from the forward kernel's
+    o and L, its plain version, and the backward of
+    ``scaled_dot_product_attention`` (GQA) on the same inputs in its (B,
+    H, S, hd) layout (timed here only; the port never calls it).  ``ms``
+    is the CUDA-event median of lone calls, ``by_kernel_ms`` each
+    launch's mean device time in a profiled run of 20 calls; the bound
+    counts the function's five products over the allowed pairs,
+    ``design_bound_ms`` the kernels' ten."""
     from repro_torch.kernels.flash_attention import attention_bwd_ref
     from repro_torch.kernels.flash_attention.ops import (
         flash_attention_bwd_cuda, flash_attention_cuda)
-    B, S, H, K, hd = SERVE_BATCH, SERVE_PROMPT, 16, 8, 128
-    q, k, v, do = (torch.from_numpy(rng.standard_normal((B, S, n, hd),
-                                                        np.float32)
-                                    ).to(dev, torch.bfloat16)
-                   for n in (H, K, K, H))
-    o, L = flash_attention_cuda(q, k, v, True, 0, lse=True)
+    B, S = SERVE_BATCH, SERVE_PROMPT
+    Skv = Skv or S
+    q, do = (torch.from_numpy(rng.standard_normal((B, S, H, hd), np.float32)
+                              ).to(dev, torch.bfloat16) for _ in range(2))
+    k, v = (torch.from_numpy(rng.standard_normal((B, Skv, K, hd),
+                                                 np.float32)
+                             ).to(dev, torch.bfloat16) for _ in range(2))
+    o, L = flash_attention_cuda(q, k, v, causal, 0, lse=True)
 
     def call():
-        return flash_attention_bwd_cuda(q, k, v, o, do, L, True, 0)
+        return flash_attention_bwd_cuda(q, k, v, o, do, L, causal, 0)
 
     kernel_ms = cuda_ms(call, reps=5)
 
@@ -3845,11 +4292,11 @@ def time_flash_bwd(rng, dev) -> dict:
     by_kernel = [(name, ms / n, n) for name, ms, n in
                  profile_device(calls)["by_kernel_ms"]]
     plain_ms = cuda_ms(lambda: attention_bwd_ref(q, k, v, o, do, L,
-                                                 causal=True), reps=2)
+                                                 causal=causal), reps=2)
     qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
                   for t in (q, k, v))
     ot = torch.nn.functional.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True)
+        qt, kt, vt, is_causal=causal, enable_gqa=True)
     dot = do.transpose(1, 2).contiguous()
     library_ms = cuda_ms(lambda: torch.autograd.grad(
         ot, (qt, kt, vt), dot, retain_graph=True), reps=5)
@@ -3857,23 +4304,25 @@ def time_flash_bwd(rng, dev) -> dict:
     lib = torch.autograd.grad(ot, (qt, kt, vt), dot)
     lib_err = max(max_abs_err(g.float(), w.transpose(1, 2).float())
                   for g, w in zip(got, lib))
-    # five products over the causal pairs (i >= j), 2 FLOP a multiply-add
-    flops = 10 * B * H * hd * S * (S + 1) // 2
-    # q, k, v, o, dO and L read, dq, dk, dv written
-    nbytes = 2 * (3 * B * S * H * hd + 2 * B * S * K * hd) + 4 * B * H * S \
-        + 2 * (B * S * H * hd + 2 * B * S * K * hd)
+    # five products over the allowed pairs (i >= j where causal), 2 FLOP
+    # a multiply-add
+    pairs = S * (S + 1) // 2 if causal else S * Skv
+    flops = 10 * B * H * hd * pairs
+    # q, o, dO and L read, k, v read, dq, dk, dv written
+    nbytes = 2 * (3 * B * S * H * hd + 2 * B * Skv * K * hd) + 4 * B * H * S \
+        + 2 * (B * S * H * hd + 2 * B * Skv * K * hd)
     # the kernels' own work: S and dP in both passes, and dV, dK and dQ
     # as two products each (P and dS as bf16 pairs hi + lo): ten products
     design = bound(nbytes, 2 * flops, BF16_FLOPS_PER_S)
     return {"ms": kernel_ms, "by_kernel_ms": by_kernel,
             "plain_ms": plain_ms, "library_ms": library_ms,
-            "library": "scaled_dot_product_attention(is_causal=True, "
+            "library": f"scaled_dot_product_attention(is_causal={causal}, "
                        "enable_gqa=True) backward",
             "library_max_abs_err": lib_err,
             "design_bound_ms": design["bound_ms"],
             "design_flops": design["flops"],
-            "shape": [B, S, H, K, hd], **bound(nbytes, flops,
-                                                BF16_FLOPS_PER_S)}
+            "shape": [B, S, Skv, H, K, hd, causal], **bound(
+                nbytes, flops, BF16_FLOPS_PER_S)}
 
 
 def ssd_flops_at(Bsz: int, S: int, H: int, P: int, N: int, Q: int) -> int:

@@ -13,8 +13,30 @@ from typing import Optional, Sequence
 
 import torch
 
-from repro_torch.kernels.secure_agg.secure_agg import (M32, mul32, narrow,
-                                                       s32, wide)
+from repro_torch.kernels.secure_agg.secure_agg import (M32, median_network,
+                                                       mul32, narrow, s32,
+                                                       wide)
+
+
+def majority_vote(copies: torch.Tensor) -> torch.Tensor:
+    """copies: (r, ...) int32 words, r odd -> the element-wise median in
+    unsigned order, the majority value wherever a strict majority of the
+    copies agree."""
+    r = copies.shape[0]
+    if r % 2 != 1:
+        raise ValueError("vote redundancy must be odd")
+    if r == 1:
+        return copies[0]
+    return narrow(torch.sort(wide(copies), dim=0).values[r // 2])
+
+
+def majority_vote_list(copies: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The same over r separate int32-word tensors (r odd), through the
+    kernel layer's odd-even min/max network: no (r, ...) stack is built,
+    and the result is bit-identical to ``vote_combine``'s median."""
+    if len(copies) % 2 != 1:
+        raise ValueError("vote redundancy must be odd")
+    return narrow(median_network([wide(c) for c in copies]))
 
 
 def digest_rows(x: torch.Tensor, n_words: int = 16) -> torch.Tensor:

@@ -302,13 +302,16 @@ def pack_chunks(leaves: list, chunk_elems: int) -> list:
 
 
 def unpack_chunks(chunks: list, leaves: list) -> list:
-    """Inverse of ``pack_chunks``: re-slice summed chunks into leaves."""
-    size = chunks[0].shape[0]
+    """Inverse of ``pack_chunks``: re-slice summed chunks into leaves.
+    Each entry of the list ``chunks`` is set to None once every leaf that
+    reads it is built, so a caller holding no other reference keeps the
+    summed chunks and one leaf's copy at the peak, not two copies of the
+    tree."""
+    size, dev = chunks[0].shape[0], chunks[0].device
     outs, off = [], 0
     for l in leaves:
         if l.numel() == 0:
-            outs.append(torch.zeros(l.shape, dtype=l.dtype,
-                                    device=chunks[0].device))
+            outs.append(torch.zeros(l.shape, dtype=l.dtype, device=dev))
             continue
         need, parts = l.numel(), []
         while need:
@@ -319,6 +322,9 @@ def unpack_chunks(chunks: list, leaves: list) -> list:
             need -= take
         flat = parts[0] if len(parts) == 1 else torch.cat(parts)
         outs.append(flat.reshape(l.shape).to(l.dtype))
+        del parts, flat
+        for k in range(off // size):
+            chunks[k] = None
     return outs
 
 
@@ -546,13 +552,15 @@ def tree_allreduce(tree, cfg, mesh, dp_axes: Sequence[str] = ("data",),
     dev = chunks[0].device
     tp = ManualTransport(plan, mesh, dp_axes, device=dev,
                          chunks=len(chunks))
-    outs = execute_chunks(plan, tp, [ch[None] for ch in chunks],
-                          SessionMeta.single(cfg.seed, device=dev))
+    outs = [o[0] for o in execute_chunks(
+        plan, tp, [ch[None] for ch in chunks],
+        SessionMeta.single(cfg.seed, device=dev))]
+    del chunks
     if account is not None:
         account["bytes_sent"] += tp.bytes_sent
         for k, v in tp.link.seconds.items():
             account["wire_s"][k] += v
-    return rebuild(unpack_chunks([o[0] for o in outs], leaves))
+    return rebuild(unpack_chunks(outs, leaves))
 
 
 # ---------------------------------------------------------------------------

@@ -67,6 +67,21 @@
 // exponentials, and the registers (dK and dV, 128 float32 a thread at hd
 // 128, beside S^T and dP^T: 255 in all) allow two blocks an SM.
 //
+// Head dims 16, 32, 64, 80 and 128.  At hd 80 (hubert-xlarge) a 160-byte
+// row fits no 128- or 64-byte swizzle, so a tile is five 16-column panels
+// of 32-byte swizzled rows (Tiles<80>, the forward's layout: one TMA box
+// a panel, 10 KB a 64-row tile, nothing padded): S^T = K q^T and dP^T =
+// V dO^T take one k16 step a panel, and dV, dK and dQ run wgmma's N = 80
+// over the five panels, whose leading byte offset steps a panel, as the
+// forward's O += P V does.  ptxas gives the dK / dV kernel 213 registers
+// and the dQ kernel 168 at hd 80, no spill (255 and no spill at hd 128);
+// the float32 kernels at hd 80 take 128 registers with 4 and 36 bytes
+// spilled.  On an H100 80GB HBM3 at 700 W (chip_smoke.py's timing
+// phase) a call at hubert's training shape (B 4, S 2,048, 16 heads,
+// bidirectional) takes 1.15 ms against a 0.217 ms bound, and at
+// llama-3.2-vision's cross shape (2,048 queries over 4,096 keys, 64 / 8
+// heads, hd 128, no mask) 10.2 ms against 2.78.
+//
 // float32 (fa_bwd_kernel for dK and dV, fa_dq_kernel for dQ): the same
 // passes on the CUDA cores in float32 from float32 tiles in shared memory,
 // 4 x 4 register tiles a thread, 256 threads; TF32 tensor cores keep too
@@ -847,6 +862,8 @@ int dispatch(const void* q, const void* k, const void* v, const void* o,
                                   B, H, K, Sq, Skv, causal, window, scale, s);
     case 64: return launch<T, 64>(q, k, v, o, dout, lse, delta, dq, dk, dv,
                                   B, H, K, Sq, Skv, causal, window, scale, s);
+    case 80: return launch<T, 80>(q, k, v, o, dout, lse, delta, dq, dk, dv,
+                                  B, H, K, Sq, Skv, causal, window, scale, s);
     case 128: return launch<T, 128>(q, k, v, o, dout, lse, delta, dq, dk, dv,
                                     B, H, K, Sq, Skv, causal, window, scale,
                                     s);
@@ -870,7 +887,8 @@ int fa_flash_attention_bwd(const void* q, const void* k, const void* v,
                            int H, int K, int Sq, int Skv, int hd, int causal,
                            int window, float scale, int is_bf16,
                            void* stream) {
-  if (hd != 16 && hd != 32 && hd != 64 && hd != 128) return 1001;
+  if (hd != 16 && hd != 32 && hd != 64 && hd != 80 && hd != 128)
+    return 1001;
   if (K < 1 || H < K || H % K != 0) return 1002;
   if (B < 1 || Sq < 1 || Skv < 1 || (int64_t)B * H > 0x7FFFFFFF ||
       (Skv + BKV - 1) / BKV > 65535 || (Sq + BQ - 1) / BQ > 65535 ||

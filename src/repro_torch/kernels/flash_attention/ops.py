@@ -9,8 +9,8 @@ each sum in one fixed order in registers (no workspace, no atomics), so
 it is deterministic.  bf16 inputs run every product on the tensor cores
 (wgmma, tiles by TMA), P and dS entering theirs as bf16 pairs hi + lo;
 float32 inputs run the same passes on the CUDA cores in float32.  The
-forward takes head dims 16, 32, 64, 80 and 128 (hd 80 as five 16-column
-panels, from the unpadded tensors); the backward all but 80.
+forward and the backward take head dims 16, 32, 64, 80 and 128 (hd 80
+as five 16-column panels, from the unpadded tensors).
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs and scratch with ``torch.empty``, launches on the current stream,
@@ -28,10 +28,9 @@ from repro_torch.kernels import backend, build
 from repro_torch.kernels.backend import FLASH_ATTENTION, FLASH_ATTENTION_BWD
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# the kernels' instantiations: the forward's, and the backward's, which
-# has no hd 80 yet (training of hubert-xlarge waits for it)
+# the kernels' instantiations: the forward's and the backward's
 HEAD_DIMS = (16, 32, 64, 80, 128)
-BWD_HEAD_DIMS = (16, 32, 64, 128)
+BWD_HEAD_DIMS = (16, 32, 64, 80, 128)
 
 # the launcher's own argument checks, by status
 _REFUSED = {1001: "head_dim is not one of the kernel's instantiations "
@@ -44,8 +43,7 @@ _REFUSED = {1001: "head_dim is not one of the kernel's instantiations "
             1006: "cuTensorMapEncodeTiled refused a tensor map"}
 _REFUSED_BWD = {**_REFUSED,
                 1001: "head_dim is not one of the backward kernel's "
-                      f"instantiations {BWD_HEAD_DIMS} (the backward at hd "
-                      "80 comes with the training of the frontend models)"}
+                      f"instantiations {BWD_HEAD_DIMS}"}
 
 
 def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

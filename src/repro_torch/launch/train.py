@@ -82,7 +82,12 @@ def train_loop(cfg, mesh=None, *, steps: int, shape: ShapeConfig,
     keeps the mask / quantize / unmask dataflow active.  ``params``
     (copied, not consumed) replaces the seeded init, so a run can start
     from given weights (the reference's, carried across).  The sync's
-    kernels follow ``agg.kernel_impl``."""
+    kernels follow ``agg.kernel_impl``.  On a mesh with an expert axis
+    (an MoE config on more than one ``"data"`` rank) each rank keeps its
+    ``E / n_ep`` experts of the seeded draw (or of ``params``), their
+    AdamW moments, and a checkpoint of that tree under ``ckpt_dir/ep<i>``:
+    a restart restores every rank's slice from its own directory, so it
+    needs the same expert split."""
     if secure and mesh is None:
         with single_rank_mesh() as one:
             return train_loop(cfg, one, steps=steps, shape=shape,
@@ -114,8 +119,17 @@ def train_loop(cfg, mesh=None, *, steps: int, shape: ShapeConfig,
         params = M.init_params(cfg, gen)
     else:
         params = _clone(params)
+    # on an expert axis, this rank's slice of the global draw, and the
+    # moments of that slice
+    params = ST.shard_experts(cfg, params, mesh)
     opt_state = adamw.init_opt_state(opt_cfg, params)
 
+    # each rank holding an expert slice writes a checkpoint of its own
+    # tree; where every rank holds all, dp rank 0 writes it
+    saver = dp_rank == 0
+    if ckpt_dir and ST.expert_slices(cfg, mesh) > 1:
+        ckpt_dir = os.path.join(ckpt_dir, f"ep{mesh.coord(ST.EP_AXIS)}")
+        saver = True
     start_step = 0
     resumed_from = None
     if ckpt_dir:
@@ -148,7 +162,7 @@ def train_loop(cfg, mesh=None, *, steps: int, shape: ShapeConfig,
             print(f"step {step:5d} loss {loss:.4f} "
                   f"gnorm {float(metrics['grad_norm']):.3f} "
                   f"lr {float(metrics['lr']):.2e}")
-        if ckpt_dir and (step + 1) % ckpt_every == 0 and dp_rank == 0:
+        if ckpt_dir and (step + 1) % ckpt_every == 0 and saver:
             CK.save(ckpt_dir, step + 1, params)
             CK.save(ckpt_dir + "/opt", step + 1, opt_state)
     return {"losses": losses, "step_s": step_s,

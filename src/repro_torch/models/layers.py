@@ -496,8 +496,10 @@ def moe_forward(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     """Without an expert axis in the context, ``moe_local``; on one,
     ``moe_distributed``, or ``moe_distributed_replicated`` where a rank
     holds fewer sequences than there are data-parallel ranks (the
-    reference's test).  ``cfg.moe_seq_chunks > 1`` splits the dispatch
-    over sequence chunks, each with the capacity of its own tokens."""
+    reference's test in its manual step; in the baseline step,
+    ``ctx.sharded_batch``, the reference tests the global batch, which
+    always splits).  ``cfg.moe_seq_chunks > 1`` splits the dispatch over
+    sequence chunks, each with the capacity of its own tokens."""
     n = cfg.moe_seq_chunks
     B, S, D = x.shape
     if n > 1 and S % n == 0:
@@ -510,7 +512,7 @@ def moe_forward(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
             or ctx.mesh.shape[ctx.ep_axis] == 1:
         return moe_local(cfg, p, x)
     dp_div = math.prod(ctx.mesh.shape[a] for a in ctx.dp_axes)
-    if B % dp_div != 0 or B < dp_div:
+    if not ctx.sharded_batch and (B % dp_div != 0 or B < dp_div):
         return moe_distributed_replicated(cfg, p, x, ctx)
     return moe_distributed(cfg, p, x, ctx)
 

@@ -209,13 +209,15 @@ def forward(cfg: ModelConfig, params: Params, batch: dict,
 
 
 def loss_fn(cfg: ModelConfig, params: Params, batch: dict,
-            total_tokens: Optional[int] = None) -> torch.Tensor:
+            total_tokens: Optional[int] = None,
+            impl: Optional[str] = None) -> torch.Tensor:
     """Cross-entropy over float32 logits, the padded vocab columns at
     -1e30, positions with ``labels < 0`` masked out, normalized by the
     *global* token count ``total_tokens`` so that the sum of per-replica
     losses and gradients over data-parallel ranks is the global mean (the
-    secure sync is then a plain modular sum), else by the local count."""
-    logits = forward(cfg, params, batch).float()
+    secure sync is then a plain modular sum), else by the local count.
+    ``impl`` as ``forward``'s."""
+    logits = forward(cfg, params, batch, impl=impl).float()
     labels = batch["labels"]
     Vp, V = logits.shape[-1], cfg.vocab_size
     if Vp != V:

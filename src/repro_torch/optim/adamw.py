@@ -63,14 +63,24 @@ def init_opt_state(cfg: OptConfig, params: Any) -> dict:
                                 device=leaves[0].device)}
 
 
-def global_norm(tree: Any) -> torch.Tensor:
-    """sqrt of the sum over leaves of each leaf's float32 sum of squares,
-    added leaf by leaf in order, as the reference."""
-    total = None
-    for leaf in tree_flatten(tree)[0]:
-        s = torch.sum(torch.square(leaf.float()))
-        total = s if total is None else total + s
+def leaf_squares(tree: Any) -> list:
+    """Each leaf's float32 sum of squares, in ``tree_flatten``'s order."""
+    return [torch.sum(torch.square(leaf.float()))
+            for leaf in tree_flatten(tree)[0]]
+
+
+def norm_of_squares(squares: list) -> torch.Tensor:
+    """sqrt of the sum of ``leaf_squares``, added leaf by leaf in order,
+    as the reference."""
+    total = squares[0]
+    for s in squares[1:]:
+        total = total + s
     return torch.sqrt(total)
+
+
+def global_norm(tree: Any) -> torch.Tensor:
+    """The global norm of ``tree``: ``norm_of_squares(leaf_squares)``."""
+    return norm_of_squares(leaf_squares(tree))
 
 
 def _groups(leaves: list) -> list:

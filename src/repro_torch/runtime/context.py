@@ -11,7 +11,14 @@ no counterpart.
 
 The expert axis's collectives (``all_to_all``, ``all_reduce_sum``) run
 on the axis's process group; a CUDA tensor over gloo is staged through
-pinned host memory, as ``core.engine.ManualTransport``'s wires are.
+pinned host memory, as ``core.engine.ManualTransport``'s wires are.  Both
+are ``torch.autograd.Function``s, so a training step's gradient flows
+back through the expert exchange: the backward of ``all_to_all`` is the
+same exchange run back (row j of the gradient goes to the rank it came
+from), and the backward of ``all_reduce_sum`` is ``all_reduce_sum`` of
+the gradient, which is what ``jax.grad`` gives for the reference's
+``psum`` inside its ``shard_map(..., check_vma=False)``: each rank's
+gradient is that of the sum of every rank's loss.
 """
 from __future__ import annotations
 
@@ -31,6 +38,10 @@ class DistCtx:
     mesh: Optional[object] = None       # a compat.NodeMesh
     dp_axes: tuple[str, ...] = ()       # data-parallel axes
     ep_axis: Optional[str] = None       # expert-parallel axis
+    # True in the baseline train step, the reference's GSPMD step: a
+    # rank's batch is its shard of the global batch, and the reference's
+    # replicated-token test reads the global batch, which always splits
+    sharded_batch: bool = False
 
 
 _CURRENT = DistCtx()
@@ -80,10 +91,7 @@ def _wire_view(t: torch.Tensor) -> torch.Tensor:
     return t.reshape(-1).view(torch.uint8)
 
 
-def all_to_all(ctx: DistCtx, send: torch.Tensor) -> torch.Tensor:
-    """``send`` (n_ep, ...) -> recv (n_ep, ...): row j goes to the rank at
-    index j of the expert axis, and recv's row j comes from it (the
-    reference's ``all_to_all(split_axis=0, concat_axis=0)``)."""
+def _exchange(ctx: DistCtx, send: torch.Tensor) -> torch.Tensor:
     group, _, n = ep_group(ctx)
     if send.shape[0] != n:
         raise ValueError(f"send has {send.shape[0]} rows, the expert axis "
@@ -94,11 +102,44 @@ def all_to_all(ctx: DistCtx, send: torch.Tensor) -> torch.Tensor:
     return out.to(send.device)
 
 
-def all_reduce_sum(ctx: DistCtx, t: torch.Tensor) -> torch.Tensor:
-    """The sum of ``t`` over the expert axis, on every rank of it."""
+def _sum(ctx: DistCtx, t: torch.Tensor) -> torch.Tensor:
     group, _, _ = ep_group(ctx)
     h = _stage(t, ctx.mesh)
     if h is t:
         h = t.clone()
     dist.all_reduce(h, op=dist.ReduceOp.SUM, group=group)
     return h.to(t.device)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, send, ctx):
+        fctx.ctx = ctx
+        return _exchange(ctx, send)
+
+    @staticmethod
+    def backward(fctx, grad):
+        return _exchange(fctx.ctx, grad.contiguous()), None
+
+
+class _AllReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, t, ctx):
+        fctx.ctx = ctx
+        return _sum(ctx, t)
+
+    @staticmethod
+    def backward(fctx, grad):
+        return _sum(fctx.ctx, grad.contiguous()), None
+
+
+def all_to_all(ctx: DistCtx, send: torch.Tensor) -> torch.Tensor:
+    """``send`` (n_ep, ...) -> recv (n_ep, ...): row j goes to the rank at
+    index j of the expert axis, and recv's row j comes from it (the
+    reference's ``all_to_all(split_axis=0, concat_axis=0)``)."""
+    return _AllToAll.apply(send, ctx)
+
+
+def all_reduce_sum(ctx: DistCtx, t: torch.Tensor) -> torch.Tensor:
+    """The sum of ``t`` over the expert axis, on every rank of it."""
+    return _AllReduceSum.apply(t, ctx)

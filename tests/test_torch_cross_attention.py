@@ -26,11 +26,12 @@ from repro.models import model as JM
 from repro_torch.configs import get_config as p_config
 from repro_torch.convert import (model_config_from_fields,
                                  model_params_from_numpy)
-from repro_torch.core.schedules import ConfigError
+from repro_torch.configs.base import ShapeConfig
 from repro_torch.launch import serve as P
 from repro_torch.launch.steps import build_train_step
 from repro_torch.models import layers as PL
 from repro_torch.models import model as PM
+from repro_torch.optim import adamw
 
 ARCH = "llama-3.2-vision-90b"
 B, S, S_MAX = 2, 24, 32
@@ -165,6 +166,18 @@ def test_serve_greedy_tokens_equal_the_reference(pair):
 
 
 def test_training_is_refused_naming_the_slice(pair):
-    _, _, pcfg, _, _ = pair
-    with pytest.raises(ConfigError, match="trains the frontend models"):
-        build_train_step(pcfg)
+    """Training is no longer refused: ``build_train_step`` accepts the
+    config and takes one step, the cross layers' media k, v projections
+    getting gradients (their weights move) and the loss finite."""
+    _, _, pcfg, pparams, batch = pair
+    params = jax.tree.map(lambda t: t.clone(), pparams)
+    before = params["units"][0][CROSS]["mixer"]["wk"].clone()
+    step, opt_cfg = build_train_step(
+        pcfg, shape=ShapeConfig("t", S, B, "train"))
+    data = {"tokens": _t(batch["tokens"][:, :S]),
+            "labels": _t(batch["tokens"][:, 1:S + 1]),
+            "media": _t(batch["media"])}
+    params, _, metrics = step(params, adamw.init_opt_state(opt_cfg, params),
+                              data)
+    assert np.isfinite(float(metrics["loss"]))
+    assert not torch.equal(params["units"][0][CROSS]["mixer"]["wk"], before)

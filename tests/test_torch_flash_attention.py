@@ -189,11 +189,12 @@ def test_tensor_core_numerics_at_ragged_lengths(Sq, Skv, causal, window):
 
 
 def test_backward_refuses_head_dim_80_with_its_own_message():
-    """The forward takes hd 80; the backward does not yet, and says so in
-    its own words (training of the frontend models waits for it)."""
-    assert 80 in fa_ops.HEAD_DIMS and 80 not in fa_ops.BWD_HEAD_DIMS
+    """The backward takes hd 80 as the forward does, and its refusal of a
+    head dim names every instantiation, 80 among them."""
+    assert 80 in fa_ops.HEAD_DIMS and 80 in fa_ops.BWD_HEAD_DIMS
+    assert fa_ops.BWD_HEAD_DIMS == (16, 32, 64, 80, 128)
     with pytest.raises(ValueError, match=r"backward kernel's instantiations "
-                                         r"\(16, 32, 64, 128\).*hd 80"):
+                                         r"\(16, 32, 64, 80, 128\)"):
         backend.raise_on(1001, "flash_attention_bwd", fa_ops._REFUSED_BWD)
     with pytest.raises(ValueError, match=r"\(16, 32, 64, 80, 128\)"):
         backend.raise_on(1001, "flash_attention", fa_ops._REFUSED)

@@ -8,7 +8,8 @@ FlashAttention-2 custom VJP) and through torch autograd of the port's
 ``flash_attention`` on CPU tensors (its ``torch.autograd.Function``:
 ``attention_fwd_ref`` forward, ``attention_bwd_ref`` backward), over GQA
 groups 1, 2 and 4, causal on and off, a chunked window, ragged lengths
-and Sq != Skv, in float32 and bfloat16, at ``tests/test_kernels.py``'s
+and Sq != Skv, head dims 16, 32 and 80 (hubert-xlarge's, causal and with
+Sq != Skv), in float32 and bfloat16, at ``tests/test_kernels.py``'s
 tolerances: 2e-6 in float32, 2e-2 in bfloat16 (the reference rounds the
 scaled q to bf16 before its products, the port scales in float32 inside,
 as the kernels do; one bf16 rounding of outputs computed in float32).
@@ -47,6 +48,8 @@ SHAPES = [
     (2, 48, 48, 8, 2, 16, False, 0),       # G = 4, not causal
     (1, 96, 96, 4, 1, 16, True, 32),       # G = 4, chunked window
     (1, 40, 72, 4, 2, 16, False, 0),       # Sq != Skv
+    (1, 64, 64, 2, 2, 80, True, 0),        # hd 80 (hubert-xlarge's)
+    (1, 40, 72, 4, 2, 80, False, 0),       # hd 80, Sq != Skv
 ]
 
 # the kernel's cases at hd 64 and 128: chip_smoke.py's ragged windowed

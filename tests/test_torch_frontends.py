@@ -26,12 +26,13 @@ from repro.launch import steps as JS
 from repro.launch.mesh import make_host_mesh
 from repro.models import model as JM
 from repro_torch.configs import get_config as p_config
+from repro_torch.configs.base import ShapeConfig as PShape
 from repro_torch.convert import (model_config_from_fields,
                                  model_params_from_numpy)
-from repro_torch.core.schedules import ConfigError
 from repro_torch.launch import serve as P
 from repro_torch.launch.steps import build_train_step
 from repro_torch.models import model as PM
+from repro_torch.optim import adamw
 
 ARCH = "hubert-xlarge"
 B, S = 2, 32
@@ -110,11 +111,19 @@ def test_encoder_is_bidirectional(pair):
 
 
 def test_serve_and_training_are_refused(pair):
-    """No decode for an encoder, as the reference's ``serve`` says; no
-    training until the flash backward takes head dim 80."""
+    """No decode for an encoder, as the reference's ``serve`` says;
+    training is accepted: ``build_train_step`` takes one step on frames,
+    with a finite loss and every weight moved."""
     _, _, pcfg, pparams = pair
     with pytest.raises(ValueError, match="encoder-only"):
         P.serve(pcfg, batch=B, prompt_len=8, gen=2, params=pparams,
                 device="cpu")
-    with pytest.raises(ConfigError, match="trains the frontend models"):
-        build_train_step(pcfg)
+    params = jax.tree.map(lambda t: t.clone(), pparams)
+    step, opt_cfg = build_train_step(pcfg, shape=PShape("t", S, B, "train"))
+    labels = np.random.default_rng(8).integers(0, pcfg.vocab_size, (B, S))
+    params, _, metrics = step(
+        params, adamw.init_opt_state(opt_cfg, params),
+        {"frames": torch.from_numpy(_frames(7, pcfg.d_model)),
+         "labels": torch.from_numpy(labels.astype(np.int32))})
+    assert np.isfinite(float(metrics["loss"]))
+    assert not torch.equal(params["head"], pparams["head"])

@@ -472,11 +472,91 @@ def run_moe(case, inputs, mesh) -> dict:
             "local1": L.moe_local(cfg, full, x1).numpy()}
 
 
+def run_train_moe(case, inputs, mesh) -> dict:
+    """MoE training with the experts split over the mesh's ``"data"``
+    axis: from the full parameter tree ``inputs[case["params"] + "/i"]``
+    (its leaves in ``tree_flatten`` order), either ``case["steps"]`` steps
+    of ``build_train_step`` / ``build_secure_train_step`` on this rank's
+    rows of the synthetic stream's global batches, from this rank's
+    expert slice (``shard_experts``), or ``train_loop`` from the full
+    tree (which slices it itself).  Returns the losses, the grad norms
+    (steps only), this rank's final parameter leaves and how many times
+    each expert-parallel path ran."""
+    import torch
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.convert import (model_config_from_fields,
+                                     opt_config_from_fields)
+    from repro_torch.core.engine import tree_flatten
+    from repro_torch.data.pipeline import DataConfig, SyntheticStream
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.train import default_agg, train_loop
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    cfg = model_config_from_fields(case["cfg"])
+    opt = opt_config_from_fields(case["opt"])
+    gb, S, n_steps = case["global_batch"], case["seq_len"], case["steps"]
+    shape = ShapeConfig("t", S, gb, "train")
+    leaves, rebuild = tree_flatten(
+        M.init_params(cfg, torch.Generator().manual_seed(0)))
+    # copies: the steps update the parameters in place
+    full = rebuild([torch.from_numpy(inputs[f"{case['params']}/{i}"].copy())
+                    for i in range(len(leaves))])
+    calls = {"moe_distributed": 0, "moe_distributed_replicated": 0}
+    originals = {name: getattr(L, name) for name in calls}
+
+    def counted(name):
+        def wrap(*a, **kw):
+            calls[name] += 1
+            return originals[name](*a, **kw)
+        return wrap
+
+    for name in calls:
+        setattr(L, name, counted(name))
+    try:
+        out = {}
+        if case["loop"]:
+            run = train_loop(cfg, mesh, steps=n_steps, shape=shape,
+                             secure=case["secure"], opt_cfg=opt,
+                             log_every=1000, device="cpu", params=full)
+            params, losses = run["params"], run["losses"]
+        else:
+            n, r = mesh.shape["data"], mesh.coord("data")
+            rows = gb // n
+            params = ST.shard_experts(cfg, full, mesh)
+            state = adamw.init_opt_state(opt, params)
+            if case["secure"]:
+                step, _ = ST.build_secure_train_step(
+                    cfg, mesh, default_agg(n), opt_cfg=opt, shape=shape)
+            else:
+                step, _ = ST.build_train_step(cfg, opt, shape, mesh)
+            stream = SyntheticStream(DataConfig(seq_len=S, global_batch=gb,
+                                                seed=0), cfg)
+            losses, norms = [], []
+            for t in range(n_steps):
+                batch = {k: torch.from_numpy(
+                    v[r * rows:(r + 1) * rows].copy())
+                    for k, v in stream.global_batch(t).items()}
+                params, state, metrics = step(params, state, batch)
+                losses.append(float(metrics["loss"]))
+                norms.append(float(metrics["grad_norm"]))
+            out["grad_norms"] = np.array(norms)
+    finally:
+        for name, fn in originals.items():
+            setattr(L, name, fn)
+    out["losses"] = np.array(losses)
+    out.update({f"p{i}": t.detach().numpy()
+                for i, t in enumerate(tree_flatten(params)[0])})
+    out.update({f"calls_{k}": np.int64(v) for k, v in calls.items()})
+    return out
+
+
 RUN = {"execute": run_execute, "tree": run_tree, "reorder": run_reorder,
        "host_mesh": run_host_mesh, "cluster_sum": run_cluster_sum,
        "facade": run_facade, "wrong_world": run_wrong_world,
        "stale_wire": run_stale_wire, "service": run_service,
-       "funcs": run_funcs, "moe": run_moe}
+       "funcs": run_funcs, "moe": run_moe, "train_moe": run_train_moe}
 
 
 def worker(rank: int, job_dir: str) -> None:
