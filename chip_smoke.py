@@ -308,7 +308,7 @@ import subprocess
 import sys
 import tempfile
 import time
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -317,7 +317,8 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
 
 T_START = time.perf_counter()
 PHASES = ("device", "build", "kernels", "main", "batched", "service",
-          "funcs", "mesh", "paillier", "serve", "train", "launch", "timing")
+          "funcs", "mesh", "paillier", "serve", "train", "tp", "launch",
+          "timing")
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 # 32-bit lane operations issued per second: 132 SMs x 128 lanes x
 # 1.98 GHz, half the 67 TFLOP/s float32 FMA rate (an FMA counts two FLOPs)
@@ -837,7 +838,8 @@ FLASH_BWD_REPEAT = [(2, 200, 77, 4, 2, 64, True, 64),
                     FLASH_BWD_CROSS]
 
 
-def _check_flash_bwd(rng, dev, errs: dict) -> int:
+def _check_flash_bwd(rng, dev, errs: dict,
+                     cases: Sequence[tuple] = tuple(FLASH_BWD_CASES)) -> int:
     """The flash backward on the card: (1) the kernel against
     ``attention_bwd_ref`` on the same q, k, v, dO and the plain forward's
     o and L; (2) the forward kernel's L against the plain L; (3) autograd
@@ -856,7 +858,7 @@ def _check_flash_bwd(rng, dev, errs: dict) -> int:
     from repro_torch.kernels.flash_attention.ref import attention_mask
     checks = 0
     by = errs.setdefault("flash_attention_bwd_by_output", {})
-    for case in FLASH_BWD_CASES:
+    for case in cases:
         B, Sq, Skv, H, K, hd, causal, window = case
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = (torch.from_numpy(rng.standard_normal(
@@ -3944,6 +3946,407 @@ def _train_restart(dev) -> dict:
             "rtol": RESTART_RTOL}
 
 
+# ---------------------------------------------------------------------------
+# tp: tensor parallelism over "model", gloo ranks on the one card
+# ---------------------------------------------------------------------------
+
+# (a) qwen3-1.7b and (b) mamba2-370m at full width and depth on a (1, 2)
+# mesh, served at the serve phase's shape; the float32 gate at a cut
+# depth ("check_units": the first units of the same draw): the prefill's
+# logits and those of "check_decode" decode steps fed seeded tokens
+# (teacher-forced, the same on both sides), against the one-rank float32
+# prefill and decode steps within LOGIT_TOL_F32; (c) one secure training
+# step of qwen3-1.7b at full width, "train_units" of its 28 units, in
+# float32, on a (2, 2) mesh against the one-rank secure step, loss and
+# grad norm within TRAIN_LOSS_TOL relative.  Each rank's flash attention
+# runs at H / 2 = 8 query and K / 2 = 4 KV heads (the serve at
+# TP_FLASH_CASE, the training step's forward and backward at
+# TP_TRAIN_FLASH_CASE: its 2 dp rows of the global batch of 4 at 1,024
+# positions), its SSD scan at 16 of mamba2's 32 heads: the kernels are
+# held at those shapes too.
+TP_SHAPE = {"archs": ("qwen3-1.7b", "mamba2-370m"), "tp": 2,
+            "batch": SERVE_BATCH, "prompt": SERVE_PROMPT, "gen": SERVE_GEN,
+            "check_units": {"qwen3-1.7b": 4, "mamba2-370m": 8},
+            "check_decode": 4,
+            "train_units": 2, "train_batch": 4, "train_seq": 1024,
+            "smoke": False}
+TP_FLASH_CASE = (4, 2048, 2048, 8, 4, 128, True, 0)
+TP_TRAIN_FLASH_CASE = (2, 1024, 1024, 8, 4, 128, True, 0)
+TP_SSD_CASE = (4, 2048, 16, 64, 128)       # (B, S, H, P, N) per rank
+
+
+def _tp_cfg(arch: str, shape: dict):
+    from repro_torch.configs import get_config, get_smoke_config
+    return (get_smoke_config if shape["smoke"] else get_config)(arch)
+
+
+def _tp_weights(cfg, seed: int, dev, cast: bool):
+    """The seeded draw (float32 masters, or cast as drawn), the same on
+    every rank and in this process."""
+    from repro_torch.models import model as M
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    return M.init_params(cfg, g, cast=cast)
+
+
+def _tp_forced(cfg, shape: dict, seed: int, dev) -> torch.Tensor:
+    """The tokens the float32 check's decode steps are fed, (B, steps),
+    the same on every rank and in this process."""
+    return torch.from_numpy(np.random.default_rng(seed + 1).integers(
+        0, cfg.vocab_size, (shape["batch"], shape["check_decode"]),
+        dtype=np.int32)).to(dev)
+
+
+def _tp_f32_check(params, prompts: dict, forced: torch.Tensor, prefill,
+                  decode) -> torch.Tensor:
+    """The float32 check's logits: the prefill's last position, then one
+    a teacher-forced decode step, (B, 1 + steps, Vp) on the CPU.
+    ``prefill(params, prompts)`` and ``decode(params, cache, tokens, t)``
+    are the mesh's step builders or the one-rank model functions."""
+    logits, cache = prefill(params, prompts)
+    got = [logits.float().cpu()]
+    PL = prompts["tokens"].shape[1]
+    for i in range(forced.shape[1]):
+        logits, cache = decode(params, cache, forced[:, i:i + 1], PL + i)
+        got.append(logits.float().cpu())
+    return torch.cat(got, dim=1)
+
+
+def _tp_serve_rank(rank: int, seed: int, job_dir: str, shape: dict) -> None:
+    """One rank of tp (a) / (b): for each arch the full draw from the
+    seed (every rank the same), ``serve`` on the (1, tp) mesh (this
+    rank's slice cut by ``shard_tree``), its launches counted from 0
+    before it, its peak memory; then the float32 prefill and
+    teacher-forced decode steps at the cut depth, whose logits rank 0
+    writes beside ``tp{r}.json``."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import backend
+    from repro_torch.launch import serve as SV
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.mesh import make_host_mesh
+    dev = torch.device(shape["device"])
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.set_device(dev)
+    mesh = make_host_mesh(data=1, model=shape["tp"])
+    B, PL, gen = shape["batch"], shape["prompt"], shape["gen"]
+    out = {"rank": rank}
+    for arch in shape["archs"]:
+        cfg = _tp_cfg(arch, shape)
+        # this rank's slice of the bf16 draw, the full tree gone before
+        # the timed serve, so its peak is the rank's own footprint
+        cast = SH.shard_tree(cfg, _tp_weights(cfg, seed, dev, True), mesh)
+        weight_bytes = sum(t.numel() * t.element_size()
+                           for t in _leaves(cast))
+        # a short serve first: cuBLAS, the kernels and the allocator warm
+        SV.serve(cfg, mesh, batch=B, prompt_len=64, gen=2, params=cast,
+                 device=dev)
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        backend.reset_launch_counts()
+        res = SV.serve(cfg, mesh, batch=B, prompt_len=PL, gen=gen,
+                       seed=seed, params=cast, device=dev)
+        counts = backend.launch_counts()
+        peak = torch.cuda.max_memory_allocated() if cuda else 0
+        del cast
+        np.save(pathlib.Path(job_dir) / f"tokens-{arch}-{rank}.npy",
+                res["tokens"])
+        cfg32 = dataclasses.replace(
+            cfg, n_units=shape["check_units"][arch], dtype="float32")
+        max_seq = PL + shape["check_decode"]
+        pre, _ = ST.build_prefill_step(
+            cfg32, mesh, ShapeConfig("tp_check", PL, B, "prefill"),
+            max_seq=max_seq)
+        dec, _ = ST.build_decode_step(
+            cfg32, mesh, ShapeConfig("tp_check", max_seq, B, "decode"))
+        params = SH.shard_tree(cfg32, _tp_weights(cfg32, seed, dev, False),
+                               mesh)
+        logits = _tp_f32_check(
+            params, SV.prompt_batch(cfg32, B, PL, seed, dev, mesh),
+            _tp_forced(cfg32, shape, seed, dev), pre, dec)
+        np.save(pathlib.Path(job_dir) / f"logits-{arch}-{rank}.npy",
+                logits.numpy())
+        del params, logits
+        if cuda:
+            torch.cuda.empty_cache()
+        out[arch] = {
+            "prefill_s": res["t_prefill_s"], "decode_s": res["t_decode_s"],
+            "decode_tok_per_s": res["tok_per_s"], "peak_mem_bytes": peak,
+            "weight_bytes": weight_bytes,
+            "launches": {k: v for k, v in counts.items() if v},
+            "launches_prefill": {k: v for k, v in
+                                 res["launches"]["prefill"].items() if v},
+            "launches_decode": sum(res["launches"]["decode"].values())}
+    (pathlib.Path(job_dir) / f"tp{rank}.json").write_text(json.dumps(out))
+
+
+def _tp_train_cfg(shape: dict):
+    return dataclasses.replace(
+        _tp_cfg("qwen3-1.7b", shape), n_units=shape["train_units"],
+        dtype="float32", dp_mode="replicated")
+
+
+def _tp_train_rank(rank: int, seed: int, job_dir: str, shape: dict
+                   ) -> None:
+    """One rank of tp (c): one secure step on the (2, 2) mesh from the
+    seeded float32 draw (this rank's slice) on its dp rows of the
+    stream's first global batch, its launches counted from 0."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticStream
+    from repro_torch.kernels import backend
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.train import default_agg
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.compat import flat_node_id
+    dev = torch.device(shape["device"])
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.set_device(dev)
+    mesh = make_host_mesh(data=2, model=2)
+    cfg = _tp_train_cfg(shape)
+    GB, S = shape["train_batch"], shape["train_seq"]
+    params = SH.shard_tree(cfg, _tp_weights(cfg, seed, dev, False), mesh)
+    opt = adamw.OptConfig(state_dtype=cfg.opt_state_dtype, **TRAIN_OPT)
+    state = adamw.init_opt_state(opt, params)
+    step, _ = ST.build_secure_train_step(
+        cfg, mesh, default_agg(2), opt_cfg=opt,
+        shape=ShapeConfig("tp_train", S, GB, "train"))
+    rows = GB // 2
+    r = flat_node_id(mesh, ("data",))
+    batch = {k: torch.from_numpy(v[r * rows:(r + 1) * rows].copy()).to(dev)
+             for k, v in SyntheticStream(DataConfig(
+                 seq_len=S, global_batch=GB, seed=seed),
+                 cfg).global_batch(0).items()}
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    backend.reset_launch_counts()
+    t0 = time.perf_counter()
+    params, state, m = step(params, state, batch)
+    loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+    step_s = time.perf_counter() - t0
+    (pathlib.Path(job_dir) / f"train{rank}.json").write_text(json.dumps({
+        "rank": rank, "loss": loss, "grad_norm": gnorm, "step_s": step_s,
+        "peak_mem_bytes": (torch.cuda.max_memory_allocated() if cuda
+                           else 0),
+        "launches": {k: v for k, v in backend.launch_counts().items()
+                     if v}}))
+
+
+def _tp_kernels(rng, dev, errs: dict) -> dict:
+    """The kernels at a TP rank's shapes: flash attention at qwen3's 8
+    query over 4 KV heads (the serve's TP_FLASH_CASE and the training
+    step's TP_TRAIN_FLASH_CASE) in float32 and bf16, its backward at the
+    training step's (``_check_flash_bwd``: the kernel against
+    ``attention_bwd_ref`` and autograd through both kernels against the
+    plain one's, at FLASH_BWD_TOL; the card only: the backward kernel has
+    no CPU form), the SSD scan at 16 of mamba2's heads, each against its
+    plain version; on the card the forward's and the scan's timings
+    (``time_flash`` / ``time_ssd`` at the serve's heads)."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd import ssd_chunked
+    flash_err = 0.0
+    for case in (TP_FLASH_CASE, TP_TRAIN_FLASH_CASE):
+        B, Sq, Skv, H, K, hd, causal, window = case
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (torch.from_numpy(rng.standard_normal(
+                (B, S, n, hd), np.float32)).to(dev, dtype)
+                for S, n in ((Sq, H), (Skv, K), (Skv, K)))
+            got = flash_attention(q, k, v, causal=causal, window=window)
+            want = flash_attention(q, k, v, causal=causal, window=window,
+                                   impl="torch")
+            err = max_abs_err(got.float(), want.float())
+            check(within(got, want, FLASH_TOL[dtype], FLASH_TOL[dtype]),
+                  f"tp flash_attention {dtype} {case}: max err {err}")
+            flash_err = max(flash_err, err)
+            del q, k, v, got, want
+    out = {"flash_attention": {"shape": [list(TP_FLASH_CASE),
+                                         list(TP_TRAIN_FLASH_CASE)],
+                               "max_abs_err": flash_err}}
+    if dev.type == "cuda":
+        bwd = {"flash_attention_bwd": 0.0}
+        n = _check_flash_bwd(rng, dev, bwd, cases=[TP_TRAIN_FLASH_CASE])
+        errs["flash_attention_bwd"] = max(errs["flash_attention_bwd"],
+                                          bwd["flash_attention_bwd"])
+        out["flash_attention_bwd"] = {
+            "shape": [list(TP_TRAIN_FLASH_CASE)],
+            "max_abs_err": bwd["flash_attention_bwd"], "checks": n,
+            "by_output": bwd["flash_attention_bwd_by_output"]}
+    Bsz, S, Hs, P, N = TP_SSD_CASE
+    args = _ssd_inputs(rng, dev, Bsz, S, Hs, P, N=N, per_head=False)
+    got = ssd_chunked(*args, 256)
+    want = ssd_chunked(*args, 256, impl="torch")
+    ssd_err = max(max_abs_err(g, w) for g, w in zip(got, want))
+    check(all(within(g, w, *SSD_TOL) for g, w in zip(got, want)),
+          f"tp ssd {TP_SSD_CASE}: max err {ssd_err}")
+    errs["flash_attention"] = max(errs["flash_attention"], flash_err)
+    errs["ssd"] = max(errs["ssd"], ssd_err)
+    out["ssd"] = {"shape": [list(TP_SSD_CASE)], "max_abs_err": ssd_err}
+    if dev.type == "cuda":
+        _, _, _, H, K, hd, _, _ = TP_FLASH_CASE
+        out["flash_attention"]["timing"] = time_flash(rng, dev, H=H, K=K,
+                                                      hd=hd)
+        out["ssd"]["timing"] = time_ssd(rng, dev, H=Hs, N=N)
+    return out
+
+
+def phase_tp(dev, seed: int, errs: dict, shape: Optional[dict] = None
+             ) -> tuple[dict, dict]:
+    """Tensor parallelism over "model" on gloo ranks of the one card:
+    (a) / (b) ``serve`` on a (1, 2) mesh against the one-rank serve and
+    float32 prefill, (c) a secure step on a (2, 2) mesh against the
+    one-rank secure step, and the kernels at the ranks' shapes.  Returns
+    the line and, for the kernels line, the per-rank shapes and
+    launches.  ``shape`` overrides TP_SHAPE (``smoke=True`` and small
+    serve shapes in a CPU rehearsal)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticStream
+    from repro_torch.launch import serve as SV
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.mesh import single_rank_mesh
+    from repro_torch.launch.train import default_agg
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.compat import spawn_nodes
+    shape = dict(TP_SHAPE, **(shape or {}), device=str(dev))
+    cuda = dev.type == "cuda"
+    rng = np.random.default_rng(seed)
+    B, PL, gen = shape["batch"], shape["prompt"], shape["gen"]
+    out = {"phase": "tp", "tp": shape["tp"], "batch": B, "prompt_len": PL,
+           "gen": gen, "f32_logit_tol": LOGIT_TOL_F32,
+           "train_loss_rtol": TRAIN_LOSS_TOL}
+    kern = _tp_kernels(rng, dev, errs)
+    out["kernels_at_rank_shapes"] = kern
+    if cuda:
+        torch.cuda.empty_cache()
+    job = pathlib.Path(tempfile.mkdtemp(prefix="tp-phase-"))
+    try:
+        # (a), (b): the serve on its ranks, then the one-rank references
+        t0 = time.perf_counter()
+        spawn_nodes(_tp_serve_rank, shape["tp"], seed, str(job), shape)
+        out["serve_spawn_s"] = time.perf_counter() - t0
+        ranks = [json.loads((job / f"tp{r}.json").read_text())
+                 for r in range(shape["tp"])]
+        per_rank: dict = {}
+        for arch in shape["archs"]:
+            cfg = _tp_cfg(arch, shape)
+            want = serve_launches(cfg)
+            toks = [np.load(job / f"tokens-{arch}-{r}.npy")
+                    for r in range(shape["tp"])]
+            logits = [np.load(job / f"logits-{arch}-{r}.npy")
+                      for r in range(shape["tp"])]
+            for r, rk in enumerate(ranks):
+                check(np.array_equal(toks[r], toks[0])
+                      and np.array_equal(logits[r], logits[0]),
+                      f"tp {arch}: rank {r}'s tokens or logits differ from "
+                      "rank 0's")
+                if cuda:
+                    check(rk[arch]["launches_prefill"] == want
+                          and rk[arch]["launches_decode"] == 0,
+                          f"tp {arch} rank {r}: prefill launches "
+                          f"{rk[arch]['launches_prefill']}, want {want}")
+            # the one-rank bf16 serve of the same draw, warmed as the
+            # ranks' is by a short serve first: its tokens and times
+            w = _tp_weights(cfg, seed, dev, True)
+            SV.serve(cfg, batch=B, prompt_len=64, gen=2, params=w,
+                     device=dev)
+            one = SV.serve(cfg, batch=B, prompt_len=PL, gen=gen, seed=seed,
+                           params=w, device=dev)
+            del w
+            agree = float((one["tokens"] == toks[0]).mean())
+            # the one-rank float32 prefill and decode steps at the cut
+            # depth, fed the same tokens
+            cfg32 = dataclasses.replace(
+                cfg, n_units=shape["check_units"][arch], dtype="float32")
+            max_seq = PL + shape["check_decode"]
+            ref = _tp_f32_check(
+                _tp_weights(cfg32, seed, dev, False),
+                SV.prompt_batch(cfg32, B, PL, seed, dev),
+                _tp_forced(cfg32, shape, seed, dev),
+                lambda p, b: M.prefill(cfg32, p, b, max_seq),
+                lambda p, c, t, i: M.decode_step(cfg32, p, c, t, i))
+            got = torch.from_numpy(logits[0])
+            err = max_abs_err(got[:, :1], ref[:, :1])
+            dec_err = max_abs_err(got[:, 1:], ref[:, 1:])
+            check(np.isfinite(logits[0]).all() and err <= LOGIT_TOL_F32
+                  and dec_err <= LOGIT_TOL_F32,
+                  f"tp {arch}: float32 logits at {cfg32.n_units} units "
+                  f"differ from one rank's by {err} (prefill), {dec_err} "
+                  f"({shape['check_decode']} decode steps)")
+            if cuda:
+                torch.cuda.empty_cache()
+            out[arch] = {
+                "n_units": cfg.n_units, "dtype": cfg.dtype,
+                "by_rank": [rk[arch] for rk in ranks],
+                "prefill_launches_want": want,
+                "f32_check_units": cfg32.n_units,
+                "f32_prefill_logit_max_err_vs_one_rank": err,
+                "f32_check_decode_steps": shape["check_decode"],
+                "f32_decode_logit_max_err_vs_one_rank": dec_err,
+                "f32_logit_max_abs": float(ref.abs().max()),
+                "bf16_tokens_equal_one_rank_share": agree,
+                "one_rank_prefill_s": one["t_prefill_s"],
+                "one_rank_decode_tok_per_s": one["tok_per_s"]}
+            for k, v in ranks[0][arch]["launches_prefill"].items():
+                per_rank.setdefault(k, {})[arch] = v
+        # (c): the secure step on the (2, 2) mesh, then on one rank
+        t0 = time.perf_counter()
+        spawn_nodes(_tp_train_rank, 4, seed, str(job), shape)
+        out["train_spawn_s"] = time.perf_counter() - t0
+        tr = [json.loads((job / f"train{r}.json").read_text())
+              for r in range(4)]
+    finally:
+        shutil.rmtree(job, ignore_errors=True)
+    cfg = _tp_train_cfg(shape)
+    GB, S = shape["train_batch"], shape["train_seq"]
+    opt = adamw.OptConfig(state_dtype=cfg.opt_state_dtype, **TRAIN_OPT)
+    with single_rank_mesh() as one_mesh:
+        params = _tp_weights(cfg, seed, dev, False)
+        step, _ = ST.build_secure_train_step(
+            cfg, one_mesh, default_agg(1), opt_cfg=opt,
+            shape=ShapeConfig("tp_train", S, GB, "train"))
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in SyntheticStream(
+            DataConfig(seq_len=S, global_batch=GB, seed=seed),
+            cfg).global_batch(0).items()}
+        _, _, m = step(params, adamw.init_opt_state(opt, params), batch)
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        del params, batch
+    for r in tr:
+        for what, got, want in (("loss", r["loss"], loss),
+                                ("grad norm", r["grad_norm"], gnorm)):
+            check(math.isfinite(got) and abs(got - want)
+                  <= TRAIN_LOSS_TOL * abs(want),
+                  f"tp (c) rank {r['rank']}: {what} {got} against one "
+                  f"rank's {want}")
+        if cuda:
+            check(r["launches"].get("flash_attention", 0) > 0
+                  and r["launches"].get("flash_attention_bwd", 0) > 0
+                  and r["launches"].get("mask_encrypt", 0) > 0,
+                  f"tp (c) rank {r['rank']}: launches {r['launches']}")
+    out["train"] = {"arch": cfg.name, "mesh": [2, 2],
+                    "n_units": cfg.n_units, "dtype": cfg.dtype,
+                    "batch": GB, "seq_len": S, "by_rank": tr,
+                    "one_rank_loss": loss, "one_rank_grad_norm": gnorm}
+    for k, v in tr[0]["launches"].items():
+        per_rank.setdefault(k, {})["train_secure_step"] = v
+    info = {name: {"tp_shape": kern.get(name, {}).get("shape"),
+                   "tp_max_abs_err": kern.get(name, {}).get("max_abs_err"),
+                   "tp_ms": kern.get(name, {}).get("timing", {}).get("ms"),
+                   "tp_plain_ms": kern.get(name, {}).get("timing", {}).get(
+                       "plain_ms"),
+                   "tp_bound_ms": kern.get(name, {}).get("timing", {}).get(
+                       "bound_ms"),
+                   "tp_launches_per_rank": per_rank.get(name)}
+            for name in set(kern) | set(per_rank)}
+    return out, info
+
+
+
 def _network_exchanges(r: int) -> int:
     return sum(len(range(p % 2, r - 1, 2)) for p in range(r))
 
@@ -4617,6 +5020,10 @@ def main() -> int:
         launches[backend.SSD_BWD.name] = mamba_launches[backend.SSD_BWD.name]
         for line in lines:
             emit(line)
+    tp_info = {}
+    if "tp" in phases:
+        line, tp_info = phase_tp(dev, args.seed, errs)
+        emit(line)
     launch_launches = None
     if "launch" in phases:
         line, launch_launches = phase_launch(dev)
@@ -4658,7 +5065,14 @@ def main() -> int:
                 else launch_launches["serve_agg_mesh_rank0"][k.name]),
             "quickstart_launches": (
                 None if launch_launches is None
-                else launch_launches["quickstart"][k.name])})
+                else launch_launches["quickstart"][k.name]),
+            # the tp phase: the shapes a rank's calls run at, held against
+            # the plain version there (the first one timed), and the
+            # launches a rank made in each of its runs
+            **{key: tp_info.get(k.name, {}).get(key)
+               for key in ("tp_shape", "tp_max_abs_err", "tp_ms",
+                           "tp_plain_ms", "tp_bound_ms",
+                           "tp_launches_per_rank")}})
     print(smi_line(), flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

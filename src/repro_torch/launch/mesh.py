@@ -1,9 +1,10 @@
-"""Host meshes of the training driver.
+"""Host meshes of the training and serving entry points.
 
 Counterpart of ``repro/launch/mesh.py`` over the port's ``NodeMesh`` (one
 process a node of a ``torch.distributed`` group).  The reference's
-``make_production_mesh`` waits for the sharded serve.  Nothing here
-touches a process group at import time.
+``make_production_mesh`` (16 x 16 ranks) waits for a fake process group
+of that size, with its dry run.  Nothing here touches a process group at
+import time.
 """
 from __future__ import annotations
 

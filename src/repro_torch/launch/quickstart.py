@@ -8,8 +8,8 @@ Counterpart of the reference's ``examples/quickstart.py``: the same
 facade demo, ``train_loop(..., secure=True)`` on olmo-1b's smoke config
 for 60 steps on a one-rank mesh (the loss must fall), then ``serve`` on
 the same config.  Everything runs on the card unless ``--device cpu``
-asks for the CPU.  The port's ``serve`` has no mesh argument yet (the
-sharded serve, ROADMAP Queue 1 item 10.9), so none is passed.
+asks for the CPU.  The reference serves on its one-device host mesh;
+the port's ``mesh=None`` is that, so none is passed.
 """
 from __future__ import annotations
 

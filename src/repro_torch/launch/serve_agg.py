@@ -46,7 +46,7 @@ mesh, so every rank flushes the same batches.
 
 ``--data`` / ``--model`` shape the host mesh the ``mesh:`` line reports
 (``launch.mesh.make_host_mesh``); the launcher runs it on one rank, so
-both stay 1 until the sharded serve (ROADMAP Queue 1 item 10.9).
+both stay 1.
 """
 from __future__ import annotations
 

@@ -8,9 +8,9 @@ KV / SSM caches.
 Counterpart of the reference's ``examples/serve_lm.py``: qwen3-1.7b,
 mamba2-370m and jamba-v0.1-52b at their smoke configs in float32, batch
 4, prompts of 32 tokens, 16 tokens generated.  Everything runs on the
-card unless ``--device cpu`` asks for the CPU.  The port's ``serve`` has
-no mesh argument yet (the sharded serve, ROADMAP Queue 1 item 10.9), so
-none is passed.
+card unless ``--device cpu`` asks for the CPU.  The reference serves on
+its one-device host mesh; the port's ``mesh=None`` is that, so none is
+passed.
 """
 from __future__ import annotations
 

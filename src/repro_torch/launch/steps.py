@@ -1,10 +1,10 @@
-"""Train steps: the baseline and the secure paper path.
+"""Step builders: train (the baseline and the secure paper path),
+prefill and decode, and the shape-only stand-ins of every input.
 
-Counterpart of ``repro/launch/steps.py``'s ``build_train_step`` and
-``build_secure_train_step``.  In the reference the secure step is a
-``shard_map`` manual over the data-parallel axes; here every rank of a
-``NodeMesh`` runs the step on its own shard of the batch (the per-rank
-body, ``dp_body``):
+Counterpart of ``repro/launch/steps.py``.  In the reference the secure
+step is a ``shard_map`` manual over the data-parallel axes; here every
+rank of a ``NodeMesh`` runs the step on its own shard of the batch (the
+per-rank body, ``dp_body``):
 
   1. local loss and gradients (``loss_fn`` normalized by the *global*
      token count, so the sum over ranks is the global mean);
@@ -18,7 +18,7 @@ body, ``dp_body``):
 
 An MoE config runs both steps under ``DistCtx(mesh, dp_axes,
 ep_axis="data")``, as the reference does: each rank holds its ``E /
-n_ep`` slice of every expert stack (``shard_experts``), the tokens
+n_ep`` slice of every expert stack (``sharding.shard_tree``), the tokens
 reach the experts through ``runtime.context.all_to_all``, and the
 gradient comes back through it.  An expert stack's gradient is then
 complete on its rank, so it is not synced (the reference's
@@ -28,9 +28,25 @@ rank), and the grad norm sums its squares over the dp ranks.  Every
 other leaf syncs over every dp axis.  The baseline step sums its
 gradients with a plain ``all_reduce`` (the reference's GSPMD psum) where
 the mesh has more than one dp rank.  Gloo takes host memory, so a CUDA
-tensor's plain sum is staged through the host.  The reference's
-``input_specs`` / ``abstract_*`` and the prefill / decode builders are
-left out: the serve has its own (``launch/serve.py``).
+tensor's plain sum is staged through the host.
+
+On a mesh with a ``"model"`` axis of more than one rank every step runs
+tensor-parallel (TP), as the reference's run with ``tp_axis="model"``:
+a rank's parameters are its slice (``launch.sharding.shard_tree``), the
+model layers call the TP collectives (``runtime.context``), and every
+rank of a model slice computes the same loss.  A leaf's gradient is
+then the gradient of the rank's slice (whole on every rank for a
+replicated leaf), so the gradient sync runs each model slice's own
+ranks over the dp axes (the sums, and the secure sync's transport, on
+the ranks that share this rank's ``"model"`` coordinate), and the grad
+norm sums each leaf's squares over the axes it is cut on (counting a KV
+head that ``tp / K`` ranks hold once).
+
+``input_specs`` / ``abstract_params`` / ``abstract_opt_state`` /
+``abstract_cache`` give meta tensors of the shapes and dtypes the
+reference's ``eval_shape`` gives (the unit leaves one a unit, in a
+list).  ``build_prefill_step`` / ``build_decode_step`` return a
+callable on this rank's shards and its specs.
 """
 from __future__ import annotations
 
@@ -44,12 +60,16 @@ from repro_torch.configs.base import SHAPES, ModelConfig, ShapeConfig
 from repro_torch.core.engine import tree_allreduce, tree_flatten
 from repro_torch.core.plan import AggConfig
 from repro_torch.core.schedules import ConfigError
+from repro_torch.launch import sharding as SH
 from repro_torch.launch.mesh import dp_axes_of, dp_size
 from repro_torch.models import model as M
 from repro_torch.optim import adamw
+from repro_torch.runtime.compat import subgroup
 from repro_torch.runtime.context import DistCtx, use_ctx
 
 EP_AXIS = "data"        # the axis an MoE config splits its experts over
+TP_AXIS = SH.TP_AXIS    # the axis TP splits the weights over
+META = torch.device("meta")
 
 
 def _check_mesh(cfg: ModelConfig, mesh) -> None:
@@ -57,9 +77,11 @@ def _check_mesh(cfg: ModelConfig, mesh) -> None:
         return
     dp = dp_axes_of(mesh)
     for ax in mesh.axis_names:
-        if ax not in dp and mesh.shape[ax] != 1:
+        if ax not in dp and ax != TP_AXIS and mesh.shape[ax] != 1:
             raise ConfigError(f"mesh axis {ax!r} of size {mesh.shape[ax]}: "
-                              "the port shards nothing but the batch")
+                              "the port shards the batch over the dp axes "
+                              f"and the weights over {TP_AXIS!r} only")
+    SH.check_tp(cfg, SH.tp_extent(mesh))
     if cfg.moe is None:
         return
     for ax in dp:
@@ -84,24 +106,15 @@ def expert_slices(cfg: ModelConfig, mesh) -> int:
 def dist_ctx(cfg: ModelConfig, mesh, sharded_batch: bool = False
              ) -> DistCtx:
     """The context a step's forward runs under: none without a mesh, the
-    mesh's dp axes, and for an MoE config the expert axis."""
+    mesh's dp axes, for an MoE config the expert axis, and the TP axis
+    where the mesh has one."""
     if mesh is None:
         return DistCtx()
     ep = EP_AXIS if cfg.moe is not None and EP_AXIS in mesh.axis_names \
         else None
+    tp = TP_AXIS if TP_AXIS in mesh.axis_names else None
     return DistCtx(mesh=mesh, dp_axes=dp_axes_of(mesh), ep_axis=ep,
-                   sharded_batch=sharded_batch)
-
-
-def _leaf_paths(tree, path: tuple = ()) -> list:
-    """Each leaf's key path, in ``tree_flatten``'s order."""
-    if isinstance(tree, dict):
-        return [p for k in sorted(tree) for p in _leaf_paths(tree[k],
-                                                             path + (k,))]
-    if isinstance(tree, (list, tuple)):
-        return [p for i, v in enumerate(tree)
-                for p in _leaf_paths(v, path + (i,))]
-    return [path]
+                   tp_axis=tp, sharded_batch=sharded_batch)
 
 
 def expert_leaves(cfg: ModelConfig, tree) -> list[bool]:
@@ -111,34 +124,33 @@ def expert_leaves(cfg: ModelConfig, tree) -> list[bool]:
     if cfg.moe is None:
         return [False] * len(tree_flatten(tree)[0])
     return [("mlp" in path and leaf.dim() == 3)
-            for path, leaf in zip(_leaf_paths(tree), tree_flatten(tree)[0])]
+            for path, leaf in SH._leaves_with_paths(tree)]
 
 
-def shard_experts(cfg: ModelConfig, tree, mesh):
-    """``tree`` (parameters, or moments of the same structure) with each
-    full (E, ...) expert stack cut to this rank's ``E / n_ep`` experts
-    along the expert axis, as contiguous copies; every other leaf as it
-    is.  On one rank, or with no expert axis, the tree itself."""
-    n_ep = expert_slices(cfg, mesh)
-    if n_ep == 1:
-        return tree
-    E = cfg.moe.n_experts
-    e_loc = E // n_ep
-    lo = mesh.coord(EP_AXIS) * e_loc
-    leaves, rebuild = tree_flatten(tree)
-    return rebuild([t.narrow(0, lo, e_loc).clone()
-                    if ex and t.shape[0] == E else t
-                    for t, ex in zip(leaves, expert_leaves(cfg, tree))])
+def axes_group(mesh, axes: tuple):
+    """The group of the ranks that differ from this one only on ``axes``
+    (the whole mesh's group where they are all its ranks)."""
+    n = 1
+    for a in axes:
+        n *= mesh.shape[a]
+    if n == mesh.size:
+        return mesh.group
+    return subgroup(mesh, axes, [tuple(range(n))])[0]
 
 
-def dp_sum_(tensors: list, mesh) -> None:
-    """Sum each tensor over the mesh's dp ranks in place (one flat
-    ``all_reduce``; staged through the host for CUDA tensors on gloo)."""
-    if mesh is None or dp_size(mesh) == 1 or not tensors:
+def axes_sum_(tensors: list, mesh, axes: tuple) -> None:
+    """Sum each tensor over the ranks that differ from this one only on
+    ``axes``, in place (one flat ``all_reduce``; staged through the host
+    for CUDA tensors on gloo)."""
+    if mesh is None or not tensors:
+        return
+    axes = tuple(a for a in axes if mesh.shape[a] > 1)
+    if not axes:
         return
     flat = torch.cat([t.reshape(-1).float() for t in tensors])
     wire = flat.cpu() if flat.is_cuda and mesh.backend == "gloo" else flat
-    dist.all_reduce(wire, op=dist.ReduceOp.SUM, group=mesh.group)
+    dist.all_reduce(wire, op=dist.ReduceOp.SUM,
+                    group=axes_group(mesh, axes))
     flat.copy_(wire)
     off = 0
     for t in tensors:
@@ -147,16 +159,39 @@ def dp_sum_(tensors: list, mesh) -> None:
         off += n
 
 
+def dp_sum_(tensors: list, mesh) -> None:
+    """Sum each tensor over the mesh's dp ranks of this rank's model
+    slice, in place."""
+    if mesh is None:
+        return
+    axes_sum_(tensors, mesh, dp_axes_of(mesh))
+
+
 def grad_norm(cfg: ModelConfig, grads, mesh) -> torch.Tensor:
-    """``adamw.global_norm`` of the synced gradients, with each expert
-    stack's sum of squares also summed over the dp ranks (each holds its
-    own slice)."""
+    """``adamw.global_norm`` of the synced gradients, each leaf's sum of
+    squares summed over the axes its slices lie on: an expert stack's
+    over the dp ranks (each holds its own experts), a TP-cut leaf's over
+    ``"model"`` (a KV head held by ``tp / K`` ranks counted once); a
+    replicated leaf's once."""
     sq = adamw.leaf_squares(grads)
-    experts = [i for i, ex in enumerate(expert_leaves(cfg, grads)) if ex]
-    if experts:
-        part = torch.stack([sq[i] for i in experts])
-        dp_sum_([part], mesh)
-        for j, i in enumerate(experts):
+    if mesh is None:
+        return adamw.norm_of_squares(sq)
+    tp = SH.tp_extent(mesh)
+    kv_share = tp // cfg.n_kv_heads if cfg.n_kv_heads < tp else 1
+    specs = SH._spec_leaves(SH.param_specs(cfg, grads, mesh, fsdp=None))
+    groups: dict = {}
+    for i, ((path, _), spec) in enumerate(zip(SH._leaves_with_paths(grads),
+                                              specs)):
+        cut = {a for e in spec for a in SH.entry_axes(e, mesh)}
+        axes = tuple(a for a in mesh.axis_names if a in cut)
+        if kv_share > 1 and path[-1] in SH.KV_LEAVES and TP_AXIS in axes:
+            sq[i] = sq[i] / kv_share
+        if axes:
+            groups.setdefault(axes, []).append(i)
+    for axes, idx in groups.items():
+        part = torch.stack([sq[i] for i in idx])
+        axes_sum_([part], mesh, axes)
+        for j, i in enumerate(idx):
             sq[i] = part[j]
     return adamw.norm_of_squares(sq)
 
@@ -178,7 +213,7 @@ def build_train_step(cfg: ModelConfig,
     """Returns (step, opt_cfg); ``step(params, opt_state, batch)`` ->
     (params, opt_state, metrics), the parameters and moments updated in
     place.  On a mesh, an MoE config's ``params`` hold this rank's expert
-    slice (``shard_experts``)."""
+    slice (``sharding.shard_tree``)."""
     opt_cfg = opt_cfg or adamw.OptConfig(state_dtype=cfg.opt_state_dtype)
     shape = shape or SHAPES["train_4k"]
     total_tokens = shape.global_batch * shape.seq_len
@@ -206,7 +241,7 @@ def build_secure_train_step(cfg: ModelConfig, mesh, agg: AggConfig,
                             shape: Optional[ShapeConfig] = None):
     """The paper's aggregation as the gradient sync: every rank of
     ``mesh`` calls the returned step on its own shard of the batch (and,
-    for an MoE config, its expert slice: ``shard_experts``);
+    for an MoE config, its expert slice: ``sharding.shard_tree``);
     ``agg.kernel_impl`` picks the sync's kernels.  Returns (step,
     opt_cfg)."""
     opt_cfg = opt_cfg or adamw.OptConfig(state_dtype=cfg.opt_state_dtype)
@@ -239,3 +274,107 @@ def build_secure_train_step(cfg: ModelConfig, mesh, agg: AggConfig,
         return params, opt_state, metrics
 
     return step, opt_cfg
+
+
+# ---------------------------------------------------------------------------
+# Shape-only stand-ins (the reference's ShapeDtypeStructs)
+# ---------------------------------------------------------------------------
+
+
+def _meta(shape: tuple, dtype: torch.dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device=META)
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    """Meta tensors of every model input of a ``shape`` cell."""
+    B, S = shape.global_batch, shape.seq_len
+    out = {}
+    if shape.kind == "decode":
+        out["tokens"] = _meta((B, 1), torch.int32)
+    elif cfg.frontend == "audio_frames":
+        out["frames"] = _meta((B, S, cfg.d_model), torch.float32)
+    else:
+        out["tokens"] = _meta((B, S), torch.int32)
+    if shape.kind == "train":
+        out["labels"] = _meta((B, S), torch.int32)
+    if cfg.frontend == "vision_patches" and shape.kind != "decode":
+        out["media"] = _meta((B, cfg.n_media_tokens, cfg.d_model),
+                             torch.float32)
+    return out
+
+
+def abstract_params(cfg: ModelConfig):
+    """The full parameter tree as meta tensors: no draw, no memory."""
+    return M.init_params(cfg, META)
+
+
+def abstract_opt_state(cfg: ModelConfig, opt_cfg: adamw.OptConfig):
+    return adamw.init_opt_state(opt_cfg, abstract_params(cfg))
+
+
+def abstract_cache(cfg: ModelConfig, shape: ShapeConfig):
+    """The full (one-rank) cache of a ``shape`` cell as meta tensors."""
+    return M.init_cache(cfg, shape.global_batch, shape.seq_len, META,
+                        media_len=cfg.n_media_tokens)
+
+
+# ---------------------------------------------------------------------------
+# Serving steps
+# ---------------------------------------------------------------------------
+
+
+def _serve_ctx(cfg: ModelConfig, mesh, shape: ShapeConfig):
+    """(context, the mesh the specs read): the batch split over the dp
+    ranks where it splits (``sharding.batch_specs``), else every dp rank
+    holding it all, as the reference's GSPMD serve tests it."""
+    _check_mesh(cfg, mesh)
+    spec_mesh = mesh if mesh is not None else SH.AbstractMesh(
+        (1, 1), ("data", TP_AXIS))
+    split = SH.batch_splits(shape.global_batch, spec_mesh)
+    return dist_ctx(cfg, mesh, sharded_batch=split), spec_mesh
+
+
+def build_prefill_step(cfg: ModelConfig, mesh, shape: ShapeConfig,
+                       max_seq: int = 0, impl: Optional[str] = None):
+    """Returns (step, (param specs, batch specs, cache specs)):
+    ``step(params, batch)`` on this rank's parameter slice and batch rows
+    -> (last-position logits (B_loc, 1, Vp), this rank's cache sized at
+    ``max_seq`` positions, default the prompt's); an encoder-only model's
+    step is its inference forward -> logits (B_loc, S, Vp), and its
+    cache specs are None.  The logits are whole (gathered over
+    ``"model"``) on every rank."""
+    ctx, spec_mesh = _serve_ctx(cfg, mesh, shape)
+    pspecs = SH.param_specs(cfg, abstract_params(cfg), spec_mesh, fsdp=None)
+    bspecs = SH.batch_specs(cfg, shape, spec_mesh)
+    if not cfg.decoder:
+        def encode(params, batch):
+            with use_ctx(ctx):
+                return M.forward(cfg, params, batch, impl=impl)
+        return encode, (pspecs, bspecs, None)
+    max_seq = max_seq or shape.seq_len
+    cspecs = SH.cache_specs(cfg, abstract_cache(cfg, shape), shape,
+                            spec_mesh)
+
+    def prefill(params, batch):
+        with use_ctx(ctx):
+            return M.prefill(cfg, params, batch, max_seq, impl=impl)
+
+    return prefill, (pspecs, bspecs, cspecs)
+
+
+def build_decode_step(cfg: ModelConfig, mesh, shape: ShapeConfig):
+    """Returns (step, (param specs, cache specs, token spec)):
+    ``step(params, cache, tokens, t)`` -> (logits (B_loc, 1, Vp), cache)
+    for one new token a sequence at position ``t`` against this rank's
+    cache of ``shape.seq_len`` positions (written in place)."""
+    ctx, spec_mesh = _serve_ctx(cfg, mesh, shape)
+    pspecs = SH.param_specs(cfg, abstract_params(cfg), spec_mesh, fsdp=None)
+    cspecs = SH.cache_specs(cfg, abstract_cache(cfg, shape), shape,
+                            spec_mesh)
+    tok_spec = SH.batch_specs(cfg, shape, spec_mesh)["tokens"]
+
+    def decode(params, cache, tokens, t):
+        with use_ctx(ctx):
+            return M.decode_step(cfg, params, cache, tokens, t)
+
+    return decode, (pspecs, cspecs, tok_spec)

@@ -8,14 +8,18 @@ Counterpart of ``repro/launch/train.py``:
         --smoke --steps 50 --secure --ckpt-dir CKPT [--device cpu]
     PYTHONPATH=src python -m repro_torch.launch.train --arch olmo-1b \\
         --smoke --steps 8 --secure --ranks 4 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \\
+        --smoke --steps 8 --secure --ranks 4 --model 2 --device cpu
 
 Saves every ``ckpt_every`` steps, resumes from the latest complete
 checkpoint, and survives injected crashes (``runtime.fault``).  With a
 mesh of more than one data-parallel rank (``--ranks N``: N gloo ranks of
 ``runtime.compat.spawn_nodes``, every rank on the same device) each rank
 trains on its rows of the global batch, as the reference shards its
-batch over the dp axes, and syncs its gradients.  Runs on the card
-unless the caller asks for the CPU.
+batch over the dp axes, and syncs its gradients; with ``--model M`` the
+N ranks form a (N / M, M) ("data", "model") mesh and each holds its
+tensor-parallel slice of the weights.  Runs on the card unless the
+caller asks for the CPU.
 """
 from __future__ import annotations
 
@@ -37,6 +41,7 @@ from repro_torch.core.engine import flat_node_id, tree_flatten
 from repro_torch.core.plan import AggConfig
 from repro_torch.data.pipeline import DataConfig, SyntheticStream
 from repro_torch.kernels import backend
+from repro_torch.launch import sharding as SH
 from repro_torch.launch import steps as ST
 from repro_torch.launch.mesh import (dp_axes_of, dp_size, make_host_mesh,
                                      single_rank_mesh)
@@ -82,12 +87,15 @@ def train_loop(cfg, mesh=None, *, steps: int, shape: ShapeConfig,
     keeps the mask / quantize / unmask dataflow active.  ``params``
     (copied, not consumed) replaces the seeded init, so a run can start
     from given weights (the reference's, carried across).  The sync's
-    kernels follow ``agg.kernel_impl``.  On a mesh with an expert axis
-    (an MoE config on more than one ``"data"`` rank) each rank keeps its
-    ``E / n_ep`` experts of the seeded draw (or of ``params``), their
-    AdamW moments, and a checkpoint of that tree under ``ckpt_dir/ep<i>``:
-    a restart restores every rank's slice from its own directory, so it
-    needs the same expert split."""
+    kernels follow ``agg.kernel_impl``.  On a mesh each rank keeps its
+    slice of the seeded draw (or of ``params``: ``sharding.shard_tree``)
+    and its AdamW moments: with an expert axis (an MoE config on more
+    than one ``"data"`` rank) its ``E / n_ep`` experts, with a ``"model"``
+    axis of more than one rank its tensor-parallel slice.  Each distinct
+    slice is checkpointed under ``ckpt_dir/ep<i>`` (the expert slice i),
+    ``ckpt_dir/tp<j>`` (the TP slice j) or ``ckpt_dir/ep<i>/tp<j>``: a
+    restart restores every rank's slice from its own directory, so it
+    needs the same split."""
     if secure and mesh is None:
         with single_rank_mesh() as one:
             return train_loop(cfg, one, steps=steps, shape=shape,
@@ -119,17 +127,20 @@ def train_loop(cfg, mesh=None, *, steps: int, shape: ShapeConfig,
         params = M.init_params(cfg, gen)
     else:
         params = _clone(params)
-    # on an expert axis, this rank's slice of the global draw, and the
-    # moments of that slice
-    params = ST.shard_experts(cfg, params, mesh)
+    # on an expert or a TP axis, this rank's slice of the global draw,
+    # and the moments of that slice
+    if mesh is not None:
+        params = SH.shard_tree(cfg, params, mesh)
     opt_state = adamw.init_opt_state(opt_cfg, params)
 
     # each rank holding an expert slice writes a checkpoint of its own
-    # tree; where every rank holds all, dp rank 0 writes it
+    # tree; where every dp rank holds the same, dp rank 0 writes it
     saver = dp_rank == 0
     if ckpt_dir and ST.expert_slices(cfg, mesh) > 1:
         ckpt_dir = os.path.join(ckpt_dir, f"ep{mesh.coord(ST.EP_AXIS)}")
         saver = True
+    if ckpt_dir and SH.tp_extent(mesh) > 1:
+        ckpt_dir = os.path.join(ckpt_dir, f"tp{mesh.coord(ST.TP_AXIS)}")
     start_step = 0
     resumed_from = None
     if ckpt_dir:
@@ -170,9 +181,9 @@ def train_loop(cfg, mesh=None, *, steps: int, shape: ShapeConfig,
             "params": params, "opt_state": opt_state}
 
 
-def _rank_main(rank: int, n: int, runs: list, common: dict,
+def _rank_main(rank: int, n: int, model: int, runs: list, common: dict,
                out_path: str) -> None:
-    mesh = make_host_mesh(data=n)
+    mesh = make_host_mesh(data=n // model, model=model)
     results = []
     for run in runs:
         backend.reset_launch_counts()
@@ -185,15 +196,18 @@ def _rank_main(rank: int, n: int, runs: list, common: dict,
 
 
 def run_ranks(n: int, runs: list, timeout_s: float = 600.0,
-              **common) -> list:
+              model: int = 1, **common) -> list:
     """Spawn ``n`` gloo ranks (``compat.spawn_nodes``) that each run
-    ``train_loop(mesh=<the ("data", "model") mesh of n ranks>, **common,
-    **run)`` for every ``run`` of ``runs`` in turn, and return rank 0's
-    ``{"losses", "launches"}`` of each (the launches counted in rank 0
-    during that run)."""
+    ``train_loop(mesh=<the (n / model, model) ("data", "model") mesh>,
+    **common, **run)`` for every ``run`` of ``runs`` in turn, and return
+    rank 0's ``{"losses", "launches"}`` of each (the launches counted in
+    rank 0 during that run)."""
+    if n % model:
+        raise ValueError(f"{n} ranks do not form a mesh with a 'model' "
+                         f"axis of {model}")
     with tempfile.TemporaryDirectory(prefix="repro-train-") as tmp:
         out_path = os.path.join(tmp, "rank0.json")
-        compat.spawn_nodes(_rank_main, n, n, runs, common, out_path,
+        compat.spawn_nodes(_rank_main, n, n, model, runs, common, out_path,
                            timeout_s=timeout_s)
         with open(out_path) as f:
             return json.load(f)
@@ -209,7 +223,9 @@ def main():
     ap.add_argument("--secure", action="store_true")
     ap.add_argument("--ckpt-dir")
     ap.add_argument("--ranks", type=int, default=1,
-                    help="data-parallel gloo ranks (spawned)")
+                    help="gloo ranks (spawned)")
+    ap.add_argument("--model", type=int, default=1,
+                    help="of which the 'model' (tensor-parallel) axis")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args()
 
@@ -217,9 +233,10 @@ def main():
     shape = ShapeConfig("cli", args.seq_len, args.batch, "train")
     t0 = time.time()
     if args.ranks > 1:
-        (out,) = run_ranks(args.ranks, [{}], cfg=cfg, steps=args.steps,
-                           shape=shape, secure=args.secure,
-                           ckpt_dir=args.ckpt_dir, device=args.device)
+        (out,) = run_ranks(args.ranks, [{}], model=args.model, cfg=cfg,
+                           steps=args.steps, shape=shape,
+                           secure=args.secure, ckpt_dir=args.ckpt_dir,
+                           device=args.device)
     else:
         out = train_loop(cfg, steps=args.steps, shape=shape,
                          secure=args.secure, ckpt_dir=args.ckpt_dir,

@@ -10,8 +10,27 @@ through a kernel wrapper: attention through ``flash_attention``, the SSD
 scan through ``ssd_chunked``; each launches its CUDA kernel on a CUDA
 tensor and runs its plain version on a CPU tensor (or under
 ``impl="torch"``).  Decode stays plain torch, as it is plain jnp in the
-reference.  The reference's ``constrain`` (sharding hints) has no
-counterpart on one device and is left out.
+reference.
+
+Tensor parallelism (TP, the ``DistCtx``'s ``tp_axis``) runs where the
+reference leaves GSPMD to shard by its ``constrain`` hints: each layer
+takes its weights as this rank's slice (``launch.sharding.shard_tree``)
+and reads its local sizes off their shapes.  A replicated activation
+enters a rank's slice of the work through ``tp_copy`` and a
+row-parallel product's partial sums leave through ``tp_reduce``:
+attention on the rank's query heads and the KV heads they read
+(``kv_block``), the flash kernel and ``decode_attention`` at the local
+H / K, ``wo`` row-parallel; the MLP column- then row-parallel; the MoE's
+router replicated (every rank routes alike), its expert stacks and
+shared expert cut on ``f_e``, one ``tp_reduce`` after the combine; the
+Mamba2 mixer on the rank's SSD heads, with ``in_B`` / ``in_C`` / their
+convolutions replicated, its gated RMSNorm's sum of squares summed over
+the axis (it averages over the whole ``d_inner``) and ``out_proj``
+row-parallel.  A replicated weight that a rank reads only in part
+(``q_norm``, ``A_log``, the router's weights through the combine, a KV
+head held by more than one rank) gets its gradient summed the same way,
+so every replicated leaf's gradient is whole on every rank.  With no TP
+axis every collective is the identity.
 
 The MoE's expert products are plain batched products over every slot of
 the fixed-capacity buffer, as the reference's einsums (no Pallas kernel
@@ -37,7 +56,8 @@ from repro_torch.configs.base import ATTN_CHUNKED, CROSS_ATTN, ModelConfig
 from repro_torch.kernels.flash_attention import flash_attention as _flash
 from repro_torch.kernels.ssd import ssd_chunked
 from repro_torch.runtime.context import (all_reduce_sum, all_to_all,
-                                         ep_group, get_ctx)
+                                         ep_group, get_ctx, tp_copy,
+                                         tp_index, tp_reduce, tp_size)
 
 NEG_INF = -1e30
 
@@ -45,6 +65,31 @@ NEG_INF = -1e30
 def _w(p: dict, name: str, dtype: torch.dtype) -> torch.Tensor:
     """A parameter in the compute dtype (a no-op when it already is)."""
     return p[name].to(dtype)
+
+
+def _device(gen) -> torch.device:
+    """Where ``init`` puts its tensors: the generator's device, or the
+    ``meta`` device given in its place (shapes only)."""
+    return gen if isinstance(gen, torch.device) else gen.device
+
+
+def _normal(gen, shape, std: float) -> torch.Tensor:
+    """N(0, std^2) drawn from ``gen``; on the meta device, the shape
+    alone (there is no meta generator)."""
+    if isinstance(gen, torch.device):
+        return torch.empty(shape, device=gen)
+    return torch.randn(shape, generator=gen, device=gen.device) * std
+
+
+def kv_block(cfg: ModelConfig, tp: int, idx: int) -> tuple[int, int]:
+    """(first KV head, KV heads) of TP rank ``idx`` of ``tp``: the heads
+    that its query heads ``[idx H/tp, (idx+1) H/tp)`` read.  Where
+    ``K < tp`` each KV head is held by the ``tp / K`` ranks that read
+    it."""
+    H, K = cfg.n_heads, cfg.n_kv_heads
+    if tp == 1:
+        return 0, K
+    return (idx * (H // tp)) // (H // K), max(K // tp, 1)
 
 
 # ---------------------------------------------------------------------------
@@ -56,7 +101,7 @@ def make_norm_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
     if cfg.norm == "nonparam_ln":
         return {}
     return {"scale": torch.ones((cfg.d_model,), dtype=torch.float32,
-                                device=gen.device)}
+                                device=_device(gen))}
 
 
 def apply_norm(cfg: ModelConfig, params: dict, x: torch.Tensor
@@ -162,10 +207,10 @@ def make_attn_params(cfg: ModelConfig, gen: torch.Generator,
     reference draws them."""
     d, hd, H, K = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads
     std = d ** -0.5
-    dev = gen.device
+    dev = _device(gen)
 
     def normal(shape, s):
-        return torch.randn(shape, generator=gen, device=dev) * s
+        return _normal(gen, shape, s)
 
     p = {"wq": normal((d, H * hd), std), "wk": normal((d, K * hd), std),
          "wv": normal((d, K * hd), std), "wo": normal((H * hd, d), std)}
@@ -181,23 +226,62 @@ def make_attn_params(cfg: ModelConfig, gen: torch.Generator,
 
 def _qkv(cfg: ModelConfig, p: dict, x: torch.Tensor, kv_src: torch.Tensor,
          dtype: torch.dtype):
+    """q (B, Sq, H_loc, hd) from x, k and v (B, Skv, K_loc, hd) from
+    ``kv_src``: the rank's heads, as many as its weights hold."""
+    ctx = get_ctx()
     B, Sq, _ = x.shape
     Skv = kv_src.shape[1]
-    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = x @ _w(p, "wq", dtype)
-    k = kv_src @ _w(p, "wk", dtype)
-    v = kv_src @ _w(p, "wv", dtype)
+    hd = cfg.hd
+    xt = tp_copy(ctx, x)
+    kt = xt if kv_src is x else tp_copy(ctx, kv_src)
+    # a KV head held by tp / K ranks: its gradient summed over them
+    tp, K = tp_size(ctx), cfg.n_kv_heads
+    span = tp // K if K < tp else 0
+
+    def kvw(name):
+        w = _w(p, name, dtype)
+        return tp_copy(ctx, w, span) if span else w
+
+    q = xt @ _w(p, "wq", dtype)
+    k = kt @ kvw("wk")
+    v = kt @ kvw("wv")
     if cfg.attn_bias:
         q = q + _w(p, "bq", dtype)
-        k = k + _w(p, "bk", dtype)
-        v = v + _w(p, "bv", dtype)
-    q = q.reshape(B, Sq, H, hd)
-    k = k.reshape(B, Skv, K, hd)
-    v = v.reshape(B, Skv, K, hd)
+        k = k + kvw("bk")
+        v = v + kvw("bv")
+    q = q.reshape(B, Sq, -1, hd)
+    k = k.reshape(B, Skv, -1, hd)
+    v = v.reshape(B, Skv, -1, hd)
     if cfg.qk_norm:
-        q = rms_head_norm(p["q_norm"], q)
-        k = rms_head_norm(p["k_norm"], k)
+        q = rms_head_norm(tp_copy(ctx, p["q_norm"]), q)
+        k = rms_head_norm(tp_copy(ctx, p["k_norm"]), k)
     return q, k, v
+
+
+def _attn_out(p: dict, o: torch.Tensor, dtype: torch.dtype
+              ) -> torch.Tensor:
+    """The rank's heads o (B, S, H_loc, hd) through its rows of ``wo``,
+    summed over the TP axis."""
+    B, S = o.shape[:2]
+    return tp_reduce(get_ctx(), o.reshape(B, S, -1) @ _w(p, "wo", dtype))
+
+
+def self_attention(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
+                   mixer: str, positions: Optional[torch.Tensor] = None,
+                   impl: Optional[str] = None):
+    """Self-attention over the full sequence x (B, S, D): (output, k, v),
+    k and v (B, S, K_loc, hd) after rope, for a prefill's cache."""
+    dtype = x.dtype
+    S = x.shape[1]
+    q, k, v = _qkv(cfg, p, x, x, dtype)
+    if positions is None:
+        positions = torch.arange(S, dtype=torch.int32, device=x.device)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    window = cfg.attn_window if mixer == ATTN_CHUNKED else 0
+    out = flash_attention(q, k, v, causal=cfg.causal, window=window,
+                          softcap=cfg.logit_softcap, impl=impl)
+    return _attn_out(p, out, dtype), k, v
 
 
 def attn_forward(cfg: ModelConfig, p: dict, x: torch.Tensor, *, mixer: str,
@@ -209,17 +293,8 @@ def attn_forward(cfg: ModelConfig, p: dict, x: torch.Tensor, *, mixer: str,
     k and v from the media, no rope, no mask."""
     if mixer == CROSS_ATTN:
         return cross_attention(cfg, p, x, media, impl=impl)[0]
-    dtype = x.dtype
-    B, S, _ = x.shape
-    q, k, v = _qkv(cfg, p, x, x, dtype)
-    if positions is None:
-        positions = torch.arange(S, dtype=torch.int32, device=x.device)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
-    window = cfg.attn_window if mixer == ATTN_CHUNKED else 0
-    out = flash_attention(q, k, v, causal=cfg.causal, window=window,
-                          softcap=cfg.logit_softcap, impl=impl)
-    return out.reshape(B, S, cfg.n_heads * cfg.hd) @ _w(p, "wo", dtype)
+    return self_attention(cfg, p, x, mixer=mixer, positions=positions,
+                          impl=impl)[0]
 
 
 def cross_attention(cfg: ModelConfig, p: dict, x: torch.Tensor,
@@ -228,12 +303,10 @@ def cross_attention(cfg: ModelConfig, p: dict, x: torch.Tensor,
     """A cross-attention layer's output for x (B, S, D) over the normed
     media (B, M, D): q from x, k and v from the media, no rope, no mask.
     Returns (output, k, v); k and v (B, M, K, hd) are the decode cache."""
-    B, S, _ = x.shape
     q, k, v = _qkv(cfg, p, x, media, x.dtype)
     out = flash_attention(q, k, v, causal=False, softcap=cfg.logit_softcap,
                           impl=impl)
-    y = out.reshape(B, S, cfg.n_heads * cfg.hd) @ _w(p, "wo", x.dtype)
-    return y, k, v
+    return _attn_out(p, out, x.dtype), k, v
 
 
 def attn_decode(cfg: ModelConfig, p: dict, x: torch.Tensor, cache: dict,
@@ -250,14 +323,12 @@ def attn_decode(cfg: ModelConfig, p: dict, x: torch.Tensor, cache: dict,
     is returned unchanged.
     """
     dtype = x.dtype
-    B = x.shape[0]
     if mixer == CROSS_ATTN:
         q, _, _ = _qkv(cfg, p, x, x[:, :1], dtype)       # only q matters
         M = cache["k"].shape[1]
         out = decode_attention(q, cache["k"], cache["v"], M - 1,
                                softcap=cfg.logit_softcap)
-        y = out.reshape(B, 1, cfg.n_heads * cfg.hd) @ _w(p, "wo", dtype)
-        return y, cache
+        return _attn_out(p, out, dtype), cache
     if slot is None:
         slot = t
     q, k, v = _qkv(cfg, p, x, x, dtype)
@@ -268,8 +339,7 @@ def attn_decode(cfg: ModelConfig, p: dict, x: torch.Tensor, cache: dict,
     cache["v"][:, slot:slot + 1] = v.to(cache["v"].dtype)
     out = decode_attention(q, cache["k"], cache["v"], slot,
                            softcap=cfg.logit_softcap)
-    y = out.reshape(B, 1, cfg.n_heads * cfg.hd) @ _w(p, "wo", dtype)
-    return y, cache
+    return _attn_out(p, out, dtype), cache
 
 
 # ---------------------------------------------------------------------------
@@ -280,10 +350,9 @@ def attn_decode(cfg: ModelConfig, p: dict, x: torch.Tensor, cache: dict,
 def make_mlp_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
     d, f = cfg.d_model, cfg.d_ff
     std = d ** -0.5
-    dev = gen.device
 
     def normal(shape, s):
-        return torch.randn(shape, generator=gen, device=dev) * s
+        return _normal(gen, shape, s)
 
     if cfg.mlp_gated:
         return {"w_gate": normal((d, f), std), "w_up": normal((d, f), std),
@@ -293,13 +362,16 @@ def make_mlp_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
 
 def mlp_forward(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     """SwiGLU, or GELU where the weights have no gate.  The GELU is the
-    tanh approximation, ``jax.nn.gelu``'s default."""
+    tanh approximation, ``jax.nn.gelu``'s default.  Under TP the rank's
+    columns of ``d_ff``, then its rows of ``w_down``, summed."""
     dtype = x.dtype
+    ctx = get_ctx()
+    x = tp_copy(ctx, x)
     if "w_gate" in p:
         h = F.silu(x @ _w(p, "w_gate", dtype)) * (x @ _w(p, "w_up", dtype))
     else:
         h = F.gelu(x @ _w(p, "w_up", dtype), approximate="tanh")
-    return h @ _w(p, "w_down", dtype)
+    return tp_reduce(ctx, h @ _w(p, "w_down", dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -317,15 +389,16 @@ def make_moe_params(cfg: ModelConfig, gen: torch.Generator,
     m = cfg.moe
     d, f, E = cfg.d_model, m.d_expert, m.n_experts
     std = d ** -0.5
-    dev = gen.device
+    dev = _device(gen)
 
     def normal(shape, s):
-        return torch.randn(shape, generator=gen, device=dev) * s
+        return _normal(gen, shape, s)
 
     def experts(shape, s):
         out = torch.empty((E, *shape), dtype=expert_dtype, device=dev)
-        for e in range(E):
-            out[e] = normal(shape, s)
+        if dev.type != "meta":
+            for e in range(E):
+                out[e] = normal(shape, s)
         return out
 
     p = {"router": normal((d, E), std), "w_gate": experts((d, f), std),
@@ -420,11 +493,21 @@ def _shared_expert(p: dict, xf: torch.Tensor) -> torch.Tensor:
 
 def _finish(cfg: ModelConfig, p: dict, xf: torch.Tensor, out: torch.Tensor,
             x: torch.Tensor) -> torch.Tensor:
-    """The shared expert added in float32, then the input's shape and
-    dtype."""
+    """The shared expert added in float32, the rank's partial sums (its
+    slice of ``f_e`` and of the shared expert) summed over the TP axis
+    in float32, then the input's shape and dtype."""
     if cfg.moe.d_shared:
         out = out + _shared_expert(p, xf)
-    return out.reshape(x.shape).to(x.dtype)
+    return tp_reduce(get_ctx(), out).reshape(x.shape).to(x.dtype)
+
+
+def _route(cfg: ModelConfig, p: dict, xf: torch.Tensor):
+    """(expert ids, weights, the tokens the experts read): the router runs
+    on every TP rank alike; its weights and the tokens then enter the
+    rank's slice of the experts."""
+    ctx = get_ctx()
+    idx, w = _router(cfg, p, xf)
+    return idx, tp_copy(ctx, w), tp_copy(ctx, xf)
 
 
 def moe_local(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
@@ -432,8 +515,7 @@ def moe_local(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     E = cfg.moe.n_experts
     B, S, D = x.shape
     T = B * S
-    xf = x.reshape(T, D)
-    idx, w = _router(cfg, p, xf)
+    idx, w, xf = _route(cfg, p, x.reshape(T, D))
     slot, C_e = _dispatch_slots(cfg, idx, T)
     buf = _scatter(xf, slot, E * C_e)
     yb = _expert_ffn(p, buf.view(E, C_e, D)).reshape(E * C_e, D)
@@ -451,8 +533,7 @@ def moe_distributed_replicated(cfg: ModelConfig, p: dict, x: torch.Tensor,
     _, my, n_ep = ep_group(ctx)
     E_loc = p["w_gate"].shape[0]
     E = E_loc * n_ep
-    xf = x.reshape(T, D)
-    idx, w = _router(cfg, p, xf)
+    idx, w, xf = _route(cfg, p, x.reshape(T, D))
     slot, C_e = _dispatch_slots(cfg, idx, T)
     buf = _scatter(xf, slot, E * C_e)
     rows = slice(my * E_loc * C_e, (my + 1) * E_loc * C_e)
@@ -475,8 +556,8 @@ def moe_distributed(cfg: ModelConfig, p: dict, x: torch.Tensor, ctx
     _, _, n_ep = ep_group(ctx)
     E_loc = p["w_gate"].shape[0]
     E = E_loc * n_ep
-    xf = x.reshape(T, D)
-    idx, w = _router(cfg, p, xf)        # router replicated; runs locally
+    # router replicated; runs locally
+    idx, w, xf = _route(cfg, p, x.reshape(T, D))
     slot, C_e = _dispatch_slots(cfg, idx, T)
     send = _scatter(xf, slot, E * C_e).view(n_ep, E_loc * C_e, D)
     if m.dispatch_dtype:  # e.g. fp8 dispatch (combine stays in act dtype)
@@ -530,10 +611,10 @@ def make_mamba_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
     d_in = s.expand * d
     nh = d_in // s.head_dim
     std = d ** -0.5
-    dev = gen.device
+    dev = _device(gen)
 
     def normal(shape, sd):
-        return torch.randn(shape, generator=gen, device=dev) * sd
+        return _normal(gen, shape, sd)
 
     def zeros(n):
         return torch.zeros((n,), device=dev)
@@ -579,15 +660,20 @@ def mamba_forward(cfg: ModelConfig, p: dict, x: torch.Tensor,
     or a zero state, and is differentiable (its backward a kernel on the
     card); decode is the one-step recurrence in plain torch."""
     s = cfg.ssm
+    ctx = get_ctx()
     dtype = x.dtype
     Bsz, S, D = x.shape
     d_in = s.expand * D
-    nh = d_in // s.head_dim
-    z = x @ _w(p, "in_z", dtype)
-    xr = x @ _w(p, "in_x", dtype)
+    # the rank's SSD heads [h0, h0 + nh) and their d_in_loc channels
+    d_in_loc = p["in_x"].shape[1]
+    nh = d_in_loc // s.head_dim
+    h0 = nh * tp_index(ctx)
+    xt = tp_copy(ctx, x)
+    z = xt @ _w(p, "in_z", dtype)
+    xr = xt @ _w(p, "in_x", dtype)
     Br = x @ _w(p, "in_B", dtype)
     Cr = x @ _w(p, "in_C", dtype)
-    dtr = x @ _w(p, "in_dt", dtype)
+    dtr = tp_copy(ctx, x @ _w(p, "in_dt", dtype))[..., h0:h0 + nh]
 
     st = state or {}
     xr, new_cx = _causal_conv(xr, _w(p, "conv_x", dtype),
@@ -596,10 +682,14 @@ def mamba_forward(cfg: ModelConfig, p: dict, x: torch.Tensor,
                               _w(p, "conv_Bb", dtype), st.get("conv_B"))
     Cm, new_cc = _causal_conv(Cr, _w(p, "conv_C", dtype),
                               _w(p, "conv_Cb", dtype), st.get("conv_C"))
+    Bm, Cm = tp_copy(ctx, Bm), tp_copy(ctx, Cm)
     xs = xr.reshape(Bsz, S, nh, s.head_dim)
 
-    dt = F.softplus(dtr.float() + p["dt_bias"])                    # (B,S,H)
-    A = -torch.exp(p["A_log"])                                      # (H,)
+    def mine(name):
+        return tp_copy(ctx, p[name])[h0:h0 + nh]
+
+    dt = F.softplus(dtr.float() + mine("dt_bias"))                 # (B,S,H)
+    A = -torch.exp(mine("A_log"))                                   # (H,)
 
     if decode:
         # recurrent single-step update (S == 1)
@@ -619,14 +709,20 @@ def mamba_forward(cfg: ModelConfig, p: dict, x: torch.Tensor,
                                  init, impl=impl)
         y = y.to(dtype)
 
-    y = y + xs * _w(p, "D", dtype)[None, None, :, None]
-    y = y.reshape(Bsz, S, d_in)
-    # gated RMSNorm (mamba2 style)
+    y = y + xs * mine("D").to(dtype)[None, None, :, None]
+    y = y.reshape(Bsz, S, d_in_loc)
+    # gated RMSNorm (mamba2 style), its mean over the whole d_in: under
+    # TP the ranks' sums of squares summed (and its gradient back to
+    # every rank's channels)
     y = y * F.silu(z)
     yf = y.float()
-    y = (yf * torch.rsqrt(torch.mean(yf * yf, -1, keepdim=True) + 1e-6)
-         * p["out_norm"]).to(dtype)
-    out = y @ _w(p, "out_proj", dtype)
+    if tp_size(ctx) == 1:
+        ms = torch.mean(yf * yf, -1, keepdim=True)
+    else:
+        ms = tp_copy(ctx, tp_reduce(ctx, torch.sum(
+            yf * yf, -1, keepdim=True))) / d_in
+    y = (yf * torch.rsqrt(ms + 1e-6) * p["out_norm"]).to(dtype)
+    out = tp_reduce(ctx, y @ _w(p, "out_proj", dtype))
     new_state = {"conv_x": new_cx.to(dtype), "conv_B": new_cb.to(dtype),
                  "conv_C": new_cc.to(dtype), "ssd": new_ssd}
     return out, new_state

@@ -6,8 +6,16 @@ tensors in the reference's layout, except that the reference's
 ``params["units"]`` leaves carry a leading ``n_units`` axis (its
 ``init_params`` vmaps the unit init and its forward scans over that
 axis), while here ``params["units"]`` is a list of ``n_units`` unit dicts
-run by a Python loop; caches likewise.  ``constrain`` (sharding hints)
-has no counterpart on one device and is left out; ``cfg.remat`` runs
+run by a Python loop; caches likewise.  The reference's ``constrain``
+(GSPMD sharding hints) has no counterpart: under a tensor-parallel
+context (``runtime.context``) every rank holds its slice of the weights
+and the layers call the collectives, the embedding vocab-parallel (a
+masked gather of the rank's rows, summed over the axis), the head
+vocab-parallel (the rank's columns of the logits, gathered), and every
+rank of a model slice holds the same residual stream, bit for bit (each
+sum over the axis hands every rank the same bits).  ``init_cache`` under
+such a context is the rank's: its KV heads, its SSD heads and
+``d_inner`` channels.  ``cfg.remat`` runs
 each unit of the training forward under ``torch.utils.checkpoint`` (the
 reference's ``jax.checkpoint``).  Every forward and prefill reaches its
 kernels through ``impl``: ``None`` picks the CUDA kernel on a CUDA tensor
@@ -25,6 +33,8 @@ import torch.utils.checkpoint
 from repro_torch.configs.base import (ATTN_CHUNKED, CROSS_ATTN, DENSE, MAMBA2,
                                       MOE, NONE, ModelConfig)
 from repro_torch.models import layers as L
+from repro_torch.runtime.context import (get_ctx, tp_copy, tp_gather,
+                                         tp_index, tp_reduce, tp_size)
 
 Params = Any
 Cache = Any
@@ -82,20 +92,18 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *,
     layer's expert stacks one expert's matrix (each is drawn in float32
     and stored cast), so a model whose weights fit the card only in the
     compute dtype can be served.  An audio-frames model has no embedding
-    table (its inputs are frame embeddings) and always its own head."""
+    table (its inputs are frame embeddings) and always its own head.
+    ``gen`` may be the ``meta`` device instead of a generator: the
+    shapes and dtypes alone, with no draw."""
     keep = (lambda t: cast_params(cfg, t)) if cast else (lambda t: t)
     d = cfg.d_model
     Vp = padded_vocab(cfg)
     audio = cfg.frontend == "audio_frames"
     params: dict = {}
     if not audio:
-        params.update(keep({"embed": torch.randn((Vp, d), generator=gen,
-                                                 device=gen.device)
-                            * (d ** -0.5)}))
+        params.update(keep({"embed": L._normal(gen, (Vp, d), d ** -0.5)}))
     if not cfg.tie_embeddings or audio:
-        params.update(keep({"head": torch.randn((d, Vp), generator=gen,
-                                                device=gen.device)
-                            * (d ** -0.5)}))
+        params.update(keep({"head": L._normal(gen, (d, Vp), d ** -0.5)}))
     params["final_norm"] = keep(L.make_norm_params(cfg, gen))
     expert_dtype = compute_dtype(cfg) if cast else torch.float32
     params["units"] = [keep(_init_unit(cfg, gen, expert_dtype))
@@ -128,12 +136,23 @@ def cast_params(cfg: ModelConfig, params: Params) -> Params:
 def embed_inputs(cfg: ModelConfig, params: Params, batch: dict
                  ) -> torch.Tensor:
     """The token embeddings, or an audio model's frames (B, S, D) cast to
-    the compute dtype."""
+    the compute dtype.  Under TP the table holds the rank's block of rows:
+    each token's row from the rank that holds it, zeros from the others,
+    summed (one nonzero term: the sum is exact)."""
     if cfg.frontend == "audio_frames":
         return batch["frames"].to(compute_dtype(cfg))
     # gather, then cast: the reference casts the table first, the same
     # values for the rows gathered; the multiplier in the compute dtype
-    x = params["embed"][batch["tokens"]].to(compute_dtype(cfg))
+    ctx = get_ctx()
+    table, tokens = params["embed"], batch["tokens"]
+    if tp_size(ctx) == 1:
+        x = table[tokens].to(compute_dtype(cfg))
+    else:
+        v_loc = table.shape[0]
+        local = tokens.long() - tp_index(ctx) * v_loc
+        mine = (local >= 0) & (local < v_loc)
+        x = table[local.clamp(0, v_loc - 1)].to(compute_dtype(cfg))
+        x = tp_reduce(ctx, x * mine[..., None].to(x.dtype))
     if cfg.embedding_multiplier != 1.0:
         x = x * cfg.embedding_multiplier
     return x
@@ -141,10 +160,17 @@ def embed_inputs(cfg: ModelConfig, params: Params, batch: dict
 
 def lm_head(cfg: ModelConfig, params: Params, x: torch.Tensor
             ) -> torch.Tensor:
-    """x @ embed^T with tied embeddings (and a table), else x @ head."""
+    """x @ embed^T with tied embeddings (and a table), else x @ head.
+    Under TP the rank's columns of the logits, gathered into all Vp on
+    every rank (a loss over them holds the whole (B, S, Vp) logits on
+    each rank, as one rank does)."""
+    ctx = get_ctx()
+    x = tp_copy(ctx, x)
     if cfg.tie_embeddings and "embed" in params:
-        return x @ params["embed"].to(x.dtype).T
-    return x @ params["head"].to(x.dtype)
+        logits = x @ params["embed"].to(x.dtype).T
+    else:
+        logits = x @ params["head"].to(x.dtype)
+    return tp_gather(ctx, logits)
 
 
 # ---------------------------------------------------------------------------
@@ -241,11 +267,15 @@ def loss_fn(cfg: ModelConfig, params: Params, batch: dict,
 
 def _layer_cache(cfg: ModelConfig, spec, B: int, max_seq: int,
                  device, media_len: int = 0) -> dict:
-    K, hd = cfg.n_kv_heads, cfg.hd
+    """One layer's zero cache: this rank's KV heads or SSD heads under a
+    TP context, all of them otherwise."""
+    tp = tp_size(get_ctx())
+    K = L.kv_block(cfg, tp, tp_index(get_ctx()))[1]
+    hd = cfg.hd
     dtype = compute_dtype(cfg)
     if spec.mixer == MAMBA2:
         s = cfg.ssm
-        d_in = s.expand * cfg.d_model
+        d_in = s.expand * cfg.d_model // tp
         nh = d_in // s.head_dim
         return {
             "conv_x": torch.zeros((B, s.d_conv - 1, d_in), dtype=dtype,
@@ -271,7 +301,8 @@ def init_cache(cfg: ModelConfig, B: int, max_seq: int, device,
                media_len: int = 0) -> Cache:
     """Zero caches: an attention layer's K / V at ``max_seq`` positions
     (a chunked layer's at its window), a cross-attention layer's at
-    ``media_len`` media tokens, a Mamba2 layer's conv and SSD states."""
+    ``media_len`` media tokens, a Mamba2 layer's conv and SSD states;
+    under a TP context, this rank's."""
     return [{f"layer{i}": _layer_cache(cfg, spec, B, max_seq, device,
                                        media_len)
              for i, spec in enumerate(cfg.pattern)}
@@ -287,7 +318,6 @@ def _unit_prefill(cfg: ModelConfig, unit: dict, x: torch.Tensor,
                   media: Optional[torch.Tensor], *, max_seq: int,
                   impl: Optional[str]) -> tuple[torch.Tensor, dict]:
     B, S, _ = x.shape
-    dtype = x.dtype
     caches = {}
     for i, spec in enumerate(cfg.pattern):
         lp = unit[f"layer{i}"]
@@ -302,14 +332,9 @@ def _unit_prefill(cfg: ModelConfig, unit: dict, x: torch.Tensor,
             y, k, v = L.cross_attention(cfg, lp["mixer"], h, med, impl=impl)
             caches[f"layer{i}"] = {"k": k, "v": v}
         else:
-            positions = torch.arange(S, dtype=torch.int32, device=x.device)
-            q, k, v = L._qkv(cfg, lp["mixer"], h, h, dtype)
-            q = L.rope(q, positions, cfg.rope_theta)
-            k = L.rope(k, positions, cfg.rope_theta)
+            y, k, v = L.self_attention(cfg, lp["mixer"], h, mixer=spec.mixer,
+                                       impl=impl)
             window = cfg.attn_window if spec.mixer == ATTN_CHUNKED else 0
-            o = L.flash_attention(q, k, v, causal=cfg.causal, window=window,
-                                  softcap=cfg.logit_softcap, impl=impl)
-            y = o.reshape(B, S, -1) @ lp["mixer"]["wo"].to(dtype)
             cache = _layer_cache(cfg, spec, B, max_seq, x.device)
             # ring buffer slot = pos % window: only the current (possibly
             # partial) chunk's tail belongs in the cache; S % window == 0

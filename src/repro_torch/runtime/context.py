@@ -1,13 +1,29 @@
-"""Distribution context read by the model layers: the part of the
-reference's ``repro/runtime/context.py`` the MoE MLP needs.
+"""Distribution context read by the model layers: the counterpart of
+the reference's ``repro/runtime/context.py``.
 
 ``DistCtx`` says whether a mesh exists (no mesh: every layer runs on its
-own device), which of its axes carry data parallelism and which one the
-experts are split over.  Every rank of the port is a process of its own
-that holds only its tokens and its experts: the reference's manual mode
-(inside a ``shard_map``) is the only one, so the reference's
-``manual_dp`` flag and its partial-manual ``shard_map`` over GSPMD have
-no counterpart.
+own device), which of its axes carry data parallelism, which one the
+experts are split over and which one the tensor-parallel (TP) weights
+are split over.  Every rank of the port is a process of its own that
+holds only its tokens, its experts and its TP slice of the weights:
+every axis is manual, all the time.  So the reference's ``manual_dp``
+flag, its ``manual_axes``, its partial-manual ``shard_map`` over GSPMD
+and its ``constrain`` (a GSPMD sharding hint) have no counterpart: where
+the reference lets XLA insert the collectives that its hints imply, the
+model layers here call them, Megatron-style, on the TP axis's group:
+
+  * ``tp_copy``: identity forward, sum over the axis backward (where a
+    replicated tensor enters a rank's slice of the work);
+  * ``tp_reduce``: sum over the axis forward, identity backward (a
+    row-parallel product's partial sums, whose result is replicated);
+  * ``tp_gather``: the ranks' pieces concatenated along the last dim
+    forward, this rank's piece of the gradient backward (the
+    vocab-parallel head's logits).
+
+Gloo has no bfloat16 sum: a bfloat16 (or float16) partial sum goes over
+the wire as float32 and is cast back once, after the sum, so the port
+sums TP partials more finely than the reference's XLA all-reduce does
+in the activation dtype.
 
 The expert axis's collectives (``all_to_all``, ``all_reduce_sum``) run
 on the axis's process group; a CUDA tensor over gloo is staged through
@@ -38,6 +54,7 @@ class DistCtx:
     mesh: Optional[object] = None       # a compat.NodeMesh
     dp_axes: tuple[str, ...] = ()       # data-parallel axes
     ep_axis: Optional[str] = None       # expert-parallel axis
+    tp_axis: Optional[str] = None       # tensor-parallel axis
     # True in the baseline train step, the reference's GSPMD step: a
     # rank's batch is its shard of the global batch, and the reference's
     # replicated-token test reads the global batch, which always splits
@@ -71,6 +88,32 @@ def ep_group(ctx: DistCtx) -> tuple:
     n = mesh.shape[ax]
     group, _ = subgroup(mesh, (ax,), [tuple(range(n))])
     return group, mesh.coord(ax), n
+
+
+def tp_size(ctx: DistCtx) -> int:
+    """The TP axis's extent (1: no TP; every collective is the
+    identity)."""
+    if ctx.mesh is None or ctx.tp_axis is None:
+        return 1
+    return ctx.mesh.shape[ctx.tp_axis]
+
+
+def tp_index(ctx: DistCtx) -> int:
+    """This rank's index on the TP axis (0 without one)."""
+    return ctx.mesh.coord(ctx.tp_axis) if tp_size(ctx) > 1 else 0
+
+
+def tp_group(ctx: DistCtx, span: int = 0) -> tuple:
+    """(group, this rank's index in it, its size): the ranks that share
+    this rank's coordinates off the TP axis and, where ``span`` is given,
+    its block of ``span`` consecutive TP indices (the ranks that hold one
+    replicated KV head).  Built once a mesh, as ``ep_group``."""
+    mesh, ax = ctx.mesh, ctx.tp_axis
+    n = mesh.shape[ax]
+    span = span or n
+    blocks = [tuple(range(b, b + span)) for b in range(0, n, span)]
+    group, _ = subgroup(mesh, (ax,), blocks)
+    return group, mesh.coord(ax) % span, span
 
 
 def _stage(t: torch.Tensor, mesh) -> torch.Tensor:
@@ -143,3 +186,91 @@ def all_to_all(ctx: DistCtx, send: torch.Tensor) -> torch.Tensor:
 def all_reduce_sum(ctx: DistCtx, t: torch.Tensor) -> torch.Tensor:
     """The sum of ``t`` over the expert axis, on every rank of it."""
     return _AllReduceSum.apply(t, ctx)
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism over ctx.tp_axis
+# ---------------------------------------------------------------------------
+
+
+def _tp_sum(ctx: DistCtx, t: torch.Tensor, span: int) -> torch.Tensor:
+    """The sum of ``t`` over the TP group, in float32 on the wire where
+    ``t`` is a narrower float (gloo sums no bfloat16), cast back after."""
+    group, _, _ = tp_group(ctx, span)
+    wide = t.float() if t.dtype in (torch.bfloat16, torch.float16) else t
+    h = _stage(wide, ctx.mesh)
+    if h is t:
+        h = t.clone()
+    dist.all_reduce(h, op=dist.ReduceOp.SUM, group=group)
+    return h.to(device=t.device, dtype=t.dtype)
+
+
+def _tp_cat(ctx: DistCtx, t: torch.Tensor) -> torch.Tensor:
+    """The TP ranks' ``t`` concatenated along the last dim, in rank
+    order (the bytes gathered: any dtype)."""
+    group, _, n = tp_group(ctx)
+    h = _stage(t, ctx.mesh)
+    parts = [torch.empty_like(h) for _ in range(n)]
+    dist.all_gather([_wire_view(p) for p in parts], _wire_view(h),
+                    group=group)
+    return torch.cat(parts, dim=-1).to(t.device)
+
+
+class _TPCopy(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, t, ctx, span):
+        fctx.ctx, fctx.span = ctx, span
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(fctx, grad):
+        return _tp_sum(fctx.ctx, grad.contiguous(), fctx.span), None, None
+
+
+class _TPReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, t, ctx):
+        return _tp_sum(ctx, t.contiguous(), 0)
+
+    @staticmethod
+    def backward(fctx, grad):
+        return grad, None
+
+
+class _TPGather(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, t, ctx):
+        fctx.ctx, fctx.width = ctx, t.shape[-1]
+        return _tp_cat(ctx, t.contiguous())
+
+    @staticmethod
+    def backward(fctx, grad):
+        w = fctx.width
+        i = tp_index(fctx.ctx)
+        return grad[..., i * w:(i + 1) * w].contiguous(), None
+
+
+def tp_copy(ctx: DistCtx, t: torch.Tensor, span: int = 0) -> torch.Tensor:
+    """``t`` as it is; its gradient summed over the TP axis (over this
+    rank's block of ``span`` TP ranks where given).  Marks a replicated
+    tensor (an activation, or a replicated weight) where it enters work
+    that each rank does on its own slice."""
+    if tp_size(ctx) == 1:
+        return t
+    return _TPCopy.apply(t, ctx, span)
+
+
+def tp_reduce(ctx: DistCtx, t: torch.Tensor) -> torch.Tensor:
+    """The sum of the ranks' partial ``t`` over the TP axis, the same on
+    every rank; its gradient passes as it is."""
+    if tp_size(ctx) == 1:
+        return t
+    return _TPReduce.apply(t, ctx)
+
+
+def tp_gather(ctx: DistCtx, t: torch.Tensor) -> torch.Tensor:
+    """The TP ranks' ``t`` (..., n) concatenated to (..., tp * n); the
+    gradient of this rank's columns comes back."""
+    if tp_size(ctx) == 1:
+        return t
+    return _TPGather.apply(t, ctx)

@@ -106,9 +106,10 @@ def _mesh(**shape):
     (dict(pod=2, data=2, model=1), "dp axis 'pod' of size 2"),
     (dict(pod=2, data=1, model=1), "dp axis 'pod' of size 2"),
     (dict(data=3, model=1), "do not split"),
-    (dict(data=2, model=2), "shards nothing but the batch"),
+    (dict(data=2, model=2), None),
+    (dict(data=2, model=3), "do not split over the 3 ranks of 'model'"),
 ], ids=["one_rank", "data2", "pod1_data2", "pod2_data2", "pod2",
-        "data3", "model2"])
+        "data3", "model2", "model3"])
 def test_moe_meshes_taken_and_refused(shape, refused):
     cfg = p_smoke("qwen3-moe-235b-a22b")
     mesh = _mesh(**shape)

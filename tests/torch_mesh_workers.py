@@ -9,8 +9,13 @@ gloo group on the CPU; each runs every case in order (the same order on
 every rank: subgroups are built collectively), checks the distributed
 result against the port's own sim oracle, and writes ``rank{r}.npz``
 with its results under ``"{case}/{field}"``.  The test then holds them
-against the JAX package.  ``--die`` runs two ranks of which one dies.
-This module imports torch and the port only.
+against the JAX package.  A case whose mesh has fewer ranks than the
+spawn runs on one of ``RANKS / size`` groups of its own: the ranks leave
+the spawn's group, join their block's (rank r in block r // size, as its
+rank r % size), share that mesh's cases out over the blocks, and come
+back to the spawn's group after them; such a case's fields carry its
+mesh rank as ``"{case}/r{i}/{field}"``.  ``--die`` runs two ranks of
+which one dies.  This module imports torch and the port only.
 """
 from __future__ import annotations
 
@@ -478,7 +483,7 @@ def run_train_moe(case, inputs, mesh) -> dict:
     (its leaves in ``tree_flatten`` order), either ``case["steps"]`` steps
     of ``build_train_step`` / ``build_secure_train_step`` on this rank's
     rows of the synthetic stream's global batches, from this rank's
-    expert slice (``shard_experts``), or ``train_loop`` from the full
+    expert slice (``sharding.shard_tree``), or ``train_loop`` from the full
     tree (which slices it itself).  Returns the losses, the grad norms
     (steps only), this rank's final parameter leaves and how many times
     each expert-parallel path ran."""
@@ -489,6 +494,7 @@ def run_train_moe(case, inputs, mesh) -> dict:
                                      opt_config_from_fields)
     from repro_torch.core.engine import tree_flatten
     from repro_torch.data.pipeline import DataConfig, SyntheticStream
+    from repro_torch.launch import sharding as SH
     from repro_torch.launch import steps as ST
     from repro_torch.launch.train import default_agg, train_loop
     from repro_torch.models import layers as L
@@ -524,7 +530,7 @@ def run_train_moe(case, inputs, mesh) -> dict:
         else:
             n, r = mesh.shape["data"], mesh.coord("data")
             rows = gb // n
-            params = ST.shard_experts(cfg, full, mesh)
+            params = SH.shard_tree(cfg, full, mesh)
             state = adamw.init_opt_state(opt, params)
             if case["secure"]:
                 step, _ = ST.build_secure_train_step(
@@ -552,27 +558,227 @@ def run_train_moe(case, inputs, mesh) -> dict:
     return out
 
 
+def to_reference(params):
+    """The port's parameter tree as numpy in the reference's layout: the
+    list of unit dicts stacked into one dict of (n_units, ...) leaves."""
+    def np_tree(t):
+        if isinstance(t, dict):
+            return {k: np_tree(v) for k, v in t.items()}
+        return t.numpy()
+
+    def stack(units):
+        if isinstance(units[0], dict):
+            return {k: stack([u[k] for u in units]) for k in units[0]}
+        return np.stack(units)
+
+    out = {k: np_tree(v) for k, v in params.items() if k != "units"}
+    out["units"] = stack([np_tree(u) for u in params["units"]])
+    return out
+
+
+def _full_params(case, inputs):
+    """The full parameter tree ``inputs[case["params"] + "/i"]`` (its
+    leaves in ``tree_flatten`` order), as copies."""
+    from repro_torch.core.engine import tree_flatten
+    from repro_torch.models import model as M
+    leaves, rebuild = tree_flatten(
+        M.init_params(_cfg(case), torch.device("meta")))
+    return rebuild([torch.from_numpy(inputs[f"{case['params']}/{i}"].copy())
+                    for i in range(len(leaves))])
+
+
+def _cfg(case):
+    from repro_torch.convert import model_config_from_fields
+    return model_config_from_fields(case["cfg"])
+
+
+class _Taps:
+    """Records, while active, the router's expert ids and every unit's
+    output (the residual stream), as sha256 digests of their bytes, so
+    that the ranks of a model slice can be held equal bit for bit."""
+
+    def __init__(self):
+        import hashlib
+        from repro_torch.models import layers as L
+        from repro_torch.models import model as M
+        self.router = hashlib.sha256()
+        self.resid = hashlib.sha256()
+        self.saved = [(L, "_router", L._router)]
+        self.saved += [(M, n, getattr(M, n)) for n in
+                       ("_unit_forward", "_unit_prefill", "_unit_decode")]
+
+        def router(*a, **kw):
+            idx, w = self.saved[0][2](*a, **kw)
+            self.router.update(idx.numpy().tobytes())
+            return idx, w
+
+        def unit(fn):
+            def wrap(*a, **kw):
+                out = fn(*a, **kw)
+                x = out[0] if isinstance(out, tuple) else out
+                self.resid.update(x.detach().float().numpy().tobytes())
+                return out
+            return wrap
+
+        L._router = router
+        for mod, name, fn in self.saved[1:]:
+            setattr(mod, name, unit(fn))
+
+    def close(self) -> dict:
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+        return {"router_sha": np.array(self.router.hexdigest()),
+                "resid_sha": np.array(self.resid.hexdigest())}
+
+
+def run_tp_serve(case, inputs, mesh) -> dict:
+    """The tensor-parallel serve on this rank's slice of the full tree:
+    the prefill step on the prompts ``inputs[case["prompts"] + "/..."]``
+    (an encoder: its forward), then ``case["steps"]`` decode steps fed
+    the tokens ``inputs[case["forced"]]`` (B, steps), each step's whole
+    logits kept; with ``case["serve"]`` also ``serve`` (greedy tokens).
+    Also the digests of the router's ids and of the residual stream."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import serve as SV
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch import steps as ST
+    cfg = _cfg(case)
+    B, PL, steps = case["batch"], case["prompt_len"], case["steps"]
+    full = _full_params(case, inputs)
+    params = SH.shard_tree(cfg, full, mesh)
+    rows = SV._rows(B, mesh)
+    prompts = {k[len(case["prompts"]) + 1:]: torch.from_numpy(v[rows].copy())
+               for k, v in inputs.items()
+               if k.startswith(case["prompts"] + "/")}
+    out = {}
+    taps = _Taps()
+    try:
+        pre, _ = ST.build_prefill_step(
+            cfg, mesh, ShapeConfig("p", PL, B, "prefill"),
+            max_seq=PL + steps)
+        if not cfg.decoder:
+            out["logits"] = pre(params, prompts).numpy()
+            return {**out, **taps.close()}
+        logits, cache = pre(params, prompts)
+        dec, _ = ST.build_decode_step(
+            cfg, mesh, ShapeConfig("d", PL + steps, B, "decode"))
+        got = [logits]
+        forced = torch.from_numpy(inputs[case["forced"]][rows].copy())
+        for i in range(steps):
+            logits, cache = dec(params, cache, forced[:, i:i + 1], PL + i)
+            got.append(logits)
+        out["logits"] = torch.cat(got, dim=1).numpy()
+    finally:
+        out.update(taps.close())
+    if case["serve"]:
+        res = SV.serve(cfg, mesh, batch=B, prompt_len=PL, gen=steps + 1,
+                       params=params, device="cpu")
+        out["tokens"] = res["tokens"]
+    return out
+
+
+def run_tp_train(case, inputs, mesh) -> dict:
+    """``train_loop`` on the (data, model) mesh from the full tree (each
+    rank cuts its slice), ``case["steps"]`` steps of the synthetic
+    stream, secure or baseline: the losses and this rank's final slice.
+    With ``case["restart"]``: the same run crashed at its last step after
+    a checkpoint a step (``ckpt_dir/tp<j>``, or ``ep<i>/tp<j>``), then
+    resumed; ``restart_equal`` says whether its final slice equals the
+    uninterrupted run's bit for bit."""
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.convert import opt_config_from_fields
+    from repro_torch.core.engine import tree_flatten
+    from repro_torch.launch.train import train_loop
+    from repro_torch.runtime.fault import FailurePlan, InjectedCrash
+    cfg = _cfg(case)
+    opt = opt_config_from_fields(case["opt"])
+    steps = case["steps"]
+    kw = dict(steps=steps, secure=case["secure"], opt_cfg=opt,
+              shape=ShapeConfig("t", case["seq_len"], case["global_batch"],
+                                "train"),
+              log_every=1000, device="cpu")
+    run = train_loop(cfg, mesh, params=_full_params(case, inputs), **kw)
+    leaves = tree_flatten(run["params"])[0]
+    out = {"losses": np.array(run["losses"])}
+    out.update({f"p{i}": t.detach().numpy() for i, t in enumerate(leaves)})
+    if case["restart"]:
+        ck = case["ckpt_dir"]
+        try:
+            train_loop(cfg, mesh, params=_full_params(case, inputs),
+                       ckpt_dir=ck, ckpt_every=1,
+                       failure_plan=FailurePlan(crash_at_steps=(steps - 1,)),
+                       **kw)
+        except InjectedCrash:
+            pass
+        # a restart is a new job: every slice's checkpoint is written
+        dist.barrier()
+        again = train_loop(cfg, mesh, params=_full_params(case, inputs),
+                           ckpt_dir=ck, ckpt_every=1, **kw)
+        out["resumed_from"] = np.int64(again["resumed_from"])
+        out["restart_equal"] = np.array(all(
+            torch.equal(a, b) for a, b in
+            zip(leaves, tree_flatten(again["params"])[0])))
+    return out
+
+
 RUN = {"execute": run_execute, "tree": run_tree, "reorder": run_reorder,
        "host_mesh": run_host_mesh, "cluster_sum": run_cluster_sum,
        "facade": run_facade, "wrong_world": run_wrong_world,
        "stale_wire": run_stale_wire, "service": run_service,
-       "funcs": run_funcs, "moe": run_moe, "train_moe": run_train_moe}
+       "funcs": run_funcs, "moe": run_moe, "train_moe": run_train_moe,
+       "tp_serve": run_tp_serve, "tp_train": run_tp_train}
+
+
+def _regroup(job_dir: str, tag: str, rank: int, world: int) -> None:
+    """Leave the current default group and join a new one of ``world``
+    ranks as ``rank`` (a ``FileStore`` no earlier group used)."""
+    import torch.distributed as dist
+
+    from repro_torch.runtime.compat import init_node_group
+    dist.destroy_process_group()
+    init_node_group(rank, world, os.path.join(job_dir, f"store-{tag}"))
 
 
 def worker(rank: int, job_dir: str) -> None:
+    import torch.distributed as dist
+
     from repro_torch.runtime.compat import make_mesh
     with open(os.path.join(job_dir, "job.json")) as f:
         cases = json.load(f)
     with np.load(os.path.join(job_dir, "inputs.npz")) as z:
         inputs = dict(z)
+    world = dist.get_world_size()
     meshes: dict = {}
     out = {}
+    # runs of consecutive cases on one mesh
+    runs: list = []
     for case in cases:
         key = (tuple(case["mesh"][0]), tuple(case["mesh"][1]))
-        if key not in meshes:
-            meshes[key] = make_mesh(*key)
-        for field, v in RUN[case["kind"]](case, inputs, meshes[key]).items():
-            out[f"{case['name']}/{field}"] = v
+        if runs and runs[-1][0] == key:
+            runs[-1][1].append(case)
+        else:
+            runs.append((key, [case]))
+    for n_run, (key, run) in enumerate(runs):
+        size = int(np.prod(key[0]))
+        if size == world:
+            if key not in meshes:
+                meshes[key] = make_mesh(*key)
+            for case in run:
+                for field, v in RUN[case["kind"]](case, inputs,
+                                                  meshes[key]).items():
+                    out[f"{case['name']}/{field}"] = v
+            continue
+        # a smaller mesh: this rank's block runs every blocks-th case
+        blocks, block = world // size, rank // size
+        _regroup(job_dir, f"{n_run}-{block}", rank % size, size)
+        meshes.clear()
+        mesh = make_mesh(*key)
+        for case in run[block::blocks]:
+            for field, v in RUN[case["kind"]](case, inputs, mesh).items():
+                out[f"{case['name']}/r{mesh.rank}/{field}"] = v
+        _regroup(job_dir, f"{n_run}-all", rank, world)
     np.savez(os.path.join(job_dir, f"rank{rank}.npz"), **out)
 
 
