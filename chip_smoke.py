@@ -8,6 +8,12 @@ with a non-zero exit code:
   device   the card's name, and its name and power limit from nvidia-smi
   build    build the CUDA kernels from ``src/repro_torch/csrc`` into one
            library (one nvcc per source, started together, then a link)
+  fsdp     (run right after build, while the card is empty) FSDP over
+           "data": command-r-35b at full width in float32 on a (2, 1)
+           mesh of 2 gloo ranks, one step's loss and grad norm at 1
+           unit and the prefill at 2 units against one rank's; three
+           dry-run cells in subprocesses that leave CUDA uninitialized;
+           flash and its backward at the ranks' shape
   kernels  each CUDA kernel against its plain torch version on the card,
            bit for bit, over lengths, modes, counter offsets near 2^32
            and vote copies with and without a majority; the Montgomery
@@ -285,7 +291,8 @@ phase's (a), ``service_launches`` on the service phase's depth-2 stream,
 ``train_launches_secure_run`` on the train phase's (b) secure run,
 ``mamba2_train_launches_secure_run`` on (f)'s,
 ``serve_agg_mesh_rank0_launches`` on the launch phase's (a) mesh rank 0,
-``quickstart_launches`` on its (b);
+``quickstart_launches`` on its (b), the tp and fsdp phases' rank
+shapes, errors and launches a rank;
 each null where its phase did not run; the two backwards' ``launches``
 and ``max_abs_err`` come from the train phase, the SSD backward's
 launches from (f)'s secure run),
@@ -314,11 +321,17 @@ import numpy as np
 import torch
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
+# the kernels' work counts (bytes, operations) live in the package, so the
+# kernel table's bounds and the dry run count the same work
+from repro_torch.roofline.counts import (  # noqa: E402
+    flash_bwd_work, flash_fwd_work, mask_work, mont_exp_work,
+    mont_mul_work, ssd_bwd_bytes, ssd_bwd_flops, ssd_bwd_flops_at,
+    ssd_bytes, ssd_flops, unmask_work, vote_work)
 
 T_START = time.perf_counter()
 PHASES = ("device", "build", "kernels", "main", "batched", "service",
-          "funcs", "mesh", "paillier", "serve", "train", "tp", "launch",
-          "timing")
+          "funcs", "mesh", "paillier", "serve", "train", "tp", "fsdp",
+          "launch", "timing")
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 # 32-bit lane operations issued per second: 132 SMs x 128 lanes x
 # 1.98 GHz, half the 67 TFLOP/s float32 FMA rate (an FMA counts two FLOPs)
@@ -353,8 +366,6 @@ EP_TOL = 2e-4
 EP_GRAD_CF = 16.0
 MESH_FLIP = (0, 4, 8, 12)
 MESH_FLIP_OVER = (0, 1, 4, 5, 8, 9, 12, 13)
-SPLITMIX_OPS = 9              # add, 3 shifts, 3 xors, 2 multiplies
-PAD_OPS = SPLITMIX_OPS + 2    # ctr ^ k1, then + k2
 # Two 512-bit safe primes, drawn once with the port's gen_safe_prime and
 # checked with _is_probable_prime (p, q and (p-1)/2, (q-1)/2), so the
 # full-width key's shapes are the same in every run
@@ -4347,8 +4358,340 @@ def phase_tp(dev, seed: int, errs: dict, shape: Optional[dict] = None
 
 
 
-def _network_exchanges(r: int) -> int:
-    return sum(len(range(p % 2, r - 1, 2)) for p in range(r))
+# fsdp: command-r-35b (dp_mode="fsdp", the smallest dense config that
+# uses FSDP) at full width on a (2, 1) ("data", "model") mesh of 2 gloo
+# ranks on the one card, float32: (a) the loss and gradients of one step
+# at ``units`` units on the global batch, (b) the prefill at
+# ``prefill_units``, each against one rank's; (c) the dry run of
+# ``dry_cells`` in subprocesses (no card).  (a) runs 1 unit: at 2 a rank
+# peaks at 36.6 GiB (the tied embedding's weight and two gradient
+# buffers of 7.8 GiB each at the end of the backward), and two such
+# ranks ran the card out of memory in one of three runs
+FSDP_SHAPE = {"arch": "command-r-35b", "units": 1, "batch": 4,
+              "seq": 1024, "prefill_units": 2, "prefill_batch": 4,
+              "prefill_prompt": 2048, "smoke": False,
+              "dry_cells": (("qwen3-moe-235b-a22b", "train_4k", False),
+                            ("qwen3-moe-235b-a22b", "train_4k", True),
+                            ("llama4-maverick-400b-a17b", "prefill_32k",
+                             False)),
+              "dry_refused": ("llama4-maverick-400b-a17b",)}
+# (a)'s rank shape: 2 sequences of 1,024, all 64 query over 8 KV heads
+FSDP_FLASH_CASE = (2, 1024, 1024, 64, 8, 128, True, 0)
+
+
+def _fsdp_cfg(shape: dict, units: int):
+    cfg = dataclasses.replace(_tp_cfg(shape["arch"], shape), n_units=units,
+                              dtype="float32")
+    check(cfg.dp_mode == "fsdp", f"{cfg.name}: dp_mode {cfg.dp_mode}")
+    return cfg
+
+
+def _fsdp_batch(cfg, shape: dict, seed: int, dev, rows: slice) -> dict:
+    from repro_torch.data.pipeline import DataConfig, SyntheticStream
+    return {k: torch.from_numpy(v[rows].copy()).to(dev)
+            for k, v in SyntheticStream(DataConfig(
+                seq_len=shape["seq"], global_batch=shape["batch"],
+                seed=seed), cfg).global_batch(0).items()}
+
+
+def _fsdp_grads(cfg, params, batch: dict, total: int, mesh) -> tuple:
+    """(loss, grad norm) of one baseline step's loss and synced gradients
+    (no update): on ``mesh`` through the step's own sync."""
+    from repro_torch.launch import steps as ST
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.context import use_ctx
+    with use_ctx(ST.dist_ctx(cfg, mesh, sharded_batch=True)):
+        loss, grads = ST.local_grads(cfg, params, batch, total)
+    ST.sync_grads_(cfg, loss, grads, mesh)
+    gnorm = ST.grad_norm(cfg, grads, mesh) if mesh is not None \
+        else adamw.global_norm(grads)
+    return float(loss), float(gnorm)
+
+
+def _fsdp_rank(rank: int, seed: int, job_dir: str, shape: dict) -> None:
+    """One rank of fsdp (a) / (b): this rank's FSDP slice of the seeded
+    float32 draw (``shard_tree(..., fsdp="data")``), (a) the loss and
+    synced gradients of its rows of the global batch, its seconds, peak
+    memory, collectives and launches; (b) the prefill of its rows, whose
+    logits it writes beside ``fsdp{r}.json``."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import backend
+    from repro_torch.launch import serve as SV
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.runtime import context
+    dev = torch.device(shape["device"])
+    cuda = dev.type == "cuda"
+    if cuda:
+        # two ranks of ~30 GB share the card: expandable segments keep
+        # the caching allocator's fragmentation from adding ~9 GB a rank
+        torch._C._accelerator_setAllocatorSettings(
+            "expandable_segments:True")
+        torch.cuda.set_device(dev)
+    mesh = make_host_mesh(data=2, model=1)
+    cfg = _fsdp_cfg(shape, shape["units"])
+    params = SH.shard_tree(cfg, _tp_weights(cfg, seed, dev, False), mesh,
+                           fsdp=ST.fsdp_axis(cfg, mesh))
+    n_cut = sum(SH.fsdp_dim(cfg, p, t) is not None
+                for p, t in SH._leaves_with_paths(params))
+    weight_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    rows = shape["batch"] // 2
+    batch = _fsdp_batch(cfg, shape, seed, dev,
+                        slice(rank * rows, (rank + 1) * rows))
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    backend.reset_launch_counts()
+    context.reset_collective_counts()
+    t0 = time.perf_counter()
+    loss, gnorm = _fsdp_grads(cfg, params, batch,
+                              shape["batch"] * shape["seq"], mesh)
+    step_s = time.perf_counter() - t0
+    out = {"rank": rank, "loss": loss, "grad_norm": gnorm,
+           "step_s": step_s, "fsdp_leaves": n_cut,
+           "weight_bytes": weight_bytes,
+           "peak_mem_bytes": (torch.cuda.max_memory_allocated() if cuda
+                              else 0),
+           "collectives": context.collective_counts(),
+           "launches": {k: v for k, v in backend.launch_counts().items()
+                        if v}}
+    del params, batch
+    if cuda:
+        torch.cuda.empty_cache()
+    cfg = _fsdp_cfg(shape, shape["prefill_units"])
+    B, PL = shape["prefill_batch"], shape["prefill_prompt"]
+    params = SH.shard_tree(cfg, _tp_weights(cfg, seed, dev, False), mesh,
+                           fsdp=ST.fsdp_axis(cfg, mesh))
+    pre, _ = ST.build_prefill_step(cfg, mesh,
+                                   ShapeConfig("fsdp_pre", PL, B, "prefill"))
+    prompts = SV.prompt_batch(cfg, B, PL, seed, dev, mesh)
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    backend.reset_launch_counts()
+    context.reset_collective_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits, _ = pre(params, prompts)
+    logits = logits.float().cpu()
+    out["prefill"] = {
+        "s": time.perf_counter() - t0,
+        "peak_mem_bytes": (torch.cuda.max_memory_allocated() if cuda
+                           else 0),
+        "collectives": context.collective_counts(),
+        "launches": {k: v for k, v in backend.launch_counts().items() if v}}
+    np.save(pathlib.Path(job_dir) / f"fsdp-logits-{rank}.npy",
+            logits.numpy())
+    (pathlib.Path(job_dir) / f"fsdp{rank}.json").write_text(json.dumps(out))
+
+
+def _fsdp_dryrun(cells) -> list:
+    """Start ``python -m repro_torch.launch.dryrun`` for each cell, side by
+    side (each in a process of its own, on the CPU)."""
+    env = dict(os.environ)
+    src = str(pathlib.Path(__file__).resolve().parent / "src")
+    env["PYTHONPATH"] = src + os.pathsep + env.get("PYTHONPATH", "")
+    out_dir = tempfile.mkdtemp(prefix="fsdp-dryrun-")
+    procs = []
+    for arch, shape, multi_pod in cells:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape, "--out-dir", out_dir]
+        if multi_pod:
+            cmd.append("--multi-pod")
+        procs.append(((arch, shape, multi_pod), time.perf_counter(),
+                      subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
+                                       stderr=subprocess.PIPE, text=True)))
+    return [out_dir, procs]
+
+
+def _fsdp_dryrun_read(started, refused: tuple) -> list:
+    """Wait for the dry-run processes; each record's terms, trace seconds
+    and whether CUDA stayed uninitialized."""
+    out_dir, procs = started
+    res = []
+    try:
+        for (arch, shape, multi_pod), t0, proc in procs:
+            stdout, stderr = proc.communicate(timeout=600)
+            # read after (a) and (b): an upper bound on the process's time
+            done_within = time.perf_counter() - t0
+            what = f"fsdp (c) dryrun {arch} {shape} multi_pod={multi_pod}"
+            check(proc.returncode == 0,
+                  f"{what}: rc {proc.returncode}: {stderr[-2000:]}")
+            lines = stdout.strip().splitlines()
+            check(lines and lines[-1] == "torch.cuda.is_initialized() = "
+                  "False", f"{what}: {lines[-2:]}")
+            mesh = "2x16x16" if multi_pod else "16x16"
+            rec = json.loads((pathlib.Path(out_dir)
+                              / f"{arch}_{shape}_{mesh}.json").read_text())
+            if arch in refused:
+                check("refused" in rec, f"{what}: not refused")
+                res.append({"arch": arch, "shape": shape, "mesh": mesh,
+                            "refused": rec["refused"],
+                            "done_within_s": done_within,
+                            "cuda_initialized": False})
+                continue
+            check("refused" not in rec and rec["counted"]["flops"] > 0,
+                  f"{what}: {rec.get('refused')}")
+            res.append({"arch": arch, "shape": shape, "mesh": mesh,
+                        "terms_estimate": rec["terms"],
+                        "trace_s": rec["t_lower_s"],
+                        "done_within_s": done_within,
+                        "memory_estimate": rec["memory"],
+                        "collective_bytes": rec["counted"][
+                            "collective_bytes"],
+                        "kernels_meta": rec["counted"]["kernels"],
+                        "useful_flops_ratio": rec["useful_flops_ratio"],
+                        "cuda_initialized": False})
+    finally:
+        for _, _, proc in procs:
+            proc.kill()
+        shutil.rmtree(out_dir, ignore_errors=True)
+    return res
+
+
+def _fsdp_kernels(rng, dev, errs: dict) -> dict:
+    """Flash attention and its backward at (a)'s rank shape
+    (FSDP_FLASH_CASE) against ``impl="torch"`` in float32 and bf16, at
+    FLASH_TOL / FLASH_BWD_TOL (the backward: the card only)."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    B, Sq, Skv, H, K, hd, causal, window = FSDP_FLASH_CASE
+    flash_err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (torch.from_numpy(rng.standard_normal(
+            (B, S, n, hd), np.float32)).to(dev, dtype)
+            for S, n in ((Sq, H), (Skv, K), (Skv, K)))
+        got = flash_attention(q, k, v, causal=causal, window=window)
+        want = flash_attention(q, k, v, causal=causal, window=window,
+                               impl="torch")
+        err = max_abs_err(got.float(), want.float())
+        check(within(got, want, FLASH_TOL[dtype], FLASH_TOL[dtype]),
+              f"fsdp flash_attention {dtype} {FSDP_FLASH_CASE}: max err "
+              f"{err}")
+        flash_err = max(flash_err, err)
+        del q, k, v, got, want
+    errs["flash_attention"] = max(errs["flash_attention"], flash_err)
+    out = {"flash_attention": {"shape": [list(FSDP_FLASH_CASE)],
+                               "max_abs_err": flash_err}}
+    if dev.type == "cuda":
+        bwd = {"flash_attention_bwd": 0.0}
+        n = _check_flash_bwd(rng, dev, bwd, cases=[FSDP_FLASH_CASE])
+        errs["flash_attention_bwd"] = max(errs["flash_attention_bwd"],
+                                          bwd["flash_attention_bwd"])
+        out["flash_attention_bwd"] = {
+            "shape": [list(FSDP_FLASH_CASE)],
+            "max_abs_err": bwd["flash_attention_bwd"], "checks": n,
+            "by_output": bwd["flash_attention_bwd_by_output"]}
+    return out
+
+
+def phase_fsdp(dev, seed: int, errs: dict, shape: Optional[dict] = None
+               ) -> tuple[dict, dict]:
+    """FSDP over "data" on 2 gloo ranks of the one card: (a) the loss and
+    grad norm of one step of command-r-35b against one rank's, (b) the
+    float32 FSDP prefill against one rank's, (c) the dry run of
+    FSDP_SHAPE's cells in subprocesses (started first, read last; they
+    must leave CUDA uninitialized), and flash and its backward at (a)'s
+    rank shape.  Returns the line and, for the kernels line, the shapes
+    and launches.  ``shape`` overrides FSDP_SHAPE (``smoke=True`` and
+    small shapes in a CPU rehearsal)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import serve as SV
+    from repro_torch.models import model as M
+    from repro_torch.runtime.compat import spawn_nodes
+    shape = dict(FSDP_SHAPE, **(shape or {}), device=str(dev))
+    cuda = dev.type == "cuda"
+    rng = np.random.default_rng(seed)
+    dry = _fsdp_dryrun(shape["dry_cells"])
+    out = {"phase": "fsdp", "arch": shape["arch"], "mesh": [2, 1],
+           "dtype": "float32", "train_loss_rtol": TRAIN_LOSS_TOL,
+           "f32_logit_tol": LOGIT_TOL_F32}
+    kern = _fsdp_kernels(rng, dev, errs)
+    out["kernels_at_rank_shapes"] = kern
+    if cuda:
+        torch.cuda.empty_cache()
+        out["parent_mem_bytes"] = {
+            "allocated": torch.cuda.memory_allocated(),
+            "reserved": torch.cuda.memory_reserved()}
+    job = pathlib.Path(tempfile.mkdtemp(prefix="fsdp-phase-"))
+    try:
+        t0 = time.perf_counter()
+        spawn_nodes(_fsdp_rank, 2, seed, str(job), shape)
+        out["spawn_s"] = time.perf_counter() - t0
+        ranks = [json.loads((job / f"fsdp{r}.json").read_text())
+                 for r in range(2)]
+        logits = torch.cat([torch.from_numpy(
+            np.load(job / f"fsdp-logits-{r}.npy")) for r in range(2)])
+    finally:
+        shutil.rmtree(job, ignore_errors=True)
+    # (a) one rank's loss and grad norm on the whole batch
+    cfg = _fsdp_cfg(shape, shape["units"])
+    params = _tp_weights(cfg, seed, dev, False)
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss, gnorm = _fsdp_grads(cfg, params, _fsdp_batch(
+        cfg, shape, seed, dev, slice(None)), shape["batch"] * shape["seq"],
+        None)
+    one_s = time.perf_counter() - t0
+    one_peak = torch.cuda.max_memory_allocated() if cuda else 0
+    del params
+    for r in ranks:
+        for what, got, want in (("loss", r["loss"], loss),
+                                ("grad norm", r["grad_norm"], gnorm)):
+            check(math.isfinite(got) and abs(got - want)
+                  <= TRAIN_LOSS_TOL * abs(want),
+                  f"fsdp (a) rank {r['rank']}: {what} {got} against one "
+                  f"rank's {want}")
+        check(r["fsdp_leaves"] > 0, f"fsdp (a) rank {r['rank']}: no FSDP "
+              "slice")
+        check(r["collectives"].get("fsdp_gather", {}).get("calls", 0) > 0
+              and r["collectives"].get("fsdp_scatter", {}).get("calls", 0)
+              > 0, f"fsdp (a) rank {r['rank']}: {r['collectives']}")
+        if cuda:
+            check(r["launches"].get("flash_attention", 0) > 0
+                  and r["launches"].get("flash_attention_bwd", 0) > 0,
+                  f"fsdp (a) rank {r['rank']}: launches {r['launches']}")
+    # (b) one rank's float32 prefill
+    if cuda:
+        torch.cuda.empty_cache()
+    cfg = _fsdp_cfg(shape, shape["prefill_units"])
+    B, PL = shape["prefill_batch"], shape["prefill_prompt"]
+    params = _tp_weights(cfg, seed, dev, False)
+    with torch.no_grad():
+        ref, _ = M.prefill(cfg, params, SV.prompt_batch(cfg, B, PL, seed,
+                                                        dev), PL)
+    ref = ref.float().cpu()
+    del params
+    err = max_abs_err(logits, ref)
+    check(bool(torch.isfinite(logits).all()) and err <= LOGIT_TOL_F32,
+          f"fsdp (b): prefill logits differ from one rank's by {err}")
+    if cuda:
+        for r in ranks:
+            check(r["prefill"]["launches"].get("flash_attention", 0)
+                  == cfg.n_units, f"fsdp (b) rank {r['rank']}: "
+                  f"{r['prefill']['launches']}")
+        torch.cuda.empty_cache()
+    out["train"] = {"n_units": shape["units"], "batch": shape["batch"],
+                    "seq_len": shape["seq"], "by_rank": ranks,
+                    "one_rank_loss": loss, "one_rank_grad_norm": gnorm,
+                    "one_rank_s": one_s, "one_rank_peak_mem_bytes": one_peak}
+    out["prefill"] = {"n_units": shape["prefill_units"], "batch": B,
+                      "prompt_len": PL,
+                      "f32_logit_max_err_vs_one_rank": err,
+                      "f32_logit_max_abs": float(ref.abs().max())}
+    # (c) the dry run's records, read last
+    out["dryrun"] = _fsdp_dryrun_read(dry, shape["dry_refused"])
+    out["dryrun_note"] = ("terms are estimates from the H100's datasheet "
+                          "constants, not times of the card")
+    info = {name: {"fsdp_shape": kern.get(name, {}).get("shape"),
+                   "fsdp_max_abs_err": kern.get(name, {}).get(
+                       "max_abs_err"),
+                   "fsdp_launches_per_rank": ranks[0]["launches"].get(name)}
+            for name in ("flash_attention", "flash_attention_bwd")}
+    return out, info
 
 
 def phase_timing(rng, dev, xs, decrypt: tuple[int, int]
@@ -4382,19 +4725,12 @@ def phase_timing(rng, dev, xs, decrypt: tuple[int, int]
     def vote(impl):
         return lambda: ops.vote_combine_fn(copies, acc, impl=impl)
 
-    # (integer, float) operations each function needs: per-row key
-    # derivation (2 splitmix + xor + mul + xor) is counted once per row
-    # and key; the mask's float work is clip (2), scale and round
-    key_ops = 2 * SPLITMIX_OPS + 3
-    work = {
-        "mask_encrypt": (8 * N + 12 * B,
-                         N * (PAD_OPS + 1) + B * key_ops, N * 4, mask),
-        "unmask_decrypt": (8 * N + 8 * B,
-                           N * N_MAIN * (PAD_OPS + 1) + B * N_MAIN * key_ops,
-                           N * 4, unmask),
-        "vote_combine": (4 * (r + 2) * N,
-                         N * (2 * _network_exchanges(r) + 1), 0, vote),
-    }
+    # (bytes, integer, float) operations each function needs
+    # (``roofline.counts``): per-row key derivation is counted once per
+    # row and key; the mask's float work is clip (2), scale and round
+    work = {"mask_encrypt": (*mask_work(B, T), mask),
+            "unmask_decrypt": (*unmask_work(B, T, N_MAIN), unmask),
+            "vote_combine": (*vote_work(r, N), vote)}
     out = {}
     for name, (nbytes, int_ops, float_ops, fn) in work.items():
         kernel_ms = cuda_ms(fn(None), reps=10)
@@ -4472,22 +4808,6 @@ def device_ms(fn, reps: int, inner: int) -> float:
     return statistics.median(times)
 
 
-def product_ops(L: int) -> int:
-    """32-bit integer instructions of one Montgomery product on s digits
-    (s = L / 2 32-bit digits, or L 16-bit ones for an odd L): s (10 s + 5)
-    + 12 s -- per digit and step two low and two high products and the
-    64-bit adds of the slots; m and the fold; the lookahead tail."""
-    s = L // 2 if L % 2 == 0 else L
-    return s * (10 * s + 5) + 12 * s
-
-
-def mont_mul_work(rows: int, L: int) -> tuple[int, int]:
-    """(bytes, 32-bit integer instructions) one Montgomery product of
-    ``rows`` rows of L limbs needs: a, b and the output once each and n;
-    one product on the kernel's digits a row."""
-    return 4 * (3 * rows * L + L), rows * product_ops(L)
-
-
 def time_mont_mul(rng, dev, shapes) -> dict:
     """``mont_mul`` kernel and plain times, with bounds, at (rows, L)."""
     from repro_torch.crypto.limb import montgomery_params
@@ -4516,17 +4836,6 @@ def time_mont_mul(rng, dev, shapes) -> dict:
             "bytes": nbytes, "int_ops": int_ops, "bytes_ms": bytes_ms,
             "operations_ms": ops_ms, "library_ms": None}
     return out
-
-
-def mont_exp_work(rows: int, L: int, nbits: int) -> tuple[int, int]:
-    """(bytes, 32-bit integer instructions) the ladder needs for ``rows``
-    rows of L limbs and nbits exponent bits: the bases, the output, n,
-    R mod n and the bits once each; per row and bit two products on s =
-    L / 2 digits of s (10 s + 5) + 12 s instructions each (per digit and
-    step two low and two high products and the 64-bit adds of the slots;
-    m and the fold; the lookahead tail) and one select a digit."""
-    return (4 * (2 * rows * L + 2 * L + rows * nbits),
-            rows * nbits * (2 * product_ops(L) + L // 2))
 
 
 def time_mont_exp(rng, dev, rows: int, L: int, nbits: int) -> dict:
@@ -4645,9 +4954,7 @@ def time_flash(rng, dev, H: int = 16, K: int = 8, hd: int = 128,
                                     enable_gqa=True).float())
     # two products over the allowed (query, key) pairs (i >= j where
     # causal), 2 FLOP a multiply-add
-    pairs = S * (S + 1) // 2 if causal else S * Skv
-    flops = 4 * B * H * hd * pairs
-    nbytes = 2 * (2 * B * S * H * hd + 2 * B * Skv * K * hd)
+    nbytes, flops = flash_fwd_work(B, S, Skv, H, K, hd, causal)
     return {"ms": kernel_ms, "ms_with_lse": lse_ms, "plain_ms": plain_ms,
             "library_ms": library_ms,
             "library": f"scaled_dot_product_attention(is_causal={causal}, "
@@ -4708,12 +5015,8 @@ def time_flash_bwd(rng, dev, H: int = 16, K: int = 8, hd: int = 128,
     lib_err = max(max_abs_err(g.float(), w.transpose(1, 2).float())
                   for g, w in zip(got, lib))
     # five products over the allowed pairs (i >= j where causal), 2 FLOP
-    # a multiply-add
-    pairs = S * (S + 1) // 2 if causal else S * Skv
-    flops = 10 * B * H * hd * pairs
-    # q, o, dO and L read, k, v read, dq, dk, dv written
-    nbytes = 2 * (3 * B * S * H * hd + 2 * B * Skv * K * hd) + 4 * B * H * S \
-        + 2 * (B * S * H * hd + 2 * B * Skv * K * hd)
+    # a multiply-add; q, o, dO and L read, k, v read, dq, dk, dv written
+    nbytes, flops = flash_bwd_work(B, S, Skv, H, K, hd, causal)
     # the kernels' own work: S and dP in both passes, and dV, dK and dQ
     # as two products each (P and dS as bf16 pairs hi + lo): ten products
     design = bound(nbytes, 2 * flops, BF16_FLOPS_PER_S)
@@ -4726,25 +5029,6 @@ def time_flash_bwd(rng, dev, H: int = 16, K: int = 8, hd: int = 128,
             "design_flops": design["flops"],
             "shape": [B, S, Skv, H, K, hd, causal], **bound(
                 nbytes, flops, BF16_FLOPS_PER_S)}
-
-
-def ssd_flops_at(Bsz: int, S: int, H: int, P: int, N: int, Q: int) -> int:
-    """FLOPs of the split scan in chunks of Q (S padded to a multiple):
-    the lower triangle of C B^T once per batch row and chunk, shared by
-    its H heads; per head the lower triangle of (L o C B^T)(x dt), the
-    state's two products, C state^T and (x dt)^T B, and the state
-    passing's multiply-add per state element and chunk boundary."""
-    nc = -(-S // Q)
-    Sp = nc * Q
-    tri = Sp * (Q + 1) // 2
-    return 2 * (Bsz * tri * N
-                + Bsz * H * (tri * P + 2 * Sp * N * P + (nc - 1) * P * N))
-
-
-def ssd_flops(Bsz: int, S: int, H: int, P: int, N: int) -> tuple[int, int]:
-    """The least FLOPs the scan needs at these shapes, over every chunk
-    length Q (the work depends on Q, the result does not), and that Q."""
-    return min((ssd_flops_at(Bsz, S, H, P, N, Q), Q) for Q in range(1, S + 1))
 
 
 def time_ssd(rng, dev, H: int = 32, N: int = 128) -> dict:
@@ -4778,8 +5062,7 @@ def time_ssd(rng, dev, H: int = 32, N: int = 128) -> dict:
     by_kernel = [(name, ms / n, n) for name, ms, n in prof["by_kernel_ms"]]
     plain_ms = cuda_ms(lambda: ssd_chunked(*args, 256, impl="torch"), reps=3)
     # x and y, dt, A, B and C once each, the final state written once
-    nbytes = 4 * (2 * Bsz * S * H * P + Bsz * S * H + H + 2 * Bsz * S * N
-                  + Bsz * H * P * N)
+    nbytes = ssd_bytes(Bsz, S, H, P, N)
     flops, least_q = ssd_flops(Bsz, S, H, P, N)
     f32 = bound(nbytes, flops, F32_FLOPS_PER_S)
     return {"ms": kernel_ms, "queued_ms": queued_ms,
@@ -4802,33 +5085,6 @@ def time_ssd_from_h0(rng, dev) -> float:
     h0 = torch.from_numpy(rng.standard_normal((Bsz, H, P, N), np.float32)
                           ).to(dev)
     return cuda_ms(lambda: ssd_chunked(*args, 256, h0), reps=10)
-
-
-def ssd_bwd_flops_at(Bsz: int, S: int, H: int, P: int, N: int,
-                     Q: int) -> int:
-    """FLOPs of the SSD backward in chunks of Q (S padded to a multiple):
-    the lower triangles of C B^T and of the two uses of M = sum_h dt E o
-    dy x^T (dB and dC) once per batch row and chunk, N a pair each; per
-    head five state products (the forward's chunk states again -- they
-    are not among the function's inputs -- u_c, gh_c B, gh_c^T x and h^T
-    dy; the last two are products of depth H P once per batch row, the
-    same count), the lower triangles of D = dy x^T and of G's use (P a
-    pair each), the two state passes, <gh_c, h_c> a chunk and the two row
-    dots (dy . y, x . r)."""
-    nc = -(-S // Q)
-    Sp = nc * Q
-    tri = Sp * (Q + 1) // 2
-    return 2 * (3 * Bsz * tri * N + Bsz * H * (
-        5 * Sp * N * P + tri * 2 * P + 2 * (nc - 1) * P * N
-        + nc * P * N + 2 * Sp * P))
-
-
-def ssd_bwd_flops(Bsz: int, S: int, H: int, P: int, N: int
-                  ) -> tuple[int, int]:
-    """The least FLOPs the backward needs at these shapes over every chunk
-    length Q, and that Q."""
-    return min((ssd_bwd_flops_at(Bsz, S, H, P, N, Q), Q)
-               for Q in range(1, S + 1))
 
 
 def time_ssd_bwd(rng, dev) -> dict:
@@ -4872,8 +5128,7 @@ def time_ssd_bwd(rng, dev) -> dict:
     base = torch.cuda.memory_allocated()
     call()
     scratch = torch.cuda.max_memory_allocated() - base
-    big = 2 * Bsz * S * H * P + Bsz * S * H
-    nbytes = 4 * (2 * big + 2 * Bsz * H + 4 * Bsz * S * N)
+    nbytes = ssd_bwd_bytes(Bsz, S, H, P, N)
     flops, least_q = ssd_bwd_flops(Bsz, S, H, P, N)
     return {"ms": kernel_ms, "by_kernel_ms": by_kernel,
             "kernels_ms": sum(ms for _, ms, _ in by_kernel),
@@ -4972,6 +5227,12 @@ def main() -> int:
     if "build" in phases:
         emit(phase_build())
     errs = {k.name: 0.0 for k in backend.KERNELS}
+    # fsdp first: its two ranks of ~37 GiB each need the card as a fresh
+    # process leaves it (later phases leave ~12 GiB in this process)
+    fsdp_info = {}
+    if "fsdp" in phases:
+        line, fsdp_info = phase_fsdp(dev, args.seed, errs)
+        emit(line)
     if "kernels" in phases:
         emit(phase_kernels(rng, dev, errs))
     launches, timing = {}, {}
@@ -5072,7 +5333,12 @@ def main() -> int:
             **{key: tp_info.get(k.name, {}).get(key)
                for key in ("tp_shape", "tp_max_abs_err", "tp_ms",
                            "tp_plain_ms", "tp_bound_ms",
-                           "tp_launches_per_rank")}})
+                           "tp_launches_per_rank")},
+            # the fsdp phase: (a)'s rank shape held against the plain
+            # version, and a rank's launches in (a)'s step
+            **{key: fsdp_info.get(k.name, {}).get(key)
+               for key in ("fsdp_shape", "fsdp_max_abs_err",
+                           "fsdp_launches_per_rank")}})
     print(smi_line(), flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -6,6 +6,12 @@ an environment override), the port decides per call from the tensor:
 
   * a CPU tensor runs the plain torch version;
   * a CUDA tensor launches the hand-written kernel, or raises;
+  * a meta tensor (the dry run's stand-in for the card's) takes the meta
+    route inside ``meta_route()``, which the dry run's counter opens: no
+    launch and no work, outputs of the kernel's shapes and dtypes with
+    no data, and the kernel's bytes and operations (from
+    ``roofline.counts``) recorded by ``record_meta``; outside it a meta
+    tensor has no kernel and raises, as any other device's;
   * ``impl="torch"`` is an explicit caller choice of the plain version
     on any device (used to time and check the plain version on the card).
 
@@ -18,6 +24,7 @@ went through the kernels.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 from typing import Optional
 
@@ -31,14 +38,28 @@ def check_impl(impl: Optional[str]) -> None:
         raise ValueError(f"kernel_impl={impl!r} not in {IMPLS}")
 
 
+_META_ROUTE = False
+
+
+@contextlib.contextmanager
+def meta_route():
+    """Within: a meta tensor takes its kernel's meta route."""
+    global _META_ROUTE
+    prev, _META_ROUTE = _META_ROUTE, True
+    try:
+        yield
+    finally:
+        _META_ROUTE = prev
+
+
 def resolve(impl: Optional[str], t: torch.Tensor) -> str:
-    """``"cuda"`` or ``"torch"`` for an op on tensor ``t``."""
+    """``"cuda"``, ``"meta"`` or ``"torch"`` for an op on tensor ``t``."""
     check_impl(impl)
     if impl == "torch":
         return "torch"
     kind = t.device.type
-    if kind == "cuda":
-        return "cuda"
+    if kind == "cuda" or (kind == "meta" and _META_ROUTE):
+        return kind
     if kind == "cpu" and impl is None:
         return "torch"
     raise ValueError(f"kernel_impl={impl!r} has no kernel for a tensor on "
@@ -152,3 +173,28 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for k in KERNELS:
         k.launches = 0
+
+
+# kernel name -> {"calls", "bytes", "flops", "int_ops"}: what the meta
+# route would have launched
+_META: dict = {}
+
+
+def record_meta(kernel: Kernel, nbytes: int, flops: int = 0,
+                int_ops: int = 0) -> None:
+    """Count one call of ``kernel`` on the meta route and its work (its
+    ``launches`` stay as they are: nothing launched)."""
+    c = _META.setdefault(kernel.name, {"calls": 0, "bytes": 0, "flops": 0,
+                                       "int_ops": 0})
+    c["calls"] += 1
+    c["bytes"] += int(nbytes)
+    c["flops"] += int(flops)
+    c["int_ops"] += int(int_ops)
+
+
+def meta_counts() -> dict:
+    return {k: dict(v) for k, v in _META.items()}
+
+
+def reset_meta_counts() -> None:
+    _META.clear()

@@ -16,7 +16,8 @@ VJP (``repro/models/layers.py:228``): the forward also keeps the row
 log-sum-exp L, and the backward is ``csrc/flash_attention_bwd.cu`` on a
 CUDA tensor (``ref.attention_bwd_ref`` on a CPU tensor or under
 ``impl="torch"``).  Under activation checkpointing the forward runs
-again in the backward pass and saves a fresh L.
+again in the backward pass and saves a fresh L.  A meta tensor takes the
+meta route both ways (``backend.record_meta``).
 """
 from __future__ import annotations
 
@@ -25,11 +26,36 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import backend
+from repro_torch.roofline import counts
 from repro_torch.kernels.flash_attention.ops import (flash_attention_bwd_cuda,
                                                      flash_attention_cuda)
 from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
                                                      attention_fwd_ref,
                                                      attention_ref)
+
+
+def _meta_fwd(q, k, v, causal: bool, window: int, lse: bool = False):
+    """The meta route of the forward: o (and L) with no data."""
+    B, Sq, H, hd = q.shape
+    nbytes, flops = counts.flash_fwd_work(B, Sq, k.shape[1], H, k.shape[2],
+                                          hd, causal, window,
+                                          q.element_size(), lse)
+    backend.record_meta(backend.FLASH_ATTENTION, nbytes, flops)
+    o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    if not lse:
+        return o
+    return o, torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+
+
+def _meta_bwd(q, k, v, causal: bool, window: int):
+    """The meta route of the backward: dq, dk, dv with no data."""
+    B, Sq, H, hd = q.shape
+    nbytes, flops = counts.flash_bwd_work(B, Sq, k.shape[1], H, k.shape[2],
+                                          hd, causal, window,
+                                          q.element_size())
+    backend.record_meta(backend.FLASH_ATTENTION_BWD, nbytes, flops)
+    return tuple(torch.empty(t.shape, dtype=t.dtype, device=t.device)
+                 for t in (q, k, v))
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -38,8 +64,11 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: int,
                 impl: Optional[str]):
-        if backend.resolve(impl, q) == "cuda":
+        route = backend.resolve(impl, q)
+        if route == "cuda":
             o, lse = flash_attention_cuda(q, k, v, causal, window, lse=True)
+        elif route == "meta":
+            o, lse = _meta_fwd(q, k, v, causal, window, lse=True)
         else:
             o, lse = attention_fwd_ref(q, k, v, causal=causal, window=window)
         ctx.save_for_backward(q, k, v, o, lse)
@@ -50,9 +79,12 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         do = do.contiguous()
-        if backend.resolve(ctx.impl, q) == "cuda":
+        route = backend.resolve(ctx.impl, q)
+        if route == "cuda":
             grads = flash_attention_bwd_cuda(q, k, v, o, do, lse, ctx.causal,
                                              ctx.window)
+        elif route == "meta":
+            grads = _meta_bwd(q, k, v, ctx.causal, ctx.window)
         else:
             grads = attention_bwd_ref(q, k, v, o, do, lse, causal=ctx.causal,
                                       window=ctx.window)
@@ -69,6 +101,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return _FlashAttention.apply(q, k, v, causal, window, impl)
-    if backend.resolve(impl, q) == "cuda":
+    route = backend.resolve(impl, q)
+    if route == "cuda":
         return flash_attention_cuda(q, k, v, causal, window)
+    if route == "meta":
+        return _meta_fwd(q, k, v, causal, window)
     return attention_ref(q, k, v, causal=causal, window=window)

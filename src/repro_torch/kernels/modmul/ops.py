@@ -24,6 +24,7 @@ from repro_torch.crypto.limb import (batch_to_limbs, from_limbs,
 from repro_torch.kernels import backend, build
 from repro_torch.kernels.backend import MONT_EXP, MONT_MUL
 from repro_torch.kernels.modmul.modmul import mont_mul_block
+from repro_torch.roofline import counts
 
 # the launcher's own argument checks (csrc/modmul.cu), by status
 _REFUSED = {1001: "L limbs outside the kernel's range (even L <= 1022, "
@@ -71,7 +72,12 @@ def mont_mul_op(a: torch.Tensor, b: torch.Tensor, n_limbs, n0inv, *,
     """a * b * R^-1 mod n over (batch, L) int32 limbs of operands below
     n; n0inv is the limbs' -n^-1 mod 2^16, as the plain version takes
     it."""
-    if backend.resolve(impl, a) == "cuda":
+    route = backend.resolve(impl, a)
+    if route == "meta":
+        nbytes, int_ops = counts.mont_mul_work(*a.shape)
+        backend.record_meta(MONT_MUL, nbytes, int_ops=int_ops)
+        return torch.empty(a.shape, dtype=torch.int32, device=a.device)
+    if route == "cuda":
         return _mont_mul_cuda(a, b, n_limbs, n0inv)
     return mont_mul_block(a, b, n_limbs, n0inv)
 
@@ -128,7 +134,12 @@ def mont_exp_op(a: torch.Tensor, e_bits: torch.Tensor, n_limbs, n0inv,
     a: (batch, L) int32 Montgomery-domain bases below n; e_bits: (batch,
     nbits) int32 exponent bits, MSB first; one_mont: (L,) limbs of R mod
     n.  A CUDA tensor runs the whole ladder in one kernel launch."""
-    if backend.resolve(impl, a) == "cuda":
+    route = backend.resolve(impl, a)
+    if route == "meta":
+        nbytes, int_ops = counts.mont_exp_work(*a.shape, e_bits.shape[1])
+        backend.record_meta(MONT_EXP, nbytes, int_ops=int_ops)
+        return torch.empty(a.shape, dtype=torch.int32, device=a.device)
+    if route == "cuda":
         return _mont_exp_cuda(a, e_bits, n_limbs, n0inv, one_mont)
     return mont_exp_loop(a, e_bits, n_limbs, n0inv, one_mont, impl="torch")
 

@@ -23,6 +23,7 @@ from repro_torch.kernels import backend, build
 from repro_torch.kernels.backend import MASK, UNMASK, VOTE
 from repro_torch.kernels.secure_agg import ref as R
 from repro_torch.kernels.secure_agg.secure_agg import as_copy_list, narrow
+from repro_torch.roofline import counts
 
 _MASK_MODES = {"quantize": 0, "mask": 1, "pairwise": 2}
 _UNMASK_MODES = {"dequantize": 0, "mask": 1}
@@ -123,7 +124,12 @@ def mask_encrypt_batch_fn(x, node_ids, seeds, scale: float, clip: float,
                           impl: Optional[str] = None) -> torch.Tensor:
     """(B, T) float32 rows -> (B, T) int32 words, row b keyed by
     (seeds[b], node_ids[b]) at counter offset ``offsets[b]``."""
-    if backend.resolve(impl, x) == "cuda":
+    route = backend.resolve(impl, x)
+    if route == "meta":
+        nbytes, int_ops, flops = counts.mask_work(*x.shape)
+        backend.record_meta(MASK, nbytes, flops, int_ops)
+        return torch.empty(x.shape, dtype=torch.int32, device=x.device)
+    if route == "cuda":
         return _mask_cuda(x, node_ids, seeds, scale, clip, mode, offsets,
                           cluster_size)
     return R.mask_encrypt_batch_ref(x, node_ids, seeds, scale, clip,
@@ -135,7 +141,12 @@ def unmask_decrypt_batch_fn(agg, n_nodes: int, seeds, scale: float,
                             mode: str = "mask", offsets=None,
                             impl: Optional[str] = None) -> torch.Tensor:
     """(B, T) int32-word aggregates -> (B, T) float32 decryptions."""
-    if backend.resolve(impl, agg) == "cuda":
+    route = backend.resolve(impl, agg)
+    if route == "meta":
+        nbytes, int_ops, flops = counts.unmask_work(*agg.shape, n_nodes)
+        backend.record_meta(UNMASK, nbytes, flops, int_ops)
+        return torch.empty(agg.shape, dtype=torch.float32, device=agg.device)
+    if route == "cuda":
         return _unmask_cuda(agg, n_nodes, seeds, scale, mode, offsets)
     return R.unmask_decrypt_batch_ref(agg, n_nodes, seeds, scale, mode=mode,
                                       offsets=offsets)
@@ -145,7 +156,12 @@ def vote_combine_fn(copies: Union[torch.Tensor, Sequence[torch.Tensor]],
                     acc, impl: Optional[str] = None) -> torch.Tensor:
     """acc + majority(copies) over flat int32-word tensors."""
     copies = as_copy_list(copies)
-    if backend.resolve(impl, acc) == "cuda":
+    route = backend.resolve(impl, acc)
+    if route == "meta":
+        nbytes, int_ops, flops = counts.vote_work(len(copies), acc.numel())
+        backend.record_meta(VOTE, nbytes, flops, int_ops)
+        return torch.empty(acc.shape, dtype=acc.dtype, device=acc.device)
+    if route == "cuda":
         return _vote_cuda(copies, acc)
     return R.vote_combine_ref(copies, acc)
 

@@ -17,7 +17,8 @@ differentiates its jnp ``ssd_chunked``); the backward here is
 a CPU tensor or under ``impl="torch"``.  It keeps the forward's inputs
 and y; the backward runs the forward's state passes again rather than
 keeping the chunk states (under activation checkpointing the forward
-runs again anyway).
+runs again anyway).  A meta tensor takes the meta route both ways
+(``backend.record_meta``, the work of the kernel's own chunking).
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import backend
+from repro_torch.roofline import counts
 from repro_torch.kernels.ssd.ops import ssd_bwd_cuda_heads, ssd_cuda_heads
 from repro_torch.kernels.ssd.ref import ssd_chunked_bwd_ref, ssd_chunked_ref
 
@@ -42,10 +44,18 @@ class _SSDChunked(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, dt, a, Bm, Cm, h0, chunk: int, impl: Optional[str]):
-        Bsz, _, H, P = x.shape
-        if backend.resolve(impl, x) == "cuda":
+        Bsz, S, H, P = x.shape
+        N = Bm.shape[-1]
+        route = backend.resolve(impl, x)
+        if route == "cuda":
             y, st = ssd_cuda_heads(x, dt, a, Bm, Cm, _by_row(h0))
-            st = st.reshape(Bsz, H, P, Bm.shape[-1])
+            st = st.reshape(Bsz, H, P, N)
+        elif route == "meta":
+            backend.record_meta(backend.SSD, counts.ssd_bytes(Bsz, S, H, P, N),
+                                counts.ssd_flops_at(Bsz, S, H, P, N,
+                                                    counts.SSD_KERNEL_CHUNK))
+            y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+            st = torch.empty((Bsz, H, P, N), dtype=x.dtype, device=x.device)
         else:
             y, st = ssd_chunked_ref(x, dt, a, Bm, Cm, chunk, h0)
         ctx.save_for_backward(x, dt, a, Bm, Cm, h0, y)
@@ -58,7 +68,20 @@ class _SSDChunked(torch.autograd.Function):
         x, dt, a, Bm, Cm, h0, y = ctx.saved_tensors
         if dy is None:
             dy = torch.zeros_like(x)
-        if backend.resolve(ctx.impl, x) == "cuda":
+        route = backend.resolve(ctx.impl, x)
+        if route == "meta":
+            Bsz, S, H, P = x.shape
+            N = Bm.shape[-1]
+            backend.record_meta(
+                backend.SSD_BWD, counts.ssd_bwd_bytes(Bsz, S, H, P, N),
+                counts.ssd_bwd_flops_at(Bsz, S, H, P, N,
+                                        counts.SSD_KERNEL_CHUNK))
+            dx, ddt, da, dB, dC = (torch.empty(t.shape, dtype=t.dtype,
+                                               device=t.device)
+                                   for t in (x, dt, a, Bm, Cm))
+            dinit = None if h0 is None else torch.empty(
+                h0.shape, dtype=h0.dtype, device=h0.device)
+        elif route == "cuda":
             dx, ddt, da, dB, dC, dinit = ssd_bwd_cuda_heads(
                 x, dt, a, Bm, Cm, _by_row(h0), y, dy.contiguous(),
                 _by_row(dstate))

@@ -1,10 +1,11 @@
 """Host meshes of the training and serving entry points.
 
 Counterpart of ``repro/launch/mesh.py`` over the port's ``NodeMesh`` (one
-process a node of a ``torch.distributed`` group).  The reference's
-``make_production_mesh`` (16 x 16 ranks) waits for a fake process group
-of that size, with its dry run.  Nothing here touches a process group at
-import time.
+process a node of a ``torch.distributed`` group).  ``make_production_mesh``
+gives the reference's production meshes (16 x 16, or 2 x 16 x 16 with
+its pods) over a started group of that world size: in the dry run a fake
+group (``compat.init_fake_group``), of which one process is one rank.
+Nothing here touches a process group at import time.
 """
 from __future__ import annotations
 
@@ -16,6 +17,15 @@ import tempfile
 import torch.distributed as dist
 
 from repro_torch.runtime import compat
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> compat.NodeMesh:
+    """The (16, 16) ("data", "model") mesh, or with ``multi_pod`` the
+    (2, 16, 16) ("pod", "data", "model") one, over the started group
+    (which must have 256 or 512 ranks)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return compat.make_mesh(shape, axes)
 
 
 def make_host_mesh(data: int = 1, model: int = 1, pod: int = 0

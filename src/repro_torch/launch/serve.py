@@ -14,7 +14,8 @@ reference's (the same ``SyntheticStream``), and the cache is sized at
 ``max_seq`` from the start (the reference prefills a prompt-length cache
 and grows it).  ``mesh=None`` is one device; on a ``compat.NodeMesh``
 of ("data", "model") each rank calls ``serve`` with its own slice of the
-weights (cut from the full tree by ``sharding.shard_tree``) through the
+weights (cut from the full tree by ``sharding.shard_tree``, a ``dp_mode="fsdp"`` config's FSDP leaves cut
+over ``"data"`` too) through the
 step builders of ``launch/steps.py``: tensor-parallel over ``"model"``,
 the batch split over the dp ranks where it splits (else every dp rank
 serves all of it), and every rank returns the tokens gathered over the
@@ -73,7 +74,8 @@ def _params(cfg, params, seed: int, dev: torch.device, mesh=None):
         gen_.manual_seed(seed)
         params = M.init_params(cfg, gen_, cast=True)
         if mesh is not None:
-            params = SH.shard_tree(cfg, params, mesh)
+            params = SH.shard_tree(cfg, params, mesh,
+                                   fsdp=ST.fsdp_axis(cfg, mesh))
     return M.cast_params(cfg, params)
 
 

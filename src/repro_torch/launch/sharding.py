@@ -17,17 +17,23 @@ stacked units dimension and its spec none either (the reference's first
 entry there is always ``None``).
 
 The reference hands the specs to GSPMD.  The port has no GSPMD: a rank
-holds only its slice (``shard_tree``), cut on ``"model"`` and, for the
-expert stacks, on ``"data"``.  Two things differ from a plain cut of the
-specs:
-
-  * ``wk`` / ``wv`` / ``bk`` / ``bv`` are cut by KV heads: a rank holds
-    the ``H / tp`` query heads of its block and the KV heads that those
-    heads read, so where ``K < tp`` a KV head is held by the ``tp / K``
-    ranks that read it (GSPMD would split its ``hd`` there);
-  * the FSDP entries on ``"data"`` stay whole on every data rank: they
-    are a layout of the reference's memory, not a different result, and
-    the port does not shard on them yet.
+holds only its slice (``shard_tree``), cut on ``"model"``, for the
+expert stacks on ``"data"``, and with ``fsdp="data"`` (fully sharded
+data parallelism, FSDP) on the ``"data"`` entries of a ``dp_mode="fsdp"``
+config too.  Every such entry lies on a matrix's ``d_model`` side (the
+rows of ``wq`` / ``wk`` / ``wv`` / ``w_gate`` / ``w_up`` / ``head`` /
+``router`` / ``in_*``, the columns of ``wo`` / ``w_down`` /
+``out_proj``), so a leaf is an FSDP slice exactly where that dimension is
+shorter than ``d_model`` (``fsdp_dim``): the layers gather it over
+``"data"`` where they use it (``runtime.context.fsdp_gather``) and take
+a whole leaf as it is.  A tied ``embed`` stays whole on ``"data"``, as
+the reference's rule gives, and ``"pod"`` replicates.  One thing
+differs from a plain cut of the specs: ``wk`` / ``wv`` / ``bk`` / ``bv``
+are cut by KV heads: a rank holds the ``H / tp`` query heads of its
+block and the KV heads that those heads read, so where ``K < tp`` a KV
+head is held by the ``tp / K`` ranks that read it (GSPMD would split its
+``hd`` there); an FSDP cut of ``wk`` / ``wv`` lies on their rows beside
+it.
 
 A TP extent that does not split the heads (or a KV head count that
 neither divides nor is divided by it), ``d_ff``, an expert's ``f_e``,
@@ -56,6 +62,7 @@ from repro_torch.models.layers import kv_block
 
 DP = ("pod", "data")    # logical dp axes; missing mesh axes are dropped
 TP_AXIS = "model"
+FSDP_AXIS = "data"      # the axis FSDP cuts the weights over
 KV_LEAVES = ("wk", "wv", "bk", "bv")
 
 
@@ -273,6 +280,12 @@ def check_tp(cfg: ModelConfig, tp: int) -> None:
     if bad:
         raise ConfigError(f"{cfg.name}: {', '.join(bad)} do not split over "
                           f"the {tp} ranks of {TP_AXIS!r}")
+    if cfg.seq_parallel:
+        # the reference's sequence-parallel layout (activations cut on the
+        # sequence between the blocks) is not ported: running without it
+        # would be a layout the config did not ask for
+        raise ConfigError(f"{cfg.name}: seq_parallel=True over the {tp} "
+                          f"ranks of {TP_AXIS!r} is not ported")
 
 
 def entry_axes(e, mesh) -> tuple:
@@ -281,11 +294,55 @@ def entry_axes(e, mesh) -> tuple:
     return tuple(a for a in axes if mesh.shape[a] > 1)
 
 
+def fsdp_extent(cfg: ModelConfig, mesh) -> int:
+    """The FSDP axis's extent for ``cfg`` on ``mesh`` (1: no FSDP)."""
+    if mesh is None or cfg.dp_mode != "fsdp" or FSDP_AXIS not in \
+            mesh.axis_names:
+        return 1
+    return mesh.shape[FSDP_AXIS]
+
+
+def _fsdp_spec_dim(path: tuple, shape: tuple) -> Optional[int]:
+    """The dimension the reference's rules put ``"data"`` on for FSDP
+    (not an expert stack's expert dimension), or None."""
+    key = _keystr(path)
+    plain = _leaf_spec(key, shape, None)
+    fsdp = _leaf_spec(key, shape, FSDP_AXIS)
+    for d, (a, b) in enumerate(zip(plain, fsdp)):
+        if b == FSDP_AXIS and a != FSDP_AXIS:
+            return d
+    return None
+
+
+def fsdp_dim(cfg: ModelConfig, path: tuple, leaf) -> Optional[int]:
+    """The dimension on which ``leaf`` (at key ``path``, a rank's leaf) is
+    an FSDP slice, or None where it is whole there: every FSDP entry lies
+    on a ``d_model`` dimension, so a slice is one shorter than
+    ``d_model``."""
+    if cfg.dp_mode != "fsdp":
+        return None
+    d = _fsdp_spec_dim(path, tuple(leaf.shape))
+    if d is None or d >= leaf.dim() or leaf.shape[d] >= cfg.d_model:
+        return None
+    return d
+
+
+def cut_axes(cfg: ModelConfig, path: tuple, leaf, mesh) -> tuple:
+    """The mesh axes of more than one rank that a rank's ``leaf`` is a
+    slice on, in the mesh's order: its TP and expert cuts, and
+    ``"data"`` where it is an FSDP slice."""
+    spec = _spec_of(cfg, path, leaf.dim(), tuple(leaf.shape), mesh, None)
+    cut = {a for e in spec for a in entry_axes(e, mesh)}
+    if fsdp_dim(cfg, path, leaf) is not None:
+        cut.add(FSDP_AXIS)
+    return tuple(a for a in mesh.axis_names if a in cut)
+
+
 def _cuts(cfg: ModelConfig, path: tuple, spec: tuple, mesh, rank
           ) -> list:
     """Per dimension: None (whole) or (block index, block count); a KV
-    leaf's head dimension ("kv", first head, heads).  Specs are taken
-    with FSDP off, so the only "data" entries are the expert stacks'."""
+    leaf's head dimension ("kv", first head, heads).  With FSDP off the
+    only "data" entries are the expert stacks'."""
     out = []
     for e in spec:
         axes = entry_axes(e, mesh)
@@ -319,13 +376,17 @@ def _slices(cfg: ModelConfig, cuts: list, full_shape: tuple) -> tuple:
 
 
 def shard_tree(cfg: ModelConfig, tree: Any, mesh,
-               rank: Optional[int] = None) -> Any:
+               rank: Optional[int] = None,
+               fsdp: Optional[str] = None) -> Any:
     """This rank's (or ``rank``'s) slice of a full parameter tree (or of
     a tree of the parameters' structure), as contiguous copies; a leaf
-    that is whole on the rank is the leaf itself.  Raises
+    that is whole on the rank is the leaf itself.  ``fsdp="data"`` also
+    cuts a ``dp_mode="fsdp"`` config's FSDP entries (the reference's
+    ``param_specs`` default); with None they stay whole on every data
+    rank, a layout the model layers take as well.  Raises
     ``ConfigError`` where the TP extent does not split ``cfg``."""
     check_tp(cfg, tp_extent(mesh))
-    specs = param_specs(cfg, tree, mesh, fsdp=None)
+    specs = param_specs(cfg, tree, mesh, fsdp=fsdp)
     out = []
     _, rebuild = tree_flatten(tree)
     for (path, leaf), spec in zip(_leaves_with_paths(tree),
@@ -346,14 +407,16 @@ def _spec_leaves(specs: Any) -> list:
 
 def unshard_tree(cfg: ModelConfig, slices: Sequence, mesh) -> Any:
     """The full tree from every rank's slice (``slices[r]`` is rank r's
-    ``shard_tree``), the inverse of ``shard_tree``: for tests and for
+    ``shard_tree``, with or without its FSDP cut: an FSDP slice is read
+    off its shape), the inverse of ``shard_tree``: for tests and for
     joining checkpoints."""
     per_rank = [_leaves_with_paths(t) for t in slices]
     _, rebuild = tree_flatten(slices[0])
     out = []
     for j, (path, leaf0) in enumerate(per_rank[0]):
+        cut = fsdp_dim(cfg, path, leaf0) is not None
         spec = _spec_of(cfg, path, leaf0.dim(), tuple(leaf0.shape), mesh,
-                        None)
+                        FSDP_AXIS if cut else None)
         cuts0 = _cuts(cfg, path, spec, mesh, 0)
         if all(c is None for c in cuts0):
             out.append(leaf0)

@@ -20,15 +20,21 @@ An MoE config runs both steps under ``DistCtx(mesh, dp_axes,
 ep_axis="data")``, as the reference does: each rank holds its ``E /
 n_ep`` slice of every expert stack (``sharding.shard_tree``), the tokens
 reach the experts through ``runtime.context.all_to_all``, and the
-gradient comes back through it.  An expert stack's gradient is then
-complete on its rank, so it is not synced (the reference's
-``_dp_leaf_axes`` gives it the dp axes other than ``"data"``, and the
-port takes an MoE config only on meshes whose other dp axes have one
-rank), and the grad norm sums its squares over the dp ranks.  Every
-other leaf syncs over every dp axis.  The baseline step sums its
-gradients with a plain ``all_reduce`` (the reference's GSPMD psum) where
-the mesh has more than one dp rank.  Gloo takes host memory, so a CUDA
-tensor's plain sum is staged through the host.
+gradient comes back through it.  A ``dp_mode="fsdp"`` config's baseline
+and serving steps also run under ``fsdp_axis="data"``: a rank's FSDP
+leaves are slices (``shard_tree(..., fsdp="data")``), gathered where
+their unit runs, and their gradients come back reduce-scattered, summed
+over ``"data"``.  Each leaf's gradient is then summed over the dp axes
+its slice is not cut on (``leaf_sync_axes``, the reference's
+``_dp_leaf_axes``): an expert stack or an FSDP slice over the dp axes
+other than ``"data"`` (``"pod"``), every other leaf over every dp axis;
+and the grad norm sums each leaf's squares over the axes it is cut on.
+The baseline step sums its gradients with a plain ``all_reduce`` (the
+reference's GSPMD psum) where the mesh has more than one dp rank; the
+secure step runs ``tree_allreduce`` once a group of leaves with the same
+sync axes, and like the reference's takes its weights replicated over
+the dp axes (``dp_mode="replicated"``).  Gloo takes host memory, so a
+CUDA tensor's plain sum is staged through the host.
 
 On a mesh with a ``"model"`` axis of more than one rank every step runs
 tensor-parallel (TP), as the reference's run with ``tp_axis="model"``:
@@ -52,6 +58,9 @@ from __future__ import annotations
 
 from typing import Optional
 
+import dataclasses
+import math
+
 import torch
 import torch.distributed as dist
 from torch.profiler import record_function
@@ -61,11 +70,11 @@ from repro_torch.core.engine import tree_allreduce, tree_flatten
 from repro_torch.core.plan import AggConfig
 from repro_torch.core.schedules import ConfigError
 from repro_torch.launch import sharding as SH
-from repro_torch.launch.mesh import dp_axes_of, dp_size
+from repro_torch.launch.mesh import dp_axes_of
 from repro_torch.models import model as M
 from repro_torch.optim import adamw
 from repro_torch.runtime.compat import subgroup
-from repro_torch.runtime.context import DistCtx, use_ctx
+from repro_torch.runtime.context import DistCtx, tally, use_ctx
 
 EP_AXIS = "data"        # the axis an MoE config splits its experts over
 TP_AXIS = SH.TP_AXIS    # the axis TP splits the weights over
@@ -84,12 +93,6 @@ def _check_mesh(cfg: ModelConfig, mesh) -> None:
     SH.check_tp(cfg, SH.tp_extent(mesh))
     if cfg.moe is None:
         return
-    for ax in dp:
-        if ax != EP_AXIS and mesh.shape[ax] != 1:
-            raise ConfigError(f"MoE training on dp axis {ax!r} of size "
-                              f"{mesh.shape[ax]} is not ported: the experts "
-                              f"split over {EP_AXIS!r}, and every other dp "
-                              "axis must have one rank")
     n_ep = expert_slices(cfg, mesh)
     if cfg.moe.n_experts % n_ep:
         raise ConfigError(f"{cfg.moe.n_experts} experts do not split over "
@@ -114,7 +117,32 @@ def dist_ctx(cfg: ModelConfig, mesh, sharded_batch: bool = False
         else None
     tp = TP_AXIS if TP_AXIS in mesh.axis_names else None
     return DistCtx(mesh=mesh, dp_axes=dp_axes_of(mesh), ep_axis=ep,
-                   tp_axis=tp, sharded_batch=sharded_batch)
+                   tp_axis=tp, sharded_batch=sharded_batch,
+                   fsdp_axis=fsdp_axis(cfg, mesh))
+
+
+def fsdp_axis(cfg: ModelConfig, mesh):
+    """The axis ``shard_tree`` cuts ``cfg``'s FSDP leaves over on
+    ``mesh`` (``"data"`` for a ``dp_mode="fsdp"`` config), or None."""
+    return SH.FSDP_AXIS if SH.fsdp_extent(cfg, mesh) > 1 else None
+
+
+def leaf_sync_axes(cfg: ModelConfig, tree, mesh) -> list[tuple]:
+    """For each leaf of a rank's tree (in ``tree_flatten``'s order): the
+    dp axes its gradient is summed over, those its slice is not cut on
+    (the reference's ``_dp_leaf_axes``, which reads the axis names of the
+    leaf's spec: an expert stack names ``"data"`` on any mesh)."""
+    dp = dp_axes_of(mesh)
+    out = []
+    for path, leaf in SH._leaves_with_paths(tree):
+        spec = SH._spec_of(cfg, path, leaf.dim(), tuple(leaf.shape), mesh,
+                           None)
+        used = {a for e in spec if e is not None
+                for a in (e if isinstance(e, tuple) else (e,))}
+        if SH.fsdp_dim(cfg, path, leaf) is not None:
+            used.add(SH.FSDP_AXIS)
+        out.append(tuple(a for a in dp if a not in used))
+    return out
 
 
 def expert_leaves(cfg: ModelConfig, tree) -> list[bool]:
@@ -149,6 +177,7 @@ def axes_sum_(tensors: list, mesh, axes: tuple) -> None:
         return
     flat = torch.cat([t.reshape(-1).float() for t in tensors])
     wire = flat.cpu() if flat.is_cuda and mesh.backend == "gloo" else flat
+    tally("dp_sum", 4 * flat.numel())
     dist.all_reduce(wire, op=dist.ReduceOp.SUM,
                     group=axes_group(mesh, axes))
     flat.copy_(wire)
@@ -167,23 +196,34 @@ def dp_sum_(tensors: list, mesh) -> None:
     axes_sum_(tensors, mesh, dp_axes_of(mesh))
 
 
+def sync_grads_(cfg: ModelConfig, loss: torch.Tensor, grads, mesh) -> None:
+    """The baseline step's sync, in place: each gradient summed over its
+    ``leaf_sync_axes`` (one flat ``all_reduce`` a group of leaves with
+    the same axes), the loss over every dp axis."""
+    if mesh is None:
+        return
+    groups: dict = {dp_axes_of(mesh): [loss]}
+    for g, axes in zip(tree_flatten(grads)[0],
+                       leaf_sync_axes(cfg, grads, mesh)):
+        groups.setdefault(axes, []).append(g)
+    for axes, tensors in groups.items():
+        axes_sum_(tensors, mesh, axes)
+
+
 def grad_norm(cfg: ModelConfig, grads, mesh) -> torch.Tensor:
     """``adamw.global_norm`` of the synced gradients, each leaf's sum of
-    squares summed over the axes its slices lie on: an expert stack's
-    over the dp ranks (each holds its own experts), a TP-cut leaf's over
-    ``"model"`` (a KV head held by ``tp / K`` ranks counted once); a
-    replicated leaf's once."""
+    squares summed over the axes its slice is cut on (``sharding.
+    cut_axes``): an expert stack's and an FSDP slice's over ``"data"``,
+    a TP-cut leaf's over ``"model"`` (a KV head held by ``tp / K`` ranks
+    counted once); a replicated leaf's once."""
     sq = adamw.leaf_squares(grads)
     if mesh is None:
         return adamw.norm_of_squares(sq)
     tp = SH.tp_extent(mesh)
     kv_share = tp // cfg.n_kv_heads if cfg.n_kv_heads < tp else 1
-    specs = SH._spec_leaves(SH.param_specs(cfg, grads, mesh, fsdp=None))
     groups: dict = {}
-    for i, ((path, _), spec) in enumerate(zip(SH._leaves_with_paths(grads),
-                                              specs)):
-        cut = {a for e in spec for a in SH.entry_axes(e, mesh)}
-        axes = tuple(a for a in mesh.axis_names if a in cut)
+    for i, (path, leaf) in enumerate(SH._leaves_with_paths(grads)):
+        axes = SH.cut_axes(cfg, path, leaf, mesh)
         if kv_share > 1 and path[-1] in SH.KV_LEAVES and TP_AXIS in axes:
             sq[i] = sq[i] / kv_share
         if axes:
@@ -212,8 +252,9 @@ def build_train_step(cfg: ModelConfig,
                      shape: Optional[ShapeConfig] = None, mesh=None):
     """Returns (step, opt_cfg); ``step(params, opt_state, batch)`` ->
     (params, opt_state, metrics), the parameters and moments updated in
-    place.  On a mesh, an MoE config's ``params`` hold this rank's expert
-    slice (``sharding.shard_tree``)."""
+    place.  On a mesh, ``params`` are this rank's slice
+    (``sharding.shard_tree``, for a ``dp_mode="fsdp"`` config with
+    ``fsdp=fsdp_axis(cfg, mesh)``; whole FSDP leaves run too)."""
     opt_cfg = opt_cfg or adamw.OptConfig(state_dtype=cfg.opt_state_dtype)
     shape = shape or SHAPES["train_4k"]
     total_tokens = shape.global_batch * shape.seq_len
@@ -223,10 +264,7 @@ def build_train_step(cfg: ModelConfig,
     def step(params, opt_state, batch):
         with use_ctx(ctx):
             loss, grads = local_grads(cfg, params, batch, total_tokens)
-        # an expert stack's gradient is complete on its rank
-        dp_sum_([loss] + [g for g, ex in zip(tree_flatten(grads)[0],
-                                             expert_leaves(cfg, grads))
-                          if not ex], mesh)
+        sync_grads_(cfg, loss, grads, mesh)
         gnorm = grad_norm(cfg, grads, mesh)
         params, opt_state, metrics = adamw.apply_updates(
             opt_cfg, params, grads, opt_state, grad_norm=gnorm)
@@ -242,28 +280,34 @@ def build_secure_train_step(cfg: ModelConfig, mesh, agg: AggConfig,
     """The paper's aggregation as the gradient sync: every rank of
     ``mesh`` calls the returned step on its own shard of the batch (and,
     for an MoE config, its expert slice: ``sharding.shard_tree``);
-    ``agg.kernel_impl`` picks the sync's kernels.  Returns (step,
-    opt_cfg)."""
+    ``agg.kernel_impl`` picks the sync's kernels.  The weights are
+    replicated over the dp axes whatever ``cfg.dp_mode`` says, as the
+    reference's secure step takes them.  Returns (step, opt_cfg)."""
+    cfg = dataclasses.replace(cfg, dp_mode="replicated")
     opt_cfg = opt_cfg or adamw.OptConfig(state_dtype=cfg.opt_state_dtype)
     shape = shape or SHAPES["train_4k"]
     total_tokens = shape.global_batch * shape.seq_len
     _check_mesh(cfg, mesh)
     ctx = dist_ctx(cfg, mesh)
-    dp_axes = dp_axes_of(mesh)
-    sync_cfg = agg.derive(n_nodes=dp_size(mesh))
 
     def step(params, opt_state, batch):
         with use_ctx(ctx):
             loss, grads = local_grads(cfg, params, batch, total_tokens)
         leaves, rebuild = tree_flatten(grads)
-        # an expert stack's gradient is complete on its rank
-        synced = [i for i, ex in enumerate(expert_leaves(cfg, grads))
-                  if not ex]
+        # one protocol run a group of leaves with the same sync axes, its
+        # committee derived to their extent; an expert stack's gradient
+        # is complete on its rank's "data" coordinate
+        groups: dict = {}
+        for i, axes in enumerate(leaf_sync_axes(cfg, grads, mesh)):
+            if axes:
+                groups.setdefault(axes, []).append(i)
         with record_function("secure_sync"):
-            summed = tree_allreduce([leaves[i] for i in synced], sync_cfg,
-                                    mesh, dp_axes)
-        for i, t in zip(synced, summed):
-            leaves[i] = t
+            for axes, idx in groups.items():
+                n = math.prod(mesh.shape[a] for a in axes)
+                summed = tree_allreduce([leaves[i] for i in idx],
+                                        agg.derive(n_nodes=n), mesh, axes)
+                for i, t in zip(idx, summed):
+                    leaves[i] = t
         grads = rebuild(leaves)
         # per-rank loss is local CE / global tokens: the mean is the sum
         dp_sum_([loss], mesh)
@@ -344,7 +388,7 @@ def build_prefill_step(cfg: ModelConfig, mesh, shape: ShapeConfig,
     cache specs are None.  The logits are whole (gathered over
     ``"model"``) on every rank."""
     ctx, spec_mesh = _serve_ctx(cfg, mesh, shape)
-    pspecs = SH.param_specs(cfg, abstract_params(cfg), spec_mesh, fsdp=None)
+    pspecs = SH.param_specs(cfg, abstract_params(cfg), spec_mesh)
     bspecs = SH.batch_specs(cfg, shape, spec_mesh)
     if not cfg.decoder:
         def encode(params, batch):
@@ -368,7 +412,7 @@ def build_decode_step(cfg: ModelConfig, mesh, shape: ShapeConfig):
     for one new token a sequence at position ``t`` against this rank's
     cache of ``shape.seq_len`` positions (written in place)."""
     ctx, spec_mesh = _serve_ctx(cfg, mesh, shape)
-    pspecs = SH.param_specs(cfg, abstract_params(cfg), spec_mesh, fsdp=None)
+    pspecs = SH.param_specs(cfg, abstract_params(cfg), spec_mesh)
     cspecs = SH.cache_specs(cfg, abstract_cache(cfg, shape), shape,
                             spec_mesh)
     tok_spec = SH.batch_specs(cfg, shape, spec_mesh)["tokens"]

@@ -90,10 +90,14 @@ def train_loop(cfg, mesh=None, *, steps: int, shape: ShapeConfig,
     kernels follow ``agg.kernel_impl``.  On a mesh each rank keeps its
     slice of the seeded draw (or of ``params``: ``sharding.shard_tree``)
     and its AdamW moments: with an expert axis (an MoE config on more
-    than one ``"data"`` rank) its ``E / n_ep`` experts, with a ``"model"``
-    axis of more than one rank its tensor-parallel slice.  Each distinct
-    slice is checkpointed under ``ckpt_dir/ep<i>`` (the expert slice i),
-    ``ckpt_dir/tp<j>`` (the TP slice j) or ``ckpt_dir/ep<i>/tp<j>``: a
+    than one ``"data"`` rank) its ``E / n_ep`` experts, for a baseline
+    run of a ``dp_mode="fsdp"`` config on more than one ``"data"`` rank
+    its FSDP slices, with a ``"model"`` axis of more than one rank its
+    tensor-parallel slice.  Each distinct slice is checkpointed under
+    ``ckpt_dir/ep<i>`` (the expert slice i, with its FSDP slices),
+    ``ckpt_dir/fsdp<i>`` (a dense config's FSDP slice i),
+    ``ckpt_dir/tp<j>`` (the TP slice j) or both (``ckpt_dir/ep<i>/tp<j>``),
+    by the ranks at coordinate 0 of the dp axes other than ``"data"``: a
     restart restores every rank's slice from its own directory, so it
     needs the same split."""
     if secure and mesh is None:
@@ -127,18 +131,24 @@ def train_loop(cfg, mesh=None, *, steps: int, shape: ShapeConfig,
         params = M.init_params(cfg, gen)
     else:
         params = _clone(params)
-    # on an expert or a TP axis, this rank's slice of the global draw,
-    # and the moments of that slice
+    # on an expert, FSDP or TP axis, this rank's slice of the global
+    # draw, and the moments of that slice
     if mesh is not None:
-        params = SH.shard_tree(cfg, params, mesh)
+        params = SH.shard_tree(cfg, params, mesh,
+                               fsdp=ST.fsdp_axis(cfg, mesh))
     opt_state = adamw.init_opt_state(opt_cfg, params)
 
-    # each rank holding an expert slice writes a checkpoint of its own
-    # tree; where every dp rank holds the same, dp rank 0 writes it
+    # each data rank holding a slice of its own (experts, FSDP slices)
+    # writes a checkpoint of its own tree, once over the other dp axes;
+    # where every dp rank holds the same, dp rank 0 writes it
     saver = dp_rank == 0
-    if ckpt_dir and ST.expert_slices(cfg, mesh) > 1:
-        ckpt_dir = os.path.join(ckpt_dir, f"ep{mesh.coord(ST.EP_AXIS)}")
-        saver = True
+    sliced = ("ep" if ST.expert_slices(cfg, mesh) > 1 else
+              "fsdp" if ST.fsdp_axis(cfg, mesh) else None)
+    if ckpt_dir and sliced:
+        ckpt_dir = os.path.join(ckpt_dir,
+                                f"{sliced}{mesh.coord(ST.EP_AXIS)}")
+        saver = all(mesh.coord(a) == 0 for a in dp_axes_of(mesh)
+                    if a != ST.EP_AXIS)
     if ckpt_dir and SH.tp_extent(mesh) > 1:
         ckpt_dir = os.path.join(ckpt_dir, f"tp{mesh.coord(ST.TP_AXIS)}")
     start_step = 0

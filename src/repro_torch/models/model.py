@@ -15,7 +15,14 @@ vocab-parallel (the rank's columns of the logits, gathered), and every
 rank of a model slice holds the same residual stream, bit for bit (each
 sum over the axis hands every rank the same bits).  ``init_cache`` under
 such a context is the rank's: its KV heads, its SSD heads and
-``d_inner`` channels.  ``cfg.remat`` runs
+``d_inner`` channels.  Under an FSDP context (``fsdp_axis``) a rank's
+FSDP leaves are slices on their ``d_model`` side: each unit's are
+gathered where the unit runs (``_gathered``: in the forward loop inside
+the unit's checkpoint, so a remat backward gathers them again; in the
+prefill and each decode step), the untied head's in ``lm_head``, so a
+rank holds its slices and the unit that runs (without remat autograd
+keeps each unit's gathered weights for the backward, as it keeps the
+unit's activations).  ``cfg.remat`` runs
 each unit of the training forward under ``torch.utils.checkpoint`` (the
 reference's ``jax.checkpoint``).  Every forward and prefill reaches its
 kernels through ``impl``: ``None`` picks the CUDA kernel on a CUDA tensor
@@ -33,8 +40,9 @@ import torch.utils.checkpoint
 from repro_torch.configs.base import (ATTN_CHUNKED, CROSS_ATTN, DENSE, MAMBA2,
                                       MOE, NONE, ModelConfig)
 from repro_torch.models import layers as L
-from repro_torch.runtime.context import (get_ctx, tp_copy, tp_gather,
-                                         tp_index, tp_reduce, tp_size)
+from repro_torch.runtime.context import (fsdp_gather, fsdp_size, get_ctx,
+                                         tp_copy, tp_gather, tp_index,
+                                         tp_reduce, tp_size)
 
 Params = Any
 Cache = Any
@@ -128,6 +136,29 @@ def cast_params(cfg: ModelConfig, params: Params) -> Params:
     return go(params)
 
 
+def _gathered(cfg: ModelConfig, tree: dict, prefix: tuple) -> dict:
+    """``tree`` (the subtree at key path ``prefix``) with each FSDP slice
+    gathered over the FSDP axis (``runtime.context.fsdp_gather``) in the
+    dtype the layers read it in; every other leaf as it is."""
+    ctx = get_ctx()
+    if fsdp_size(ctx) == 1:
+        return tree
+    # launch.sharding imports this module: import its rule at call time
+    from repro_torch.launch.sharding import fsdp_dim
+    dtype = compute_dtype(cfg)
+
+    def go(t, path):
+        if isinstance(t, dict):
+            return {k: go(v, path + (k,)) for k, v in t.items()}
+        d = fsdp_dim(cfg, path, t)
+        if d is None:
+            return t
+        return fsdp_gather(ctx, t, d,
+                           t.dtype if path[-1] in F32_LEAVES else dtype)
+
+    return go(tree, prefix)
+
+
 # ---------------------------------------------------------------------------
 # Embedding / head
 # ---------------------------------------------------------------------------
@@ -169,7 +200,8 @@ def lm_head(cfg: ModelConfig, params: Params, x: torch.Tensor
     if cfg.tie_embeddings and "embed" in params:
         logits = x @ params["embed"].to(x.dtype).T
     else:
-        logits = x @ params["head"].to(x.dtype)
+        head = _gathered(cfg, {"head": params["head"]}, ())["head"]
+        logits = x @ head.to(x.dtype)
     return tp_gather(ctx, logits)
 
 
@@ -214,6 +246,14 @@ def _unit_forward(cfg: ModelConfig, unit: dict, x: torch.Tensor,
     return x
 
 
+def _unit_run(cfg: ModelConfig, unit: dict, i: int, x: torch.Tensor,
+              media: Optional[torch.Tensor], impl: Optional[str]
+              ) -> torch.Tensor:
+    """Unit ``i``'s forward, its FSDP slices gathered first."""
+    return _unit_forward(cfg, _gathered(cfg, unit, ("units", i)), x, media,
+                         impl)
+
+
 def forward(cfg: ModelConfig, params: Params, batch: dict,
             impl: Optional[str] = None) -> torch.Tensor:
     """Returns logits (B, S, Vp) of ``batch["tokens"]`` (or an audio
@@ -223,13 +263,13 @@ def forward(cfg: ModelConfig, params: Params, batch: dict,
     x = embed_inputs(cfg, params, batch)
     media = _media(cfg, batch, x)
     remat = cfg.remat and torch.is_grad_enabled()
-    for unit in params["units"]:
+    for i, unit in enumerate(params["units"]):
         if remat:
             x = torch.utils.checkpoint.checkpoint(
-                _unit_forward, cfg, unit, x, media, impl,
+                _unit_run, cfg, unit, i, x, media, impl,
                 use_reentrant=False)
         else:
-            x = _unit_forward(cfg, unit, x, media, impl)
+            x = _unit_run(cfg, unit, i, x, media, impl)
     x = L.apply_norm(cfg, params["final_norm"], x)
     return lm_head(cfg, params, x)
 
@@ -357,9 +397,9 @@ def prefill(cfg: ModelConfig, params: Params, batch: dict, max_seq: int,
     x = embed_inputs(cfg, params, batch)
     media = _media(cfg, batch, x)
     caches = []
-    for unit in params["units"]:
-        x, cache_u = _unit_prefill(cfg, unit, x, media, max_seq=max_seq,
-                                   impl=impl)
+    for i, unit in enumerate(params["units"]):
+        x, cache_u = _unit_prefill(cfg, _gathered(cfg, unit, ("units", i)),
+                                   x, media, max_seq=max_seq, impl=impl)
         caches.append(cache_u)
     x = L.apply_norm(cfg, params["final_norm"], x)
     return lm_head(cfg, params, x[:, -1:]), caches
@@ -398,8 +438,9 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Cache,
     Attention caches are written in place."""
     x = embed_inputs(cfg, params, {"tokens": tokens})
     new_cache = []
-    for unit, cache_u in zip(params["units"], cache):
-        x, cu = _unit_decode(cfg, unit, cache_u, x, int(t))
+    for i, (unit, cache_u) in enumerate(zip(params["units"], cache)):
+        x, cu = _unit_decode(cfg, _gathered(cfg, unit, ("units", i)),
+                             cache_u, x, int(t))
         new_cache.append(cu)
     x = L.apply_norm(cfg, params["final_norm"], x)
     return lm_head(cfg, params, x), new_cache

@@ -172,6 +172,16 @@ def init_node_group(rank: int, world: int, store_path: str,
         timeout=datetime.timedelta(seconds=timeout_s))
 
 
+def init_fake_group(rank: int, world: int) -> None:
+    """Start this process's default group as rank ``rank`` of a fake
+    group of ``world`` ranks (``torch.testing``'s ``fake`` backend): its
+    collectives return at once and move nothing, so one process can trace
+    one rank of a mesh of any size on meta tensors (the dry run)."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=world)
+
+
 def _node_main(rank: int, fn, n: int, store_path: str, timeout_s: float,
                args: tuple) -> None:
     # the ranks share the host's cores: one rank's torch should not start

@@ -20,6 +20,20 @@ model layers here call them, Megatron-style, on the TP axis's group:
     forward, this rank's piece of the gradient backward (the
     vocab-parallel head's logits).
 
+Fully sharded data parallelism (FSDP) over ``fsdp_axis``: a rank holds
+a slice of each FSDP leaf (``launch.sharding``), and ``fsdp_gather``
+joins the slices where a unit runs (all-gather forward, reduce-scatter
+of the gradient backward, so the slice's gradient comes back summed over
+the axis).  It gathers the compute-dtype copy: a cast commutes with a
+gather, so a bfloat16 gather sends half the bytes for the same result;
+the gradient is summed in float32 and returned in the master's dtype.
+
+Every collective here, and the step's gradient sums
+(``launch.steps.axes_sum_``), adds its call and the bytes of its operand
+(what this rank hands the collective: the shard of a gather, the whole
+tensor of a sum or a reduce-scatter) to one tally by kind
+(``collective_counts``), which the dry run reads.
+
 Gloo has no bfloat16 sum: a bfloat16 (or float16) partial sum goes over
 the wire as float32 and is cast back once, after the sum, so the port
 sums TP partials more finely than the reference's XLA all-reduce does
@@ -59,9 +73,32 @@ class DistCtx:
     # rank's batch is its shard of the global batch, and the reference's
     # replicated-token test reads the global batch, which always splits
     sharded_batch: bool = False
+    fsdp_axis: Optional[str] = None     # the axis FSDP slices lie on
 
 
 _CURRENT = DistCtx()
+
+# kind -> {"calls", "bytes"}: every collective this process has made
+_COLLECTIVES: dict = {}
+
+
+def tally(kind: str, nbytes: int) -> None:
+    """Count one collective of ``kind`` whose operand is ``nbytes``."""
+    c = _COLLECTIVES.setdefault(kind, {"calls": 0, "bytes": 0})
+    c["calls"] += 1
+    c["bytes"] += int(nbytes)
+
+
+def collective_counts() -> dict:
+    return {k: dict(v) for k, v in _COLLECTIVES.items()}
+
+
+def reset_collective_counts() -> None:
+    _COLLECTIVES.clear()
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
 
 
 def get_ctx() -> DistCtx:
@@ -79,15 +116,19 @@ def use_ctx(ctx: DistCtx):
         _CURRENT = prev
 
 
-def ep_group(ctx: DistCtx) -> tuple:
-    """(group, this rank's index on the expert axis, the axis's size): the
-    ranks that share this rank's coordinates off the expert axis, in
-    their order on it.  Built once a mesh (``dist.new_group`` is
-    collective: every rank builds every slice's group)."""
-    mesh, ax = ctx.mesh, ctx.ep_axis
+def axis_group(mesh, ax: str) -> tuple:
+    """(group, this rank's index on ``ax``, the axis's size): the ranks
+    that share this rank's coordinates off ``ax``, in their order on it.
+    Built once a mesh (``dist.new_group`` is collective: every rank
+    builds every slice's group)."""
     n = mesh.shape[ax]
     group, _ = subgroup(mesh, (ax,), [tuple(range(n))])
     return group, mesh.coord(ax), n
+
+
+def ep_group(ctx: DistCtx) -> tuple:
+    """``axis_group`` of the expert axis."""
+    return axis_group(ctx.mesh, ctx.ep_axis)
 
 
 def tp_size(ctx: DistCtx) -> int:
@@ -141,6 +182,7 @@ def _exchange(ctx: DistCtx, send: torch.Tensor) -> torch.Tensor:
                          f"{n} ranks")
     h = _stage(send, ctx.mesh)
     out = torch.empty_like(h)
+    tally("ep_exchange", _nbytes(h))
     dist.all_to_all_single(_wire_view(out), _wire_view(h), group=group)
     return out.to(send.device)
 
@@ -150,6 +192,7 @@ def _sum(ctx: DistCtx, t: torch.Tensor) -> torch.Tensor:
     h = _stage(t, ctx.mesh)
     if h is t:
         h = t.clone()
+    tally("ep_sum", _nbytes(h))
     dist.all_reduce(h, op=dist.ReduceOp.SUM, group=group)
     return h.to(t.device)
 
@@ -201,6 +244,7 @@ def _tp_sum(ctx: DistCtx, t: torch.Tensor, span: int) -> torch.Tensor:
     h = _stage(wide, ctx.mesh)
     if h is t:
         h = t.clone()
+    tally("tp_sum", _nbytes(h))
     dist.all_reduce(h, op=dist.ReduceOp.SUM, group=group)
     return h.to(device=t.device, dtype=t.dtype)
 
@@ -211,6 +255,7 @@ def _tp_cat(ctx: DistCtx, t: torch.Tensor) -> torch.Tensor:
     group, _, n = tp_group(ctx)
     h = _stage(t, ctx.mesh)
     parts = [torch.empty_like(h) for _ in range(n)]
+    tally("tp_cat", _nbytes(h))
     dist.all_gather([_wire_view(p) for p in parts], _wire_view(h),
                     group=group)
     return torch.cat(parts, dim=-1).to(t.device)
@@ -274,3 +319,60 @@ def tp_gather(ctx: DistCtx, t: torch.Tensor) -> torch.Tensor:
     if tp_size(ctx) == 1:
         return t
     return _TPGather.apply(t, ctx)
+
+
+# ---------------------------------------------------------------------------
+# FSDP over ctx.fsdp_axis
+# ---------------------------------------------------------------------------
+
+
+def fsdp_size(ctx: DistCtx) -> int:
+    """The FSDP axis's extent (1: no FSDP; nothing is gathered)."""
+    if ctx.mesh is None or ctx.fsdp_axis is None:
+        return 1
+    return ctx.mesh.shape[ctx.fsdp_axis]
+
+
+def _fsdp_cat(ctx: DistCtx, t: torch.Tensor, dim: int) -> torch.Tensor:
+    """The axis's slices of ``t`` joined along ``dim``, in rank order."""
+    group, _, n = axis_group(ctx.mesh, ctx.fsdp_axis)
+    h = _stage(t, ctx.mesh)
+    parts = [torch.empty_like(h) for _ in range(n)]
+    tally("fsdp_gather", _nbytes(h))
+    dist.all_gather([_wire_view(p) for p in parts], _wire_view(h),
+                    group=group)
+    return torch.cat(parts, dim=dim).to(t.device)
+
+
+def _fsdp_scatter(ctx: DistCtx, g: torch.Tensor, dim: int) -> torch.Tensor:
+    """This rank's block along ``dim`` of the sum of ``g`` over the axis,
+    in float32 (gloo sums no bfloat16)."""
+    group, _, n = axis_group(ctx.mesh, ctx.fsdp_axis)
+    wide = g.float()
+    blocks = [_stage(b.contiguous(), ctx.mesh) for b in wide.chunk(n, dim)]
+    out = torch.empty_like(blocks[0])
+    tally("fsdp_scatter", _nbytes(wide))
+    dist.reduce_scatter(out, blocks, op=dist.ReduceOp.SUM, group=group)
+    return out.to(g.device)
+
+
+class _FSDPGather(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, w, ctx, dim, dtype):
+        fctx.ctx, fctx.dim, fctx.dtype = ctx, dim, w.dtype
+        return _fsdp_cat(ctx, w.to(dtype).contiguous(), dim)
+
+    @staticmethod
+    def backward(fctx, grad):
+        g = _fsdp_scatter(fctx.ctx, grad, fctx.dim)
+        return g.to(fctx.dtype), None, None, None
+
+
+def fsdp_gather(ctx: DistCtx, w: torch.Tensor, dim: int,
+                dtype: torch.dtype) -> torch.Tensor:
+    """The whole leaf in ``dtype`` from this rank's FSDP slice ``w`` (cut
+    on ``dim``); the gradient of ``w`` is the whole gradient summed over
+    the FSDP axis, this rank's block of it."""
+    if fsdp_size(ctx) == 1:
+        return w.to(dtype)
+    return _FSDPGather.apply(w, ctx, dim, dtype)

@@ -79,11 +79,11 @@ PAD_QUANTUM = 128
 # executes, and mirrored (not imported) to keep repro_torch.tune
 # importable without the service stack
 DEFAULT_PAD_BUCKETS = (64, 256, 1024, 4096, 16384)
-# where probe_report=True writes its tables (the reference writes into
-# its hillclimb driver's directory, which the port does not carry):
-# reports/perf at the root of the checkout
-PROBE_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
-                         "reports", "perf")
+# where probe_report=True writes its tables: None is the hillclimb
+# report directory (``launch.hillclimb.PERF_DIR``, as the
+# reference writes into its own), read when a report is written so that
+# importing the tuner imports no launcher
+PROBE_DIR = None
 
 
 def _bucket_padded(elems: int, buckets=DEFAULT_PAD_BUCKETS) -> int:
@@ -194,7 +194,7 @@ class Tuner:
     on the sim transport on ``device`` (``None``: the card) and the
     fastest wins; ``last_probe`` keeps the latest table of finalists and
     their seconds.  ``probe_report=True`` also writes that table under
-    :data:`PROBE_DIR`.  ``churn_rate`` seeds the signatures the facade
+    :data:`PROBE_DIR` (by default ``launch.hillclimb.PERF_DIR``).  ``churn_rate`` seeds the signatures the facade
     builds as a static hint; ``epochs`` (an
     :class:`~repro_torch.service.EpochManager`) upgrades it to the
     MEASURED departure rate: signatures read
@@ -378,10 +378,13 @@ class Tuner:
         return results[0][1:]
 
     def _write_probe_report(self, sig: WorkloadSignature) -> None:
-        os.makedirs(PROBE_DIR, exist_ok=True)
+        out_dir = PROBE_DIR
+        if out_dir is None:
+            from repro_torch.launch.hillclimb import PERF_DIR as out_dir
+        os.makedirs(out_dir, exist_ok=True)
         tag = (f"tuner_probe_n{sig.n_nodes}_T{sig.T}_S{sig.S}"
                f"_b{sig.byzantine_budget}")
-        with open(os.path.join(PROBE_DIR, tag + ".json"), "w") as f:
+        with open(os.path.join(out_dir, tag + ".json"), "w") as f:
             json.dump({"signature": dataclasses.asdict(sig),
                        "finalists": self.last_probe}, f, indent=1)
 

@@ -17,11 +17,12 @@ capacity factor of 16, where nothing drops, and at the configs' own
 * ``train_loop`` losses against the reference's, plain and secure, 4
   steps, within 2e-4 relative.
 
-And which meshes the steps take an MoE config on: every dp mesh whose
-dp axes other than ``"data"`` have one rank (the 2-rank steps are held
-against the reference in ``tests/test_torch_train_moe_mesh.py``); a
-``"pod"`` axis of more than one rank is refused, as is an expert count
-that does not split over ``"data"``.
+And which meshes the steps take an MoE config on: every dp mesh, a
+``"pod"`` axis of more than one rank included (the experts split over
+``"data"`` and sync over ``"pod"``; the 2-rank steps are held against the
+reference in ``tests/test_torch_train_moe_mesh.py``, a pod mesh in
+``tests/test_torch_fsdp.py``); an expert count that does not split over
+``"data"`` is refused.
 """
 import dataclasses
 import types
@@ -103,8 +104,8 @@ def _mesh(**shape):
     (dict(data=1, model=1), None),
     (dict(data=2, model=1), None),
     (dict(pod=1, data=2, model=1), None),
-    (dict(pod=2, data=2, model=1), "dp axis 'pod' of size 2"),
-    (dict(pod=2, data=1, model=1), "dp axis 'pod' of size 2"),
+    (dict(pod=2, data=2, model=1), None),
+    (dict(pod=2, data=1, model=1), None),
     (dict(data=3, model=1), "do not split"),
     (dict(data=2, model=2), None),
     (dict(data=2, model=3), "do not split over the 3 ranks of 'model'"),

@@ -110,7 +110,8 @@ def _name(secure: bool, gb: int, loop: bool = False) -> str:
 @pytest.fixture(scope="module")
 def run(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("train_moe")
-    jcfg = dataclasses.replace(get_smoke_config(ARCH), dtype="float32")
+    jcfg = dataclasses.replace(get_smoke_config(ARCH), dtype="float32",
+                               dp_mode="replicated")
     pcfg = model_config_from_fields(dataclasses.asdict(jcfg))
     jp = jax.tree.map(np.asarray, JM.init_params(jcfg,
                                                  jax.random.PRNGKey(0)))

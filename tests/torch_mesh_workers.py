@@ -637,7 +637,8 @@ def run_tp_serve(case, inputs, mesh) -> dict:
     (an encoder: its forward), then ``case["steps"]`` decode steps fed
     the tokens ``inputs[case["forced"]]`` (B, steps), each step's whole
     logits kept; with ``case["serve"]`` also ``serve`` (greedy tokens).
-    Also the digests of the router's ids and of the residual stream."""
+    Also the digests of the router's ids and of the residual stream.
+    ``case["fsdp"]`` (``"data"``) cuts the FSDP leaves of the slice too."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch import serve as SV
     from repro_torch.launch import sharding as SH
@@ -645,7 +646,7 @@ def run_tp_serve(case, inputs, mesh) -> dict:
     cfg = _cfg(case)
     B, PL, steps = case["batch"], case["prompt_len"], case["steps"]
     full = _full_params(case, inputs)
-    params = SH.shard_tree(cfg, full, mesh)
+    params = SH.shard_tree(cfg, full, mesh, fsdp=case.get("fsdp"))
     rows = SV._rows(B, mesh)
     prompts = {k[len(case["prompts"]) + 1:]: torch.from_numpy(v[rows].copy())
                for k, v in inputs.items()
