@@ -252,6 +252,24 @@ with a non-zero exit code:
            the cross layer's and the first self layer's wq, wk and wv
            leaf by leaf (the plain version's score tensors do not fit at
            batch 4)
+  tp2      sequence parallelism, the vocabulary-parallel loss and the
+           padded head split on gloo ranks of the card.  (d) one
+           baseline step (AdamW) of qwen3-1.7b and of mamba2-370m at
+           full width, 2 units, float32, 4 x 1,024 tokens, on a (1, 2)
+           mesh with ``seq_parallel=True`` (the sequence's all-gathers
+           and reduce-scatters and the loss's three all-reduces in the
+           collective tally, no gather of the logits) and without it,
+           loss and grad norm within TRAIN_LOSS_TOL relative of the
+           one-rank step, each run's peak a rank; (e) llama4-maverick's
+           two attention layers (attn_chunked, then attn) at full width
+           in float32 on a (1, 16) mesh of 16 ranks, its 40 query heads
+           padded to 48 (3 a rank): output and input gradient on 1 x
+           2,048 seeded positions equal on every rank and within
+           LOGIT_TOL_F32 of the unpadded layers on one rank, 2 flash
+           and 2 backward launches a rank; flash and its backward at
+           that rank shape (window 8,192 and full mask) against their
+           plain versions and timed beside SDPA, the SSD scan at (d)'s
+           mamba2 rank
   launch   (a) ``launch.serve_agg --transport mesh`` at --overlay-n 192:
            16 rank processes on the card, 64 additive sessions of 2^16 and
            16 medians on 1,024 steps in batches of 16, each beside the
@@ -267,7 +285,7 @@ with a non-zero exit code:
            the decryption's rows, 128 limbs and exponent bits, beside the
            host loop of two ``mont_mul`` launches a bit it replaced, in
            turns, every row held against Python ``pow``, and its plain
-           version over the first 256 exponent bits, held equal to the
+           version over the first 64 exponent bits, held equal to the
            kernel over the same bits, its time scaled to the whole; flash
            attention and the SSD scan at the two models' prefill shapes
            (flash attention also at command-r's and qwen1.5's, H 64, the
@@ -291,8 +309,9 @@ phase's (a), ``service_launches`` on the service phase's depth-2 stream,
 ``train_launches_secure_run`` on the train phase's (b) secure run,
 ``mamba2_train_launches_secure_run`` on (f)'s,
 ``serve_agg_mesh_rank0_launches`` on the launch phase's (a) mesh rank 0,
-``quickstart_launches`` on its (b), the tp and fsdp phases' rank
-shapes, errors and launches a rank;
+``quickstart_launches`` on its (b), the tp, tp2 and fsdp phases' rank
+shapes, errors and launches a rank (tp2: flash and its backward timed
+at its padded llama4 rank shape);
 each null where its phase did not run; the two backwards' ``launches``
 and ``max_abs_err`` come from the train phase, the SSD backward's
 launches from (f)'s secure run),
@@ -303,6 +322,7 @@ nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import atexit
 import dataclasses
 import hashlib
 import json
@@ -330,8 +350,8 @@ from repro_torch.roofline.counts import (  # noqa: E402
 
 T_START = time.perf_counter()
 PHASES = ("device", "build", "kernels", "main", "batched", "service",
-          "funcs", "mesh", "paillier", "serve", "train", "tp", "fsdp",
-          "launch", "timing")
+          "funcs", "mesh", "paillier", "serve", "train", "tp", "tp2",
+          "fsdp", "launch", "timing")
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 # 32-bit lane operations issued per second: 132 SMs x 128 lanes x
 # 1.98 GHz, half the 67 TFLOP/s float32 FMA rate (an FMA counts two FLOPs)
@@ -553,7 +573,9 @@ LAUNCH_SHAPE = {"overlay_n": 192, "batch": 16, "sessions": 64,
 LOGIT_TOL_F32 = 2e-3
 # the timing phase's plain ladder runs over the first this many exponent
 # bits of the decryption's (58 x 128 limbs), its time scaled to the whole
-PLAIN_LADDER_BITS = 256
+# (a host loop of the same two products a bit, so 64 bits give its rate;
+# 256 took 27-36 s of the script)
+PLAIN_LADDER_BITS = 64
 
 
 def emit(obj) -> None:
@@ -1052,13 +1074,14 @@ def _da_scale(x, dt, dy, y, dx) -> torch.Tensor:
     return terms.sum(1).reshape(Bsz * H)
 
 
-def _check_ssd_bwd(rng, dev, errs: dict) -> int:
+def _check_ssd_bwd(rng, dev, errs: dict,
+                   cases: Sequence[tuple] = tuple(SSD_BWD_CASES)) -> int:
     """``ssd_bwd`` against ``ssd_chunked_bwd_ref`` in float64 on the same
-    card inputs (and the forward kernel's y), each output within
-    SSD_BWD_TOL of its largest |entry| (da also within SSD_BWD_DA_UNIT of
-    its summands' magnitude); the largest error of each output kept with
-    that entry; the SSD_BWD_REPEAT cases run twice and must be
-    bit-equal."""
+    card inputs (and the forward kernel's y) at each of ``cases``, each
+    output within SSD_BWD_TOL of its largest |entry| (da also within
+    SSD_BWD_DA_UNIT of its summands' magnitude); the largest error of
+    each output kept with that entry; the SSD_BWD_REPEAT cases run twice
+    and must be bit-equal."""
     from repro_torch.kernels.ssd import ssd_chunked_bwd_ref, ssd_chunked_ref
     from repro_torch.kernels.ssd.ops import ssd_bwd_cuda_heads, ssd_cuda_heads
     checks = 0
@@ -1068,7 +1091,7 @@ def _check_ssd_bwd(rng, dev, errs: dict) -> int:
         return torch.from_numpy(rng.standard_normal(shape, np.float32)
                                 ).to(dev)
 
-    for case in SSD_BWD_CASES:
+    for case in cases:
         Bsz, S, H, P, N, init, dfin = case
         what = f"B={Bsz} S={S} H={H} P={P} N={N} h0={init} dstate={dfin}"
         x, dt, A, Bm, Cm = _ssd_inputs(rng, dev, Bsz, S, H, P, N=N,
@@ -1242,7 +1265,8 @@ def _check_mont_exp(rng, dev, errs: dict) -> int:
     # the decryption's width; the 2,374-bit row against pow only here:
     # the plain ladder over ~2,400 bits takes ~4 min on the card, so the
     # timing phase holds the kernel against pow at the decryption's own
-    # shape and against the plain ladder over its first 256 bits
+    # shape and against the plain ladder over its first PLAIN_LADDER_BITS
+    # bits
     n = _rand_below(rng, 1 << 2047) | (1 << 2047) | 1
     exps = [0, 1, _rand_below(rng, 1 << 64) | (1 << 63)]
     hold(n, 128, [_rand_below(rng, n) for _ in exps], exps,
@@ -2427,12 +2451,13 @@ def _mesh_funcs_rank(rank: int, rt, dev, seed: int, shape: dict,
     return {name: got[name]["seconds"] for name in ("median", "histogram")}
 
 
-def phase_mesh(dev, seed: int, shape: Optional[dict] = None
-               ) -> tuple[dict, dict]:
+def phase_mesh(dev, seed: int, shape: Optional[dict] = None,
+               tp2_e_dir: Optional[str] = None) -> tuple[dict, dict]:
     """The distributed transports on one card: N_MESH rank processes over
     a gloo group, every wire staged through host memory, the kernels in
     every rank.  The parent computes the port's sim on the card first and
-    hands the ranks its hashes."""
+    hands the ranks its hashes.  With ``tp2_e_dir`` the ranks then run
+    tp2 (e) into it (``_mesh_then_tp2e_rank``)."""
     from repro_torch import SecureAggregator
     from repro_torch.core.byzantine import ByzantineSpec
     from repro_torch.core.masking import quantization_error_bound
@@ -2485,7 +2510,11 @@ def phase_mesh(dev, seed: int, shape: Optional[dict] = None
     try:
         (job / "want.json").write_text(json.dumps(want))
         t0 = time.perf_counter()
-        spawn_nodes(_mesh_rank, N_MESH, seed, str(job), shape)
+        if tp2_e_dir is None:
+            spawn_nodes(_mesh_rank, N_MESH, seed, str(job), shape)
+        else:
+            spawn_nodes(_mesh_then_tp2e_rank, N_MESH, seed, str(job), shape,
+                        tp2_e_dir)
         spawn_s = time.perf_counter() - t0
         ranks = [json.loads((job / f"rank{r}.json").read_text())
                  for r in range(N_MESH)]
@@ -4149,20 +4178,20 @@ def _tp_train_rank(rank: int, seed: int, job_dir: str, shape: dict
                      if v}}))
 
 
-def _tp_kernels(rng, dev, errs: dict) -> dict:
-    """The kernels at a TP rank's shapes: flash attention at qwen3's 8
-    query over 4 KV heads (the serve's TP_FLASH_CASE and the training
-    step's TP_TRAIN_FLASH_CASE) in float32 and bf16, its backward at the
-    training step's (``_check_flash_bwd``: the kernel against
-    ``attention_bwd_ref`` and autograd through both kernels against the
-    plain one's, at FLASH_BWD_TOL; the card only: the backward kernel has
-    no CPU form), the SSD scan at 16 of mamba2's heads, each against its
-    plain version; on the card the forward's and the scan's timings
-    (``time_flash`` / ``time_ssd`` at the serve's heads)."""
+def _rank_kernels(rng, dev, errs: dict, tag: str, flash_cases,
+                  ssd_case, bwd_cases) -> dict:
+    """The kernels at a rank's shapes: flash attention at each of
+    ``flash_cases`` in float32 and bf16 against its plain version, on
+    the card its backward at ``bwd_cases`` (``_check_flash_bwd``: the
+    kernel against ``attention_bwd_ref`` and autograd through both
+    kernels against the plain one's, at FLASH_BWD_TOL; the backward
+    kernel has no CPU form), and the SSD scan at ``ssd_case`` (B, S, H,
+    P, N); the errors also into ``errs``.  Returns {kernel: {"shape",
+    "max_abs_err", ...}}."""
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.ssd import ssd_chunked
     flash_err = 0.0
-    for case in (TP_FLASH_CASE, TP_TRAIN_FLASH_CASE):
+    for case in flash_cases:
         B, Sq, Skv, H, K, hd, causal, window = case
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = (torch.from_numpy(rng.standard_normal(
@@ -4173,33 +4202,63 @@ def _tp_kernels(rng, dev, errs: dict) -> dict:
                                    impl="torch")
             err = max_abs_err(got.float(), want.float())
             check(within(got, want, FLASH_TOL[dtype], FLASH_TOL[dtype]),
-                  f"tp flash_attention {dtype} {case}: max err {err}")
+                  f"{tag} flash_attention {dtype} {case}: max err {err}")
             flash_err = max(flash_err, err)
             del q, k, v, got, want
-    out = {"flash_attention": {"shape": [list(TP_FLASH_CASE),
-                                         list(TP_TRAIN_FLASH_CASE)],
+    errs["flash_attention"] = max(errs["flash_attention"], flash_err)
+    out = {"flash_attention": {"shape": [list(c) for c in flash_cases],
                                "max_abs_err": flash_err}}
     if dev.type == "cuda":
         bwd = {"flash_attention_bwd": 0.0}
-        n = _check_flash_bwd(rng, dev, bwd, cases=[TP_TRAIN_FLASH_CASE])
+        n = _check_flash_bwd(rng, dev, bwd, cases=bwd_cases)
         errs["flash_attention_bwd"] = max(errs["flash_attention_bwd"],
                                           bwd["flash_attention_bwd"])
         out["flash_attention_bwd"] = {
-            "shape": [list(TP_TRAIN_FLASH_CASE)],
+            "shape": [list(c) for c in bwd_cases],
             "max_abs_err": bwd["flash_attention_bwd"], "checks": n,
             "by_output": bwd["flash_attention_bwd_by_output"]}
-    Bsz, S, Hs, P, N = TP_SSD_CASE
+    Bsz, S, Hs, P, N = ssd_case
     args = _ssd_inputs(rng, dev, Bsz, S, Hs, P, N=N, per_head=False)
     got = ssd_chunked(*args, 256)
     want = ssd_chunked(*args, 256, impl="torch")
     ssd_err = max(max_abs_err(g, w) for g, w in zip(got, want))
     check(all(within(g, w, *SSD_TOL) for g, w in zip(got, want)),
-          f"tp ssd {TP_SSD_CASE}: max err {ssd_err}")
-    errs["flash_attention"] = max(errs["flash_attention"], flash_err)
+          f"{tag} ssd {tuple(ssd_case)}: max err {ssd_err}")
     errs["ssd"] = max(errs["ssd"], ssd_err)
-    out["ssd"] = {"shape": [list(TP_SSD_CASE)], "max_abs_err": ssd_err}
+    out["ssd"] = {"shape": [list(ssd_case)], "max_abs_err": ssd_err}
+    return out
+
+
+def _rank_info(prefix: str, kern: dict, per_rank: dict) -> dict:
+    """For the kernels line: each kernel's rank shapes, error, timing
+    (where timed) and launches a rank, under ``prefix``'s keys."""
+    def timed(name, key):
+        return kern.get(name, {}).get("timing", {}).get(key)
+
+    return {name: {f"{prefix}_shape": kern.get(name, {}).get("shape"),
+                   f"{prefix}_max_abs_err": kern.get(name, {}).get(
+                       "max_abs_err"),
+                   f"{prefix}_ms": timed(name, "ms"),
+                   f"{prefix}_plain_ms": timed(name, "plain_ms"),
+                   f"{prefix}_bound_ms": timed(name, "bound_ms"),
+                   f"{prefix}_library_ms": timed(name, "library_ms"),
+                   f"{prefix}_launches_per_rank": per_rank.get(name)}
+            for name in set(kern) | set(per_rank)}
+
+
+def _tp_kernels(rng, dev, errs: dict) -> dict:
+    """The kernels at a TP rank's shapes (``_rank_kernels``): flash
+    attention at qwen3's 8 query over 4 KV heads (the serve's
+    TP_FLASH_CASE and the training step's TP_TRAIN_FLASH_CASE), its
+    backward at the training step's, the SSD scan at 16 of mamba2's
+    heads; on the card the forward's and the scan's timings
+    (``time_flash`` / ``time_ssd`` at the serve's heads)."""
+    out = _rank_kernels(rng, dev, errs, "tp",
+                        [TP_FLASH_CASE, TP_TRAIN_FLASH_CASE], TP_SSD_CASE,
+                        [TP_TRAIN_FLASH_CASE])
     if dev.type == "cuda":
         _, _, _, H, K, hd, _, _ = TP_FLASH_CASE
+        _, _, Hs, _, N = TP_SSD_CASE
         out["flash_attention"]["timing"] = time_flash(rng, dev, H=H, K=K,
                                                       hd=hd)
         out["ssd"]["timing"] = time_ssd(rng, dev, H=Hs, N=N)
@@ -4345,17 +4404,350 @@ def phase_tp(dev, seed: int, errs: dict, shape: Optional[dict] = None
                     "one_rank_loss": loss, "one_rank_grad_norm": gnorm}
     for k, v in tr[0]["launches"].items():
         per_rank.setdefault(k, {})["train_secure_step"] = v
-    info = {name: {"tp_shape": kern.get(name, {}).get("shape"),
-                   "tp_max_abs_err": kern.get(name, {}).get("max_abs_err"),
-                   "tp_ms": kern.get(name, {}).get("timing", {}).get("ms"),
-                   "tp_plain_ms": kern.get(name, {}).get("timing", {}).get(
-                       "plain_ms"),
-                   "tp_bound_ms": kern.get(name, {}).get("timing", {}).get(
-                       "bound_ms"),
-                   "tp_launches_per_rank": per_rank.get(name)}
-            for name in set(kern) | set(per_rank)}
+    info = _rank_info("tp", kern, per_rank)
     return out, info
 
+
+
+# ---------------------------------------------------------------------------
+# tp2: seq_parallel, the vocabulary-parallel loss, the padded head split
+# ---------------------------------------------------------------------------
+
+# (d) one baseline training step (AdamW) of qwen3-1.7b and of mamba2-370m
+# at full width, "units" of their units, float32, on a (1, 2) mesh of 2
+# gloo ranks, the global batch of "batch" x "seq" tokens whole on both:
+# with seq_parallel=True (the residual stream cut on the sequence; the
+# vocabulary-parallel loss, which every TP step now takes), then the
+# same step without seq_parallel, then (rank 0) the one-rank step with
+# its whole logits; loss and grad norm within TRAIN_LOSS_TOL relative of
+# one rank's, each step's peak.  (e) llama4-maverick's two attention
+# layers of its unit (attn_chunked, window 8,192, then attn) at full
+# width, float32, on a (1, 16) mesh of 16 ranks, its 40 query heads
+# padded to 48 (3 a rank, one KV head a rank): their output and the
+# input's gradient on "e_batch" x "e_seq" seeded positions against the
+# unpadded layers on one rank within LOGIT_TOL_F32.  The kernels at the
+# ranks' shapes: flash and its backward at (d)'s qwen3-1.7b rank (4 x
+# 1,024, 8 / 4 heads, hd 128, causal) and at (e)'s (1 x 2,048, 3 / 1
+# heads, hd 128, with the window and with the full causal mask), the SSD
+# scan and its backward at mamba2's (1, 2) rank under seq_parallel (16
+# heads, the whole sequence).
+TP2_SHAPE = {"archs": ("qwen3-1.7b", "mamba2-370m"), "units": 2,
+             "batch": 4, "seq": 1024,
+             "e_arch": "llama4-maverick-400b-a17b", "e_tp": 16,
+             "e_batch": 1, "e_seq": 2048, "e_heads": None, "smoke": False,
+             # (B, Sq, Skv, H, K, hd, causal, window) and (B, S, H, P, N)
+             # a rank
+             "flash_cases": [(4, 1024, 1024, 8, 4, 128, True, 0),
+                             (1, 2048, 2048, 3, 1, 128, True, 8192),
+                             (1, 2048, 2048, 3, 1, 128, True, 0)],
+             "ssd_case": (4, 1024, 16, 64, 128)}
+
+
+def _tp2_cfg(arch: str, shape: dict, sp: bool):
+    return dataclasses.replace(
+        _tp_cfg(arch, shape), n_units=shape["units"], dtype="float32",
+        dp_mode="replicated", seq_parallel=sp)
+
+
+def _tp2_step(cfg, mesh, shape: dict, seed: int, dev) -> dict:
+    """One baseline step (AdamW) from the seeded float32 draw (this
+    rank's slice on a mesh) on the stream's first global batch, whole on
+    the rank: loss, grad norm, seconds, peak bytes, launches, and the
+    bytes of each collective kind."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticStream
+    from repro_torch.kernels import backend
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch import steps as ST
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import context as C
+    cuda = dev.type == "cuda"
+    params = _tp_weights(cfg, seed, dev, False)
+    if mesh is not None:
+        params = SH.shard_tree(cfg, params, mesh)
+    opt = adamw.OptConfig(state_dtype=cfg.opt_state_dtype, **TRAIN_OPT)
+    state = adamw.init_opt_state(opt, params)
+    GB, S = shape["batch"], shape["seq"]
+    step, _ = ST.build_train_step(cfg, opt, ShapeConfig("tp2", S, GB,
+                                                        "train"), mesh)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in SyntheticStream(
+        DataConfig(seq_len=S, global_batch=GB, seed=seed),
+        cfg).global_batch(0).items()}
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    backend.reset_launch_counts()
+    C.reset_collective_counts()
+    t0 = time.perf_counter()
+    params, state, m = step(params, state, batch)
+    loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+    out = {"loss": loss, "grad_norm": gnorm,
+           "step_s": time.perf_counter() - t0,
+           "peak_mem_bytes": (torch.cuda.max_memory_allocated() if cuda
+                              else 0),
+           "launches": {k: v for k, v in backend.launch_counts().items()
+                        if v},
+           "collective_bytes": {k: v["bytes"] for k, v in
+                                C.collective_counts().items()}}
+    del params, state, batch
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
+def _tp2_train_rank(rank: int, seed: int, job_dir: str, shape: dict
+                    ) -> None:
+    """One rank of tp2 (d): after a warm-up step, for each arch the step
+    with seq_parallel, then without, on the (1, 2) mesh; rank 0 then the
+    one-rank step."""
+    from repro_torch.launch.mesh import make_host_mesh
+    dev = torch.device(shape["device"])
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    mesh = make_host_mesh(data=1, model=2)
+    # one untimed step first: cuBLAS, the kernels, the allocator and the
+    # gloo paths warm (the first step took ~14 s against ~1.2)
+    _tp2_step(_tp2_cfg(shape["archs"][0], shape, True), mesh, shape, seed,
+              dev)
+    out = {"rank": rank}
+    for arch in shape["archs"]:
+        out[arch] = {
+            "seq_parallel": _tp2_step(_tp2_cfg(arch, shape, True), mesh,
+                                      shape, seed, dev),
+            "no_seq_parallel": _tp2_step(_tp2_cfg(arch, shape, False), mesh,
+                                         shape, seed, dev)}
+    if rank == 0:
+        for arch in shape["archs"]:
+            out[arch]["one_rank"] = _tp2_step(_tp2_cfg(arch, shape, False),
+                                              None, shape, seed, dev)
+    (pathlib.Path(job_dir) / f"tp2d{rank}.json").write_text(json.dumps(out))
+
+
+def _tp2_attn_cfg(shape: dict):
+    cfg = _tp_cfg(shape["e_arch"], shape)
+    if shape["e_heads"]:
+        H, K = shape["e_heads"]
+        cfg = dataclasses.replace(cfg, n_heads=H, n_kv_heads=K)
+    return dataclasses.replace(cfg, dtype="float32")
+
+
+def _tp2_attn(cfg, shape: dict, seed: int, dev, mesh) -> tuple:
+    """(e)'s two attention layers of the unit on the seeded input: the
+    output, the input's gradient for a seeded dO, the launches and the
+    seconds of the forward and backward (the first call: set-up
+    included); on a mesh this rank's slice of the seeded weights, under
+    the step's context."""
+    from repro_torch.configs.base import ATTN, ATTN_CHUNKED
+    from repro_torch.kernels import backend
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import layers as L
+    from repro_torch.runtime.context import DistCtx, use_ctx
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    layers = {"chunked": {"mixer": L.make_attn_params(cfg, g)},
+              "full": {"mixer": L.make_attn_params(cfg, g)}}
+    ctx = DistCtx()
+    if mesh is not None:
+        layers = SH.shard_tree(cfg, layers, mesh)
+        ctx = ST.dist_ctx(cfg, mesh)
+    rng = np.random.default_rng(seed + 2)
+    B, S, D = shape["e_batch"], shape["e_seq"], cfg.d_model
+    x, dy = (torch.from_numpy(rng.standard_normal((B, S, D), np.float32))
+             .to(dev) for _ in range(2))
+    x.requires_grad_(True)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    backend.reset_launch_counts()
+    t0 = time.perf_counter()
+    with use_ctx(ctx):
+        h = L.attn_forward(cfg, layers["chunked"]["mixer"], x,
+                           mixer=ATTN_CHUNKED)
+        y = L.attn_forward(cfg, layers["full"]["mixer"], h, mixer=ATTN)
+        (dx,) = torch.autograd.grad(y, x, dy)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    counts = {k: v for k, v in backend.launch_counts().items() if v}
+    return y.detach(), dx, counts, time.perf_counter() - t0
+
+
+def _tp2_attn_rank(rank: int, seed: int, job_dir: str, shape: dict
+                   ) -> None:
+    """One rank of tp2 (e): the padded layers on the (1, e_tp) mesh;
+    rank 0 writes the output and the gradient, every rank their
+    digests."""
+    from repro_torch.launch.mesh import make_host_mesh
+    dev = torch.device(shape["device"])
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    mesh = make_host_mesh(data=1, model=shape["e_tp"])
+    cfg = _tp2_attn_cfg(shape)
+    t0 = time.perf_counter()
+    y, dx, counts, fwd_bwd_s = _tp2_attn(cfg, shape, seed, dev, mesh)
+    sec = time.perf_counter() - t0
+    y, dx = y.cpu().numpy(), dx.cpu().numpy()
+    if rank == 0:
+        np.save(pathlib.Path(job_dir) / "e_y.npy", y)
+        np.save(pathlib.Path(job_dir) / "e_dx.npy", dx)
+    (pathlib.Path(job_dir) / f"tp2e{rank}.json").write_text(json.dumps({
+        "rank": rank, "s": sec, "fwd_bwd_s": fwd_bwd_s,
+        "launches": counts,
+        "y_sha": hashlib.sha256(y.tobytes()).hexdigest(),
+        "dx_sha": hashlib.sha256(dx.tobytes()).hexdigest()}))
+
+
+def _mesh_then_tp2e_rank(rank: int, seed: int, job_dir: str, shape: dict,
+                         e_dir: str) -> None:
+    """A mesh phase rank, then tp2 (e) at TP2_SHAPE in the same process
+    and gloo group of N_MESH = e_tp ranks (one spawn of 16 processes
+    fewer): (e)'s files into ``e_dir``, read by ``phase_tp2``."""
+    _mesh_rank(rank, seed, job_dir, shape)
+    if shape["device"].startswith("cuda"):
+        torch.cuda.empty_cache()
+    _tp2_attn_rank(rank, seed, e_dir, dict(TP2_SHAPE,
+                                           device=shape["device"]))
+
+
+def _tp2_kernels(rng, dev, errs: dict, shape: dict) -> dict:
+    """The kernels at tp2's rank shapes (``_rank_kernels``): flash
+    attention and its backward at (d)'s qwen3 rank (8 query heads over 4
+    KV heads) and at (e)'s (3 query heads over 1 KV head, hd 128, the
+    window and the full causal mask), the SSD scan at (d)'s mamba2 rank
+    (16 heads, the whole sequence), and on the card its backward there
+    (``_check_ssd_bwd``, no initial state or final state's gradient, as
+    the training step has neither); on the card the flash forward and
+    backward timed at (e)'s shape with the full mask (the window masks
+    nothing at 2,048)."""
+    cases = shape["flash_cases"]
+    out = _rank_kernels(rng, dev, errs, "tp2", cases, shape["ssd_case"],
+                        cases)
+    if dev.type == "cuda":
+        bwd = {"ssd_bwd": 0.0}
+        case = tuple(shape["ssd_case"]) + (False, False)
+        n = _check_ssd_bwd(rng, dev, bwd, cases=[case])
+        errs["ssd_bwd"] = max(errs["ssd_bwd"], bwd["ssd_bwd"])
+        out["ssd_bwd"] = {"shape": [list(case)],
+                          "max_abs_err": bwd["ssd_bwd"], "checks": n,
+                          "by_output": bwd["ssd_bwd_by_output"]}
+        B, Sq, _, H, K, hd, _, _ = cases[-1]
+        out["flash_attention"]["timing"] = time_flash(rng, dev, H=H, K=K,
+                                                      hd=hd, B=B, S=Sq)
+        out["flash_attention_bwd"]["timing"] = time_flash_bwd(
+            rng, dev, H=H, K=K, hd=hd, B=B, S=Sq)
+    return out
+
+
+def phase_tp2(dev, seed: int, errs: dict, shape: Optional[dict] = None,
+              e_dir: Optional[str] = None) -> tuple[dict, dict]:
+    """seq_parallel, the vocabulary-parallel loss and the padded head
+    split on gloo ranks of the one card: (d) a (1, 2) training step of
+    qwen3-1.7b and mamba2-370m with and without seq_parallel against one
+    rank's, (e) llama4-maverick's attention layers at TP 16 against the
+    unpadded layers on one rank, and the kernels at the ranks' shapes.
+    Returns the line and, for the kernels line, the per-rank shapes and
+    launches.  ``shape`` overrides TP2_SHAPE (``smoke=True`` and small
+    shapes in a CPU rehearsal).  With ``e_dir`` (e) has run in the mesh
+    phase's ranks at TP2_SHAPE, and its files are read from there."""
+    from repro_torch.runtime.compat import spawn_nodes
+    shape = dict(TP2_SHAPE, **(shape or {}), device=str(dev))
+    cuda = dev.type == "cuda"
+    rng = np.random.default_rng(seed)
+    out = {"phase": "tp2", "train_loss_rtol": TRAIN_LOSS_TOL,
+           "f32_tol": LOGIT_TOL_F32}
+    kern = _tp2_kernels(rng, dev, errs, shape)
+    out["kernels_at_rank_shapes"] = kern
+    if cuda:
+        torch.cuda.empty_cache()
+    job = pathlib.Path(tempfile.mkdtemp(prefix="tp2-phase-"))
+    per_rank: dict = {}
+    try:
+        # (d): the steps on the (1, 2) ranks, rank 0 also alone
+        t0 = time.perf_counter()
+        spawn_nodes(_tp2_train_rank, 2, seed, str(job), shape)
+        out["d_spawn_s"] = time.perf_counter() - t0
+        d = [json.loads((job / f"tp2d{r}.json").read_text())
+             for r in range(2)]
+        for arch in shape["archs"]:
+            one = d[0][arch]["one_rank"]
+            for r, rk in enumerate(d):
+                for run in ("seq_parallel", "no_seq_parallel"):
+                    got = rk[arch][run]
+                    for what in ("loss", "grad_norm"):
+                        check(math.isfinite(got[what])
+                              and abs(got[what] - one[what])
+                              <= TRAIN_LOSS_TOL * abs(one[what]),
+                              f"tp2 (d) {arch} {run} rank {r}: {what} "
+                              f"{got[what]} against one rank's {one[what]}")
+                    sp = rk[arch]["seq_parallel"]["collective_bytes"]
+                    check("tp_seq_gather" in sp and "tp_loss" in sp
+                          and "tp_cat" not in sp,
+                          f"tp2 (d) {arch} rank {r}: collectives {sp}")
+                    if cuda:
+                        want = ("flash_attention", "flash_attention_bwd") \
+                            if arch == "qwen3-1.7b" else ("ssd", "ssd_bwd")
+                        check(all(got["launches"].get(k, 0) > 0
+                                  for k in want),
+                              f"tp2 (d) {arch} {run} rank {r}: launches "
+                              f"{got['launches']}")
+            out[arch] = {"mesh": [1, 2], "n_units": shape["units"],
+                         "batch": shape["batch"], "seq_len": shape["seq"],
+                         "by_rank": [rk[arch] for rk in d]}
+            for k, v in d[0][arch]["seq_parallel"]["launches"].items():
+                per_rank.setdefault(k, {})[f"d_{arch}"] = v
+        # (e): the padded attention on the (1, e_tp) ranks, spawned here
+        # unless the mesh phase's ranks ran it
+        e_job = job if e_dir is None else pathlib.Path(e_dir)
+        if e_dir is None:
+            t0 = time.perf_counter()
+            spawn_nodes(_tp2_attn_rank, shape["e_tp"], seed, str(job),
+                        shape)
+            out["e_spawn_s"] = time.perf_counter() - t0
+        out["e_in_mesh_spawn"] = e_dir is not None
+        e = [json.loads((e_job / f"tp2e{r}.json").read_text())
+             for r in range(shape["e_tp"])]
+        y = torch.from_numpy(np.load(e_job / "e_y.npy"))
+        dx = torch.from_numpy(np.load(e_job / "e_dx.npy"))
+    finally:
+        shutil.rmtree(job, ignore_errors=True)
+    for r in e:
+        check(r["y_sha"] == e[0]["y_sha"] and r["dx_sha"] == e[0]["dx_sha"],
+              f"tp2 (e) rank {r['rank']}: output or gradient differ from "
+              "rank 0's")
+        if cuda:
+            check(r["launches"].get("flash_attention", 0) == 2
+                  and r["launches"].get("flash_attention_bwd", 0) == 2,
+                  f"tp2 (e) rank {r['rank']}: launches {r['launches']}")
+    cfg = _tp2_attn_cfg(shape)
+    y1, dx1, one_counts, one_s = _tp2_attn(cfg, shape, seed, dev, None)
+    y_err = max_abs_err(y, y1.cpu())
+    dx_err = max_abs_err(dx, dx1.cpu())
+    check(torch.isfinite(y).all() and y_err <= LOGIT_TOL_F32
+          and dx_err <= LOGIT_TOL_F32,
+          f"tp2 (e): padded layers differ from one rank's by {y_err} "
+          f"(output), {dx_err} (input gradient)")
+    from repro_torch.launch import sharding as SH
+    from repro_torch.models import layers as L
+    out["e"] = {"arch": cfg.name, "mesh": [1, shape["e_tp"]],
+                "heads": [cfg.n_heads, cfg.n_kv_heads],
+                "padded_heads": cfg.n_heads + SH.pad_heads(cfg,
+                                                          shape["e_tp"]),
+                "rank_heads": len(L.q_heads(cfg, shape["e_tp"], 0)),
+                "batch": shape["e_batch"], "seq_len": shape["e_seq"],
+                "y_max_err_vs_one_rank": y_err,
+                "dx_max_err_vs_one_rank": dx_err,
+                "y_max_abs": float(y1.abs().max()),
+                "dx_max_abs": float(dx1.abs().max()),
+                "rank_s": [r["s"] for r in e],
+                "rank_fwd_bwd_s": [r["fwd_bwd_s"] for r in e],
+                "one_rank_fwd_bwd_s": one_s,
+                "by_rank_launches": e[0]["launches"],
+                "one_rank_launches": one_counts}
+    del y1, dx1
+    for k, v in e[0]["launches"].items():
+        per_rank.setdefault(k, {})["e_llama4_attn"] = v
+    info = _rank_info("tp2", kern, per_rank)
+    return out, info
 
 
 # fsdp: command-r-35b (dp_mode="fsdp", the smallest dense config that
@@ -4363,18 +4755,18 @@ def phase_tp(dev, seed: int, errs: dict, shape: Optional[dict] = None
 # ranks on the one card, float32: (a) the loss and gradients of one step
 # at ``units`` units on the global batch, (b) the prefill at
 # ``prefill_units``, each against one rank's; (c) the dry run of
-# ``dry_cells`` in subprocesses (no card).  (a) runs 1 unit: at 2 a rank
+# ``dry_cells`` in subprocesses (no card): qwen3-moe's train_4k on the
+# pod mesh (its 16 x 16 cell traces the same code less the pooled
+# dispatch) and llama4's prefill_32k.  (a) runs 1 unit: at 2 a rank
 # peaks at 36.6 GiB (the tied embedding's weight and two gradient
 # buffers of 7.8 GiB each at the end of the backward), and two such
 # ranks ran the card out of memory in one of three runs
 FSDP_SHAPE = {"arch": "command-r-35b", "units": 1, "batch": 4,
               "seq": 1024, "prefill_units": 2, "prefill_batch": 4,
               "prefill_prompt": 2048, "smoke": False,
-              "dry_cells": (("qwen3-moe-235b-a22b", "train_4k", False),
-                            ("qwen3-moe-235b-a22b", "train_4k", True),
+              "dry_cells": (("qwen3-moe-235b-a22b", "train_4k", True),
                             ("llama4-maverick-400b-a17b", "prefill_32k",
-                             False)),
-              "dry_refused": ("llama4-maverick-400b-a17b",)}
+                             False))}
 # (a)'s rank shape: 2 sequences of 1,024, all 64 query over 8 KV heads
 FSDP_FLASH_CASE = (2, 1024, 1024, 64, 8, 128, True, 0)
 
@@ -4506,7 +4898,7 @@ def _fsdp_dryrun(cells) -> list:
     return [out_dir, procs]
 
 
-def _fsdp_dryrun_read(started, refused: tuple) -> list:
+def _fsdp_dryrun_read(started) -> list:
     """Wait for the dry-run processes; each record's terms, trace seconds
     and whether CUDA stayed uninitialized."""
     out_dir, procs = started
@@ -4525,13 +4917,6 @@ def _fsdp_dryrun_read(started, refused: tuple) -> list:
             mesh = "2x16x16" if multi_pod else "16x16"
             rec = json.loads((pathlib.Path(out_dir)
                               / f"{arch}_{shape}_{mesh}.json").read_text())
-            if arch in refused:
-                check("refused" in rec, f"{what}: not refused")
-                res.append({"arch": arch, "shape": shape, "mesh": mesh,
-                            "refused": rec["refused"],
-                            "done_within_s": done_within,
-                            "cuda_initialized": False})
-                continue
             check("refused" not in rec and rec["counted"]["flops"] > 0,
                   f"{what}: {rec.get('refused')}")
             res.append({"arch": arch, "shape": shape, "mesh": mesh,
@@ -4683,7 +5068,7 @@ def phase_fsdp(dev, seed: int, errs: dict, shape: Optional[dict] = None
                       "f32_logit_max_err_vs_one_rank": err,
                       "f32_logit_max_abs": float(ref.abs().max())}
     # (c) the dry run's records, read last
-    out["dryrun"] = _fsdp_dryrun_read(dry, shape["dry_refused"])
+    out["dryrun"] = _fsdp_dryrun_read(dry)
     out["dryrun_note"] = ("terms are estimates from the H100's datasheet "
                           "constants, not times of the card")
     info = {name: {"fsdp_shape": kern.get(name, {}).get("shape"),
@@ -4921,7 +5306,8 @@ def bound(nbytes: float, flops: float, flops_per_s: float) -> dict:
 
 
 def time_flash(rng, dev, H: int = 16, K: int = 8, hd: int = 128,
-               Skv: Optional[int] = None, causal: bool = True) -> dict:
+               Skv: Optional[int] = None, causal: bool = True,
+               B: Optional[int] = None, S: Optional[int] = None) -> dict:
     """``flash_attention`` at qwen3-1.7b's prefill (B 4, S 2048, H 16,
     K 8, hd 128, causal, bf16; command-r-35b's and qwen1.5-110b's with H
     64; qwen3-moe-235b's H 64 over K 4, jamba's H 32, llama4-maverick's H
@@ -4929,10 +5315,11 @@ def time_flash(rng, dev, H: int = 16, K: int = 8, hd: int = 128,
     = 16 at hd 80, bidirectional; llama-3.2-vision's cross-attention, H 64
     over K 8 and ``Skv`` 4,096 media tokens, no mask), its plain version,
     and ``scaled_dot_product_attention`` on the same inputs in its (B, H,
-    S, hd) layout (timed here only; the port never calls it)."""
+    S, hd) layout (timed here only; the port never calls it).  ``B`` and
+    ``S`` default to the serve's batch and prompt."""
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.flash_attention.ops import flash_attention_cuda
-    B, S = SERVE_BATCH, SERVE_PROMPT
+    B, S = B or SERVE_BATCH, S or SERVE_PROMPT
     Skv = Skv or S
     q, k, v = (torch.from_numpy(rng.standard_normal((B, n_s, n, hd),
                                                     np.float32)
@@ -4965,7 +5352,9 @@ def time_flash(rng, dev, H: int = 16, K: int = 8, hd: int = 128,
 
 
 def time_flash_bwd(rng, dev, H: int = 16, K: int = 8, hd: int = 128,
-                   Skv: Optional[int] = None, causal: bool = True) -> dict:
+                   Skv: Optional[int] = None, causal: bool = True,
+                   B: Optional[int] = None, S: Optional[int] = None
+                   ) -> dict:
     """The flash backward at qwen3-1.7b's training shape (B 4, S 2048, H
     16, K 8, hd 128, causal, bf16; hubert-xlarge's with H = K = 16 at hd
     80, bidirectional; llama-3.2-vision's cross-attention with H 64 over
@@ -4976,11 +5365,12 @@ def time_flash_bwd(rng, dev, H: int = 16, K: int = 8, hd: int = 128,
     is the CUDA-event median of lone calls, ``by_kernel_ms`` each
     launch's mean device time in a profiled run of 20 calls; the bound
     counts the function's five products over the allowed pairs,
-    ``design_bound_ms`` the kernels' ten."""
+    ``design_bound_ms`` the kernels' ten.  ``B`` and ``S`` default to the
+    serve's batch and prompt."""
     from repro_torch.kernels.flash_attention import attention_bwd_ref
     from repro_torch.kernels.flash_attention.ops import (
         flash_attention_bwd_cuda, flash_attention_cuda)
-    B, S = SERVE_BATCH, SERVE_PROMPT
+    B, S = B or SERVE_BATCH, S or SERVE_PROMPT
     Skv = Skv or S
     q, do = (torch.from_numpy(rng.standard_normal((B, S, H, hd), np.float32)
                               ).to(dev, torch.bfloat16) for _ in range(2))
@@ -5259,8 +5649,14 @@ def main() -> int:
         line, funcs_launches = phase_funcs(dev, args.seed)
         emit(line)
     mesh_launches = None
+    # tp2 (e) needs as many ranks as the mesh phase spawns: where both
+    # phases run, the mesh phase's ranks run (e) after their own work
+    tp2_e_dir = None
+    if {"mesh", "tp2"} <= set(phases) and TP2_SHAPE["e_tp"] == N_MESH:
+        tp2_e_dir = tempfile.mkdtemp(prefix="tp2-e-")
+        atexit.register(shutil.rmtree, tp2_e_dir, True)
     if "mesh" in phases:
-        line, mesh_launches = phase_mesh(dev, args.seed)
+        line, mesh_launches = phase_mesh(dev, args.seed, tp2_e_dir=tp2_e_dir)
         emit(line)
     decrypt = (N_DECRYPT, DECRYPT_BITS)
     if "paillier" in phases:
@@ -5284,6 +5680,10 @@ def main() -> int:
     tp_info = {}
     if "tp" in phases:
         line, tp_info = phase_tp(dev, args.seed, errs)
+        emit(line)
+    tp2_info = {}
+    if "tp2" in phases:
+        line, tp2_info = phase_tp2(dev, args.seed, errs, e_dir=tp2_e_dir)
         emit(line)
     launch_launches = None
     if "launch" in phases:
@@ -5332,8 +5732,15 @@ def main() -> int:
             # launches a rank made in each of its runs
             **{key: tp_info.get(k.name, {}).get(key)
                for key in ("tp_shape", "tp_max_abs_err", "tp_ms",
-                           "tp_plain_ms", "tp_bound_ms",
+                           "tp_plain_ms", "tp_bound_ms", "tp_library_ms",
                            "tp_launches_per_rank")},
+            # the tp2 phase: (e)'s padded rank shape for flash and its
+            # backward (timed there), (d)'s mamba2 rank for the SSD scan,
+            # and the launches a rank made in (d) and (e)
+            **{key: tp2_info.get(k.name, {}).get(key)
+               for key in ("tp2_shape", "tp2_max_abs_err", "tp2_ms",
+                           "tp2_plain_ms", "tp2_bound_ms", "tp2_library_ms",
+                           "tp2_launches_per_rank")},
             # the fsdp phase: (a)'s rank shape held against the plain
             # version, and a rank's launches in (a)'s step
             **{key: fsdp_info.get(k.name, {}).get(key)

@@ -27,9 +27,12 @@ measurements.  A secure cell's sync makes host decisions that depend on
 the data, so it is not traced: its wire bytes are the plan's ``cost()``
 (``schedules.schedule_cost``, the engine's executed account) over the
 chunks of the gradient, added to the traced collectives as
-``secure_sync``.  A cell the port refuses (a ``ConfigError``: e.g.
-llama4-maverick's 40 query heads at TP 16) is reported ``refused`` with
-the error's text; it never runs in another layout.  Only the CLI and
+``secure_sync``.  Every cell of the ten configs traces on both
+production meshes (llama4-maverick's 40 query heads at TP 16 on the
+padded split, 48 heads, 3 a rank; a training cell's loss on the logits
+cut on the vocabulary).  A cell the port refuses (a ``ConfigError``) is
+reported ``refused`` with the error's text; it never runs in another
+layout.  Only the CLI and
 ``run_cell`` start the fake group; importing this module touches no
 process group, no environment variable and no device.
 """

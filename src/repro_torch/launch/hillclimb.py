@@ -13,8 +13,10 @@ in place of the reference's lowering and HLO parse.  The reference's
 group (``dryrun.ensure_fake_group``, started by ``main`` and the cells,
 never at import) stands for the mesh's devices.  ``PERF_DIR`` is the
 port's own, so its records never overwrite the reference's under
-``reports/perf/``.  A variant the port refuses (llama4-maverick's 40
-query heads at TP 16: v0-v3) is recorded ``refused`` with the
+``reports/perf/``.  llama4-maverick's v0-v3 run its 40 query heads at
+TP 16 on the padded split (48 heads, the zero ones dropped), v3 with
+the residual stream cut on the sequence (``seq_parallel``); v4 sets 48
+real heads.  A variant the port refuses is recorded ``refused`` with the
 ``ConfigError`` text.  The terms are estimates from the H100's datasheet
 constants, not measurements.
 """
@@ -168,9 +170,8 @@ def cell_llama4_prefill():
          dataclasses.replace(base, seq_parallel=True,
                              moe=dataclasses.replace(
                                  base.moe, capacity_factor=1.0))),
-        # 40 q-heads don't divide TP=16: the port refuses them (the
-        # reference lets GSPMD pad them).  Pad to 48 heads (+20% attention
-        # flops, 3 heads a rank).
+        # 40 q-heads don't divide TP=16: v0-v3 pad each KV group with
+        # zero heads; here 48 real heads (+20% attention flops, 3 a rank).
         ("llama4_prefill_v4_headpad48",
          dataclasses.replace(base, n_heads=48,
                              moe=dataclasses.replace(

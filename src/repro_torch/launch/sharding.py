@@ -33,12 +33,20 @@ are cut by KV heads: a rank holds the ``H / tp`` query heads of its
 block and the KV heads that those heads read, so where ``K < tp`` a KV
 head is held by the ``tp / K`` ranks that read it (GSPMD would split its
 ``hd`` there); an FSDP cut of ``wk`` / ``wv`` lies on their rows beside
-it.
+it.  And where the ``H`` query heads do not split over ``tp`` (GSPMD
+cuts mid-head and lets XLA pad), each KV group of ``H / K`` heads is
+padded with zero heads to ``models.layers.q_group`` (llama4-maverick at
+TP 16: groups of 5 to 6, 48 heads, 3 a rank): a rank's ``wq`` / ``bq``
+columns and ``wo`` rows hold its heads of the padded order
+(``q_heads``), a pad head's all zero.  Its q is zero, so its output is
+the mean of V, which its zero ``wo`` rows drop; its gradient is dropped
+too (``zero_pad_heads_``), so no update moves it; ``unshard_tree``
+returns the unpadded leaves.
 
-A TP extent that does not split the heads (or a KV head count that
-neither divides nor is divided by it), ``d_ff``, an expert's ``f_e``,
-the shared expert, the padded vocabulary or the SSD heads raises
-``ConfigError`` (``check_tp``): nothing runs unsharded in its place.
+A KV head count that neither divides nor is divided by the TP extent,
+``d_ff``, an expert's ``f_e``, the shared expert, the padded vocabulary
+or the SSD heads that do not split raise ``ConfigError``
+(``check_tp``): nothing runs unsharded in its place.
 
 ``cache_specs`` says where the port's caches lie, which is not where the
 reference's do: the reference shards the KV cache over the sequence on
@@ -58,12 +66,14 @@ from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core.engine import tree_flatten
 from repro_torch.core.schedules import ConfigError
 from repro_torch.models import model as M
-from repro_torch.models.layers import kv_block
+from repro_torch.models.layers import kv_block, q_group, q_heads
 
 DP = ("pod", "data")    # logical dp axes; missing mesh axes are dropped
 TP_AXIS = "model"
 FSDP_AXIS = "data"      # the axis FSDP cuts the weights over
 KV_LEAVES = ("wk", "wv", "bk", "bv")
+# an attention layer's leaves cut by query head, and the dimension
+Q_LEAVES = {"wq": -1, "bq": -1, "wo": 0}
 
 
 class AbstractMesh:
@@ -251,8 +261,9 @@ def tp_extent(mesh) -> int:
 
 def check_tp(cfg: ModelConfig, tp: int) -> None:
     """Raise ``ConfigError`` where ``tp`` ranks cannot split ``cfg``'s
-    TP dimensions evenly (the heads by query head with whole KV heads a
-    rank, d_ff, f_e, the shared expert, the padded vocabulary, the SSD
+    TP dimensions (the KV heads, which must divide or be divided by
+    ``tp``; then the query heads split, padded where they do not divide;
+    d_ff, f_e, the shared expert, the padded vocabulary, the SSD
     heads)."""
     if tp == 1:
         return
@@ -260,9 +271,9 @@ def check_tp(cfg: ModelConfig, tp: int) -> None:
     specs = cfg.layer_specs()
     attn = any(s.mixer != "mamba2" for s in specs)
     bad = []
-    if attn and H % tp:
-        bad.append(f"{H} query heads")
     if attn and K % tp and tp % K:
+        if H % tp:
+            bad.append(f"{H} query heads")
         bad.append(f"{K} KV heads (neither divides the other)")
     if any(s.mlp == "dense" for s in specs) and cfg.d_ff % tp:
         bad.append(f"d_ff {cfg.d_ff}")
@@ -280,12 +291,30 @@ def check_tp(cfg: ModelConfig, tp: int) -> None:
     if bad:
         raise ConfigError(f"{cfg.name}: {', '.join(bad)} do not split over "
                           f"the {tp} ranks of {TP_AXIS!r}")
-    if cfg.seq_parallel:
-        # the reference's sequence-parallel layout (activations cut on the
-        # sequence between the blocks) is not ported: running without it
-        # would be a layout the config did not ask for
-        raise ConfigError(f"{cfg.name}: seq_parallel=True over the {tp} "
-                          f"ranks of {TP_AXIS!r} is not ported")
+
+
+def pad_heads(cfg: ModelConfig, tp: int) -> int:
+    """The zero heads the padded split adds over ``tp`` TP ranks (0
+    where the query heads split)."""
+    return cfg.n_kv_heads * q_group(cfg, tp) - cfg.n_heads
+
+
+def zero_pad_heads_(cfg: ModelConfig, tree: Any, mesh) -> None:
+    """Zero, in place, the pad heads' entries of this rank's tree (its
+    gradients: the ``wq`` / ``bq`` columns and ``wo`` rows of its zero
+    heads)."""
+    tp = tp_extent(mesh)
+    if tp == 1 or not pad_heads(cfg, tp):
+        return
+    heads = q_heads(cfg, tp, mesh.coord(TP_AXIS))
+    hd = cfg.hd
+    for path, leaf in _leaves_with_paths(tree):
+        d = Q_LEAVES.get(path[-1])
+        if d is None or "mixer" not in path:
+            continue
+        for i, h in enumerate(heads):
+            if h is None:
+                leaf.narrow(d, i * hd, hd).zero_()
 
 
 def entry_axes(e, mesh) -> tuple:
@@ -341,18 +370,22 @@ def cut_axes(cfg: ModelConfig, path: tuple, leaf, mesh) -> tuple:
 def _cuts(cfg: ModelConfig, path: tuple, spec: tuple, mesh, rank
           ) -> list:
     """Per dimension: None (whole) or (block index, block count); a KV
-    leaf's head dimension ("kv", first head, heads).  With FSDP off the
-    only "data" entries are the expert stacks'."""
+    leaf's head dimension ("kv", first head, heads); a query-head leaf's
+    ("q", TP extent, TP index).  With FSDP off the only "data" entries
+    are the expert stacks'."""
     out = []
     for e in spec:
         axes = entry_axes(e, mesh)
         if not axes:
             out.append(None)
             continue
-        if path[-1] in KV_LEAVES and axes == (TP_AXIS,):
-            lo, n = kv_block(cfg, mesh.shape[TP_AXIS],
-                             mesh.coord(TP_AXIS, rank))
-            out.append(("kv", lo, n))
+        if axes == (TP_AXIS,) and path[-1] in KV_LEAVES + tuple(Q_LEAVES):
+            tp, idx = mesh.shape[TP_AXIS], mesh.coord(TP_AXIS, rank)
+            if path[-1] in KV_LEAVES:
+                lo, n = kv_block(cfg, tp, idx)
+                out.append(("kv", lo, n))
+            else:
+                out.append(("q", tp, idx))
             continue
         idx, count = 0, 1
         for a in axes:
@@ -363,9 +396,10 @@ def _cuts(cfg: ModelConfig, path: tuple, spec: tuple, mesh, rank
 
 
 def _slices(cfg: ModelConfig, cuts: list, full_shape: tuple) -> tuple:
+    """The slice of each dimension (all of a query-head dimension)."""
     sl = []
     for c, n in zip(cuts, full_shape):
-        if c is None:
+        if c is None or c[0] == "q":
             sl.append(slice(None))
         elif c[0] == "kv":
             sl.append(slice(c[1] * cfg.hd, (c[1] + c[2]) * cfg.hd))
@@ -373,6 +407,31 @@ def _slices(cfg: ModelConfig, cuts: list, full_shape: tuple) -> tuple:
             w = n // c[1]
             sl.append(slice(c[0] * w, (c[0] + 1) * w))
     return tuple(sl)
+
+
+def _head_pieces(cfg: ModelConfig, cuts: list) -> Optional[tuple]:
+    """(dimension, the rank's heads) of a query-head cut, or None."""
+    for d, c in enumerate(cuts):
+        if c is not None and c[0] == "q":
+            return d, q_heads(cfg, c[1], c[2])
+    return None
+
+
+def _piece(cfg: ModelConfig, leaf: torch.Tensor, cuts: list
+           ) -> torch.Tensor:
+    """A rank's piece of a full leaf: its blocks, and of a query-head
+    dimension its heads in order (zeros for a pad head)."""
+    out = leaf[_slices(cfg, cuts, tuple(leaf.shape))]
+    q = _head_pieces(cfg, cuts)
+    if q is None:
+        return out
+    d, heads = q
+    hd = cfg.hd
+    if None not in heads:       # an even split: a block of heads
+        return out.narrow(d, heads[0] * hd, len(heads) * hd)
+    zero = out.new_zeros(out.shape[:d] + (hd,) + out.shape[d + 1:])
+    return torch.cat([zero if h is None else out.narrow(d, h * hd, hd)
+                      for h in heads], dim=d)
 
 
 def shard_tree(cfg: ModelConfig, tree: Any, mesh,
@@ -395,8 +454,7 @@ def shard_tree(cfg: ModelConfig, tree: Any, mesh,
         if all(c is None for c in cuts):
             out.append(leaf)
         else:
-            out.append(leaf[_slices(cfg, cuts, tuple(leaf.shape))]
-                       .contiguous().clone())
+            out.append(_piece(cfg, leaf, cuts).contiguous().clone())
     return rebuild(out)
 
 
@@ -427,11 +485,24 @@ def unshard_tree(cfg: ModelConfig, slices: Sequence, mesh) -> Any:
                 shape.append(n)
             elif c[0] == "kv":
                 shape.append(cfg.n_kv_heads * cfg.hd)
+            elif c[0] == "q":
+                shape.append(cfg.n_heads * cfg.hd)
             else:
                 shape.append(n * c[1])
         full = torch.empty(shape, dtype=leaf0.dtype, device=leaf0.device)
         for r in range(mesh.size):
             cuts = _cuts(cfg, path, spec, mesh, r)
-            full[_slices(cfg, cuts, tuple(shape))] = per_rank[r][j][1]
+            block = full[_slices(cfg, cuts, tuple(shape))]
+            piece = per_rank[r][j][1]
+            q = _head_pieces(cfg, cuts)
+            if q is None:
+                block.copy_(piece)
+                continue
+            d, heads = q
+            hd = cfg.hd
+            for i, h in enumerate(heads):
+                if h is not None:
+                    block.narrow(d, h * hd, hd).copy_(
+                        piece.narrow(d, i * hd, hd))
         out.append(full)
     return rebuild(out)

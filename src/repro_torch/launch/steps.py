@@ -20,7 +20,10 @@ An MoE config runs both steps under ``DistCtx(mesh, dp_axes,
 ep_axis="data")``, as the reference does: each rank holds its ``E /
 n_ep`` slice of every expert stack (``sharding.shard_tree``), the tokens
 reach the experts through ``runtime.context.all_to_all``, and the
-gradient comes back through it.  A ``dp_mode="fsdp"`` config's baseline
+gradient comes back through it; in the baseline step on a ``"pod"``
+axis of more than one rank the dispatch drops the pairs that the
+reference's GSPMD step drops, ranking the expert ids of a data block
+pooled over the pods (``runtime.context.pool_ids``).  A ``dp_mode="fsdp"`` config's baseline
 and serving steps also run under ``fsdp_axis="data"``: a rank's FSDP
 leaves are slices (``shard_tree(..., fsdp="data")``), gathered where
 their unit runs, and their gradients come back reduce-scattered, summed
@@ -42,9 +45,10 @@ a rank's parameters are its slice (``launch.sharding.shard_tree``), the
 model layers call the TP collectives (``runtime.context``), and every
 rank of a model slice computes the same loss.  A leaf's gradient is
 then the gradient of the rank's slice (whole on every rank for a
-replicated leaf), so the gradient sync runs each model slice's own
-ranks over the dp axes (the sums, and the secure sync's transport, on
-the ranks that share this rank's ``"model"`` coordinate), and the grad
+replicated leaf; a zero pad head's dropped, ``local_grads``), so the
+gradient sync runs each model slice's own ranks over the dp axes (the
+sums, and the secure sync's transport, on the ranks that share this
+rank's ``"model"`` coordinate), and the grad
 norm sums each leaf's squares over the axes it is cut on (counting a KV
 head that ``tp / K`` ranks hold once).
 
@@ -74,7 +78,7 @@ from repro_torch.launch.mesh import dp_axes_of
 from repro_torch.models import model as M
 from repro_torch.optim import adamw
 from repro_torch.runtime.compat import subgroup
-from repro_torch.runtime.context import DistCtx, tally, use_ctx
+from repro_torch.runtime.context import DistCtx, get_ctx, tally, use_ctx
 
 EP_AXIS = "data"        # the axis an MoE config splits its experts over
 TP_AXIS = SH.TP_AXIS    # the axis TP splits the weights over
@@ -110,7 +114,13 @@ def dist_ctx(cfg: ModelConfig, mesh, sharded_batch: bool = False
              ) -> DistCtx:
     """The context a step's forward runs under: none without a mesh, the
     mesh's dp axes, for an MoE config the expert axis, and the TP axis
-    where the mesh has one."""
+    where the mesh has one, with the residual stream cut on the sequence
+    over it where ``cfg.seq_parallel`` asks (``models.model.seq_layout``
+    leaves a decode step, or a sequence that does not split, whole).
+    ``sharded_batch`` marks the reference's GSPMD steps (the baseline
+    train step, and serving where the batch splits): there the expert
+    dispatch pools a data block's rows over the pods
+    (``models.layers.moe_forward``)."""
     if mesh is None:
         return DistCtx()
     ep = EP_AXIS if cfg.moe is not None and EP_AXIS in mesh.axis_names \
@@ -118,7 +128,8 @@ def dist_ctx(cfg: ModelConfig, mesh, sharded_batch: bool = False
     tp = TP_AXIS if TP_AXIS in mesh.axis_names else None
     return DistCtx(mesh=mesh, dp_axes=dp_axes_of(mesh), ep_axis=ep,
                    tp_axis=tp, sharded_batch=sharded_batch,
-                   fsdp_axis=fsdp_axis(cfg, mesh))
+                   fsdp_axis=fsdp_axis(cfg, mesh),
+                   seq_parallel=cfg.seq_parallel and SH.tp_extent(mesh) > 1)
 
 
 def fsdp_axis(cfg: ModelConfig, mesh):
@@ -237,14 +248,20 @@ def grad_norm(cfg: ModelConfig, grads, mesh) -> torch.Tensor:
 
 
 def local_grads(cfg: ModelConfig, params, batch: dict, total_tokens: int):
-    """(loss, gradient tree) of this rank's batch."""
+    """(loss, gradient tree) of this rank's batch; a zero pad head's
+    gradient (``sharding.pad_heads``) is dropped, so no update moves
+    it."""
     leaves, rebuild = tree_flatten(params)
     with torch.enable_grad():
         for p in leaves:
             p.requires_grad_(True)
         loss = M.loss_fn(cfg, params, batch, total_tokens=total_tokens)
         grads = torch.autograd.grad(loss, leaves)
-    return loss.detach(), rebuild(list(grads))
+    grads = rebuild(list(grads))
+    ctx = get_ctx()
+    if ctx.mesh is not None:
+        SH.zero_pad_heads_(cfg, grads, ctx.mesh)
+    return loss.detach(), grads
 
 
 def build_train_step(cfg: ModelConfig,

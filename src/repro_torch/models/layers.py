@@ -15,22 +15,27 @@ reference.
 Tensor parallelism (TP, the ``DistCtx``'s ``tp_axis``) runs where the
 reference leaves GSPMD to shard by its ``constrain`` hints: each layer
 takes its weights as this rank's slice (``launch.sharding.shard_tree``)
-and reads its local sizes off their shapes.  A replicated activation
-enters a rank's slice of the work through ``tp_copy`` and a
-row-parallel product's partial sums leave through ``tp_reduce``:
-attention on the rank's query heads and the KV heads they read
-(``kv_block``), the flash kernel and ``decode_attention`` at the local
-H / K, ``wo`` row-parallel; the MLP column- then row-parallel; the MoE's
-router replicated (every rank routes alike), its expert stacks and
-shared expert cut on ``f_e``, one ``tp_reduce`` after the combine; the
-Mamba2 mixer on the rank's SSD heads, with ``in_B`` / ``in_C`` / their
+and reads its local sizes off their shapes.  The residual stream enters
+each mixer and MLP through ``tp_enter`` (``tp_copy``; under
+``seq_parallel`` an all-gather of the sequence) and a row-parallel
+product's partial sums leave through ``tp_exit`` (``tp_reduce``; under
+``seq_parallel`` a reduce-scatter onto the rank's positions); between
+them every gradient is the rank's part, and a replicated weight read
+there enters through ``tp_copy``, so its gradient is summed and whole on
+every rank: attention on the rank's query heads and the KV heads they
+read (``kv_block``; where the heads do not split, each KV group padded
+with zero heads, ``q_group`` / ``q_heads``), the flash kernel and
+``decode_attention`` at the local H / K, ``wo`` row-parallel; the MLP
+column- then row-parallel; the MoE's router replicated (every rank
+routes alike; its weights through ``tp_copy``), its expert stacks and
+shared expert cut on ``f_e``, summed in float32 after the combine; the
+Mamba2 mixer on the rank's SSD heads over the whole sequence (its conv
+and scan need it), ``in_B`` / ``in_C`` / ``in_dt`` and the B / C
 convolutions replicated, its gated RMSNorm's sum of squares summed over
 the axis (it averages over the whole ``d_inner``) and ``out_proj``
-row-parallel.  A replicated weight that a rank reads only in part
-(``q_norm``, ``A_log``, the router's weights through the combine, a KV
-head held by more than one rank) gets its gradient summed the same way,
-so every replicated leaf's gradient is whole on every rank.  With no TP
-axis every collective is the identity.
+row-parallel.  ``q_norm``, ``A_log`` and a KV head held by more than one
+rank take their gradient summed the same way.  With no TP axis every
+collective is the identity.
 
 The MoE's expert products are plain batched products over every slot of
 the fixed-capacity buffer, as the reference's einsums (no Pallas kernel
@@ -56,8 +61,10 @@ from repro_torch.configs.base import ATTN_CHUNKED, CROSS_ATTN, ModelConfig
 from repro_torch.kernels.flash_attention import flash_attention as _flash
 from repro_torch.kernels.ssd import ssd_chunked
 from repro_torch.runtime.context import (all_reduce_sum, all_to_all,
-                                         ep_group, get_ctx, tp_copy,
-                                         tp_index, tp_reduce, tp_size)
+                                         ep_group, get_ctx, pool_ids,
+                                         pooled, tp_copy, tp_enter,
+                                         tp_exit, tp_index, tp_reduce,
+                                         tp_size)
 
 NEG_INF = -1e30
 
@@ -81,15 +88,38 @@ def _normal(gen, shape, std: float) -> torch.Tensor:
     return torch.randn(shape, generator=gen, device=gen.device) * std
 
 
+def q_group(cfg: ModelConfig, tp: int) -> int:
+    """Query heads a KV group holds over ``tp`` TP ranks: its ``H / K``,
+    or, where the ``H`` heads do not split over the ranks (``K < tp``),
+    the least ``g' >= H / K`` with ``K g'`` a multiple of ``tp``, the
+    group padded with zero heads (llama4-maverick's groups of 5 at TP 16:
+    6, so 48 heads, 3 a rank, each rank's inside one group)."""
+    H, K = cfg.n_heads, cfg.n_kv_heads
+    g = H // K
+    if H % tp:
+        while (K * g) % tp:
+            g += 1
+    return g
+
+
+def q_heads(cfg: ModelConfig, tp: int, idx: int) -> list:
+    """The query head of the unpadded model behind each of TP rank
+    ``idx``'s heads, in order; None for a zero (pad) head."""
+    G, g = cfg.n_heads // cfg.n_kv_heads, q_group(cfg, tp)
+    n = cfg.n_kv_heads * g // tp
+    return [(h // g) * G + h % g if h % g < G else None
+            for h in range(idx * n, (idx + 1) * n)]
+
+
 def kv_block(cfg: ModelConfig, tp: int, idx: int) -> tuple[int, int]:
     """(first KV head, KV heads) of TP rank ``idx`` of ``tp``: the heads
-    that its query heads ``[idx H/tp, (idx+1) H/tp)`` read.  Where
-    ``K < tp`` each KV head is held by the ``tp / K`` ranks that read
-    it."""
-    H, K = cfg.n_heads, cfg.n_kv_heads
+    that its query heads (``q_heads``) read.  Where ``K < tp`` each KV
+    head is held by the ``tp / K`` ranks that read it."""
+    K = cfg.n_kv_heads
     if tp == 1:
         return 0, K
-    return (idx * (H // tp)) // (H // K), max(K // tp, 1)
+    g = q_group(cfg, tp)
+    return (idx * (K * g // tp)) // g, max(K // tp, 1)
 
 
 # ---------------------------------------------------------------------------
@@ -227,13 +257,16 @@ def make_attn_params(cfg: ModelConfig, gen: torch.Generator,
 def _qkv(cfg: ModelConfig, p: dict, x: torch.Tensor, kv_src: torch.Tensor,
          dtype: torch.dtype):
     """q (B, Sq, H_loc, hd) from x, k and v (B, Skv, K_loc, hd) from
-    ``kv_src``: the rank's heads, as many as its weights hold."""
+    ``kv_src``: the rank's heads, as many as its weights hold (zero pad
+    heads included, whose q is zero).  x enters through ``tp_enter`` (the
+    whole sequence, gathered under ``seq_parallel``), ``kv_src`` when it
+    is another tensor (the media) through ``tp_copy``."""
     ctx = get_ctx()
-    B, Sq, _ = x.shape
-    Skv = kv_src.shape[1]
     hd = cfg.hd
-    xt = tp_copy(ctx, x)
+    xt = tp_enter(ctx, x)
     kt = xt if kv_src is x else tp_copy(ctx, kv_src)
+    B, Sq, _ = xt.shape
+    Skv = kt.shape[1]
     # a KV head held by tp / K ranks: its gradient summed over them
     tp, K = tp_size(ctx), cfg.n_kv_heads
     span = tp // K if K < tp else 0
@@ -261,9 +294,10 @@ def _qkv(cfg: ModelConfig, p: dict, x: torch.Tensor, kv_src: torch.Tensor,
 def _attn_out(p: dict, o: torch.Tensor, dtype: torch.dtype
               ) -> torch.Tensor:
     """The rank's heads o (B, S, H_loc, hd) through its rows of ``wo``,
-    summed over the TP axis."""
+    summed over the TP axis (``tp_exit``).  A pad head's rows of ``wo``
+    are zero: its output (the mean of V: its q is zero) adds nothing."""
     B, S = o.shape[:2]
-    return tp_reduce(get_ctx(), o.reshape(B, S, -1) @ _w(p, "wo", dtype))
+    return tp_exit(get_ctx(), o.reshape(B, S, -1) @ _w(p, "wo", dtype))
 
 
 def self_attention(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
@@ -272,8 +306,8 @@ def self_attention(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
     """Self-attention over the full sequence x (B, S, D): (output, k, v),
     k and v (B, S, K_loc, hd) after rope, for a prefill's cache."""
     dtype = x.dtype
-    S = x.shape[1]
     q, k, v = _qkv(cfg, p, x, x, dtype)
+    S = q.shape[1]
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32, device=x.device)
     q = rope(q, positions, cfg.rope_theta)
@@ -366,12 +400,12 @@ def mlp_forward(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     columns of ``d_ff``, then its rows of ``w_down``, summed."""
     dtype = x.dtype
     ctx = get_ctx()
-    x = tp_copy(ctx, x)
+    x = tp_enter(ctx, x)
     if "w_gate" in p:
         h = F.silu(x @ _w(p, "w_gate", dtype)) * (x @ _w(p, "w_up", dtype))
     else:
         h = F.gelu(x @ _w(p, "w_up", dtype), approximate="tanh")
-    return tp_reduce(ctx, h @ _w(p, "w_down", dtype))
+    return tp_exit(ctx, h @ _w(p, "w_down", dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -493,33 +527,35 @@ def _shared_expert(p: dict, xf: torch.Tensor) -> torch.Tensor:
 
 def _finish(cfg: ModelConfig, p: dict, xf: torch.Tensor, out: torch.Tensor,
             x: torch.Tensor) -> torch.Tensor:
-    """The shared expert added in float32, the rank's partial sums (its
-    slice of ``f_e`` and of the shared expert) summed over the TP axis
-    in float32, then the input's shape and dtype."""
+    """The shared expert added in float32, in the input's shape: under TP
+    the rank's partial sums (its slice of ``f_e`` and of the shared
+    expert), which ``moe_forward`` sums over the axis in float32."""
     if cfg.moe.d_shared:
         out = out + _shared_expert(p, xf)
-    return tp_reduce(get_ctx(), out).reshape(x.shape).to(x.dtype)
+    return out.reshape(x.shape)
 
 
 def _route(cfg: ModelConfig, p: dict, xf: torch.Tensor):
-    """(expert ids, weights, the tokens the experts read): the router runs
-    on every TP rank alike; its weights and the tokens then enter the
-    rank's slice of the experts."""
-    ctx = get_ctx()
-    idx, w = _router(cfg, p, xf)
-    return idx, tp_copy(ctx, w), tp_copy(ctx, xf)
+    """(expert ids, weights): the router runs on every TP rank alike, on
+    the tokens as they entered (``tp_enter``); its replicated weights
+    enter through ``tp_copy``, so their gradient is whole."""
+    return _router(cfg, {"router": tp_copy(get_ctx(), p["router"])}, xf)
 
 
-def moe_local(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
-    """Single-device MoE. x: (B, S, D)."""
+def moe_local(cfg: ModelConfig, p: dict, x: torch.Tensor,
+              out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Single-device MoE. x: (B, S, D); the output in ``out_dtype``
+    (default x's)."""
     E = cfg.moe.n_experts
     B, S, D = x.shape
     T = B * S
-    idx, w, xf = _route(cfg, p, x.reshape(T, D))
+    xf = x.reshape(T, D)
+    idx, w = _route(cfg, p, xf)
     slot, C_e = _dispatch_slots(cfg, idx, T)
     buf = _scatter(xf, slot, E * C_e)
     yb = _expert_ffn(p, buf.view(E, C_e, D)).reshape(E * C_e, D)
-    return _finish(cfg, p, xf, _combine(xf, yb, slot, w), x)
+    out = _finish(cfg, p, xf, _combine(xf, yb, slot, w), x)
+    return out.to(out_dtype or x.dtype)
 
 
 def moe_distributed_replicated(cfg: ModelConfig, p: dict, x: torch.Tensor,
@@ -527,13 +563,14 @@ def moe_distributed_replicated(cfg: ModelConfig, p: dict, x: torch.Tensor,
     """EP with *replicated* tokens (small-batch decode: fewer sequences
     than data-parallel ranks).  Every rank routes all tokens through its
     own experts; one float32 all-reduce over the expert axis combines the
-    outputs, with no all_to_all."""
+    outputs, with no all_to_all.  Returns the float32 sums."""
     B, S, D = x.shape
     T = B * S
     _, my, n_ep = ep_group(ctx)
     E_loc = p["w_gate"].shape[0]
     E = E_loc * n_ep
-    idx, w, xf = _route(cfg, p, x.reshape(T, D))
+    xf = x.reshape(T, D)
+    idx, w = _route(cfg, p, xf)
     slot, C_e = _dispatch_slots(cfg, idx, T)
     buf = _scatter(xf, slot, E * C_e)
     rows = slice(my * E_loc * C_e, (my + 1) * E_loc * C_e)
@@ -546,19 +583,27 @@ def moe_distributed_replicated(cfg: ModelConfig, p: dict, x: torch.Tensor,
 
 def moe_distributed(cfg: ModelConfig, p: dict, x: torch.Tensor, ctx
                     ) -> torch.Tensor:
-    """Expert-parallel MoE on a rank's own tokens x (B_loc, S, D) and its
+    """Expert-parallel MoE on the tokens x (B_loc, S, D) and the rank's
     own experts (E_loc, ...): one all_to_all ships every top-k choice in a
     single (E * C_e)-row buffer (in ``moe.dispatch_dtype`` where set),
-    another brings the expert outputs back in the activation dtype."""
+    another brings the expert outputs back in the activation dtype.
+    Where the dispatch is ``pooled``, the slots and the capacity are
+    those of the pooled ids of the rank's set of blocks (``pool_ids``),
+    of which the rank fills its own.  Returns the float32 sums."""
     m = cfg.moe
     B, S, D = x.shape
     T = B * S
     _, _, n_ep = ep_group(ctx)
     E_loc = p["w_gate"].shape[0]
     E = E_loc * n_ep
-    # router replicated; runs locally
-    idx, w, xf = _route(cfg, p, x.reshape(T, D))
-    slot, C_e = _dispatch_slots(cfg, idx, T)
+    xf = x.reshape(T, D)
+    idx, w = _route(cfg, p, xf)     # router replicated; runs locally
+    if pooled(ctx):
+        ids, i = pool_ids(ctx, idx)
+        slot, C_e = _dispatch_slots(cfg, ids, ids.shape[0])
+        slot = slot[i * T:(i + 1) * T]
+    else:
+        slot, C_e = _dispatch_slots(cfg, idx, T)
     send = _scatter(xf, slot, E * C_e).view(n_ep, E_loc * C_e, D)
     if m.dispatch_dtype:  # e.g. fp8 dispatch (combine stays in act dtype)
         send = send.to(getattr(torch, m.dispatch_dtype))
@@ -573,29 +618,43 @@ def moe_distributed(cfg: ModelConfig, p: dict, x: torch.Tensor, ctx
     return _finish(cfg, p, xf, _combine(xf, ret, slot, w), x)
 
 
+def _moe(cfg: ModelConfig, p: dict, x: torch.Tensor, ctx) -> torch.Tensor:
+    """``moe_forward``'s float32 partial sums on the entered tokens."""
+    n = cfg.moe_seq_chunks
+    B, S, D = x.shape
+    if n > 1 and S % n == 0:
+        sub = dataclasses.replace(cfg, moe_seq_chunks=1)
+        ys = [_moe(sub, p, xc, ctx)
+              for xc in x.reshape(B, n, S // n, D).unbind(1)]
+        return torch.stack(ys, dim=1).reshape(B, S, D)
+    if ctx.mesh is None or ctx.ep_axis is None \
+            or ctx.mesh.shape[ctx.ep_axis] == 1:
+        return moe_local(cfg, p, x, torch.float32)
+    dp_div = math.prod(ctx.mesh.shape[a] for a in ctx.dp_axes)
+    if not ctx.sharded_batch and (B % dp_div != 0 or B < dp_div):
+        return moe_distributed_replicated(cfg, p, x, ctx)
+    return moe_distributed(cfg, p, x, ctx)
+
+
 def moe_forward(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     """Without an expert axis in the context, ``moe_local``; on one,
     ``moe_distributed``, or ``moe_distributed_replicated`` where a rank
     holds fewer sequences than there are data-parallel ranks (the
     reference's test in its manual step; in the baseline step,
     ``ctx.sharded_batch``, the reference tests the global batch, which
-    always splits).  ``cfg.moe_seq_chunks > 1`` splits the dispatch over
-    sequence chunks, each with the capacity of its own tokens."""
-    n = cfg.moe_seq_chunks
-    B, S, D = x.shape
-    if n > 1 and S % n == 0:
-        sub = dataclasses.replace(cfg, moe_seq_chunks=1)
-        ys = [moe_forward(sub, p, xc)
-              for xc in x.reshape(B, n, S // n, D).unbind(1)]
-        return torch.stack(ys, dim=1).reshape(B, S, D)
+    always splits).  In the baseline step on a mesh with dp ranks off the
+    expert axis (``"pod"``), the dispatch ranks the pairs of the rank's
+    set of blocks, pooled over the ranks that hold it
+    (``runtime.context.pool_ids``: the rows the reference's ``shard_map``,
+    manual over ``"data"`` alone, dispatches together), with the capacity
+    of those tokens, and each rank dispatches its own rows; the secure
+    step's dispatch ranks each rank's rows alone, as the reference's
+    manual step does.  ``cfg.moe_seq_chunks > 1`` splits the
+    dispatch over sequence chunks, each with the capacity of its own
+    tokens.  The tokens enter through ``tp_enter`` and the partial sums
+    leave through ``tp_exit`` in float32, then take x's dtype."""
     ctx = get_ctx()
-    if ctx.mesh is None or ctx.ep_axis is None \
-            or ctx.mesh.shape[ctx.ep_axis] == 1:
-        return moe_local(cfg, p, x)
-    dp_div = math.prod(ctx.mesh.shape[a] for a in ctx.dp_axes)
-    if not ctx.sharded_batch and (B % dp_div != 0 or B < dp_div):
-        return moe_distributed_replicated(cfg, p, x, ctx)
-    return moe_distributed(cfg, p, x, ctx)
+    return tp_exit(ctx, _moe(cfg, p, tp_enter(ctx, x), ctx)).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -662,27 +721,31 @@ def mamba_forward(cfg: ModelConfig, p: dict, x: torch.Tensor,
     s = cfg.ssm
     ctx = get_ctx()
     dtype = x.dtype
-    Bsz, S, D = x.shape
-    d_in = s.expand * D
-    # the rank's SSD heads [h0, h0 + nh) and their d_in_loc channels
+    # the rank's SSD heads [h0, h0 + nh) and their d_in_loc channels; the
+    # replicated weights enter through tp_copy (their gradient whole)
     d_in_loc = p["in_x"].shape[1]
     nh = d_in_loc // s.head_dim
     h0 = nh * tp_index(ctx)
-    xt = tp_copy(ctx, x)
+    xt = tp_enter(ctx, x)
+    Bsz, S, D = xt.shape
+    d_in = s.expand * D
+
+    def rep(name):
+        return tp_copy(ctx, _w(p, name, dtype))
+
     z = xt @ _w(p, "in_z", dtype)
     xr = xt @ _w(p, "in_x", dtype)
-    Br = x @ _w(p, "in_B", dtype)
-    Cr = x @ _w(p, "in_C", dtype)
-    dtr = tp_copy(ctx, x @ _w(p, "in_dt", dtype))[..., h0:h0 + nh]
+    Br = xt @ rep("in_B")
+    Cr = xt @ rep("in_C")
+    dtr = xt @ rep("in_dt")[:, h0:h0 + nh]
 
     st = state or {}
     xr, new_cx = _causal_conv(xr, _w(p, "conv_x", dtype),
                               _w(p, "conv_xb", dtype), st.get("conv_x"))
-    Bm, new_cb = _causal_conv(Br, _w(p, "conv_B", dtype),
-                              _w(p, "conv_Bb", dtype), st.get("conv_B"))
-    Cm, new_cc = _causal_conv(Cr, _w(p, "conv_C", dtype),
-                              _w(p, "conv_Cb", dtype), st.get("conv_C"))
-    Bm, Cm = tp_copy(ctx, Bm), tp_copy(ctx, Cm)
+    Bm, new_cb = _causal_conv(Br, rep("conv_B"), rep("conv_Bb"),
+                              st.get("conv_B"))
+    Cm, new_cc = _causal_conv(Cr, rep("conv_C"), rep("conv_Cb"),
+                              st.get("conv_C"))
     xs = xr.reshape(Bsz, S, nh, s.head_dim)
 
     def mine(name):
@@ -722,7 +785,7 @@ def mamba_forward(cfg: ModelConfig, p: dict, x: torch.Tensor,
         ms = tp_copy(ctx, tp_reduce(ctx, torch.sum(
             yf * yf, -1, keepdim=True))) / d_in
     y = (yf * torch.rsqrt(ms + 1e-6) * p["out_norm"]).to(dtype)
-    out = tp_reduce(ctx, y @ _w(p, "out_proj", dtype))
+    out = tp_exit(ctx, y @ _w(p, "out_proj", dtype))
     new_state = {"conv_x": new_cx.to(dtype), "conv_B": new_cb.to(dtype),
                  "conv_C": new_cc.to(dtype), "ssd": new_ssd}
     return out, new_state

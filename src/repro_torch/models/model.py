@@ -11,9 +11,15 @@ run by a Python loop; caches likewise.  The reference's ``constrain``
 context (``runtime.context``) every rank holds its slice of the weights
 and the layers call the collectives, the embedding vocab-parallel (a
 masked gather of the rank's rows, summed over the axis), the head
-vocab-parallel (the rank's columns of the logits, gathered), and every
-rank of a model slice holds the same residual stream, bit for bit (each
-sum over the axis hands every rank the same bits).  ``init_cache`` under
+vocab-parallel (the rank's columns of the logits: gathered for serving,
+left cut for the loss, ``loss_fn``), and every rank of a model slice
+holds the same residual stream, bit for bit (each sum over the axis
+hands every rank the same bits).  With ``seq_parallel`` (the reference
+constrains the stream to ``P(dp, "model", None)`` after every unit) a
+rank holds its block of ``S / tp`` positions of the stream between the
+mixers and MLPs (the norms and residual adds run there; each mixer and
+MLP sees the whole sequence), where ``S`` splits over the ranks and
+never in a decode step (``seq_layout``).  ``init_cache`` under
 such a context is the rank's: its KV heads, its SSD heads and
 ``d_inner`` channels.  Under an FSDP context (``fsdp_axis``) a rank's
 FSDP leaves are slices on their ``d_model`` side: each unit's are
@@ -32,6 +38,8 @@ autograd, attention's from the flash backward kernel on the card.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 from typing import Any, Optional
 
 import torch
@@ -41,8 +49,10 @@ from repro_torch.configs.base import (ATTN_CHUNKED, CROSS_ATTN, DENSE, MAMBA2,
                                       MOE, NONE, ModelConfig)
 from repro_torch.models import layers as L
 from repro_torch.runtime.context import (fsdp_gather, fsdp_size, get_ctx,
-                                         tp_copy, tp_gather, tp_index,
-                                         tp_reduce, tp_size)
+                                         seq_block, seq_cut, tp_copy,
+                                         tp_enter, tp_exit, tp_gather,
+                                         tp_index, tp_size, use_ctx,
+                                         vocab_ce)
 
 Params = Any
 Cache = Any
@@ -169,12 +179,14 @@ def embed_inputs(cfg: ModelConfig, params: Params, batch: dict
     """The token embeddings, or an audio model's frames (B, S, D) cast to
     the compute dtype.  Under TP the table holds the rank's block of rows:
     each token's row from the rank that holds it, zeros from the others,
-    summed (one nonzero term: the sum is exact)."""
+    summed (one nonzero term: the sum is exact) by ``tp_exit``, which
+    under ``seq_parallel`` leaves the rank its block of positions (the
+    frames: their block)."""
+    ctx = get_ctx()
     if cfg.frontend == "audio_frames":
-        return batch["frames"].to(compute_dtype(cfg))
+        return seq_block(ctx, batch["frames"].to(compute_dtype(cfg)))
     # gather, then cast: the reference casts the table first, the same
     # values for the rows gathered; the multiplier in the compute dtype
-    ctx = get_ctx()
     table, tokens = params["embed"], batch["tokens"]
     if tp_size(ctx) == 1:
         x = table[tokens].to(compute_dtype(cfg))
@@ -183,26 +195,58 @@ def embed_inputs(cfg: ModelConfig, params: Params, batch: dict
         local = tokens.long() - tp_index(ctx) * v_loc
         mine = (local >= 0) & (local < v_loc)
         x = table[local.clamp(0, v_loc - 1)].to(compute_dtype(cfg))
-        x = tp_reduce(ctx, x * mine[..., None].to(x.dtype))
+        x = tp_exit(ctx, x * mine[..., None].to(x.dtype))
     if cfg.embedding_multiplier != 1.0:
         x = x * cfg.embedding_multiplier
     return x
 
 
+def _logits(cfg: ModelConfig, params: Params, x: torch.Tensor
+            ) -> torch.Tensor:
+    """x @ embed^T with tied embeddings (and a table), else x @ head:
+    under TP the rank's columns of the logits, of the whole sequence (x
+    enters through ``tp_enter``)."""
+    x = tp_enter(get_ctx(), x)
+    if cfg.tie_embeddings and "embed" in params:
+        return x @ params["embed"].to(x.dtype).T
+    head = _gathered(cfg, {"head": params["head"]}, ())["head"]
+    return x @ head.to(x.dtype)
+
+
 def lm_head(cfg: ModelConfig, params: Params, x: torch.Tensor
             ) -> torch.Tensor:
-    """x @ embed^T with tied embeddings (and a table), else x @ head.
-    Under TP the rank's columns of the logits, gathered into all Vp on
-    every rank (a loss over them holds the whole (B, S, Vp) logits on
-    each rank, as one rank does)."""
+    """The logits (B, S, Vp): under TP the rank's columns gathered into
+    all Vp on every rank (serving reads the last position's; the loss
+    never gathers them: ``loss_fn``)."""
+    return tp_gather(get_ctx(), _logits(cfg, params, x))
+
+
+@contextlib.contextmanager
+def seq_layout(S: int, cut: bool = True):
+    """The context with the residual stream cut on the sequence where the
+    context's ``seq_parallel`` asks for it, ``cut`` allows it and the
+    ``S`` positions split over the TP ranks; else not cut.  A sequence
+    that does not split (a prompt of 7 tokens at TP 2) runs with the
+    stream whole on every rank, the layout without ``seq_parallel``,
+    which computes the same values; a decode step's one position is
+    never cut."""
     ctx = get_ctx()
-    x = tp_copy(ctx, x)
-    if cfg.tie_embeddings and "embed" in params:
-        logits = x @ params["embed"].to(x.dtype).T
-    else:
-        head = _gathered(cfg, {"head": params["head"]}, ())["head"]
-        logits = x @ head.to(x.dtype)
-    return tp_gather(ctx, logits)
+    want = cut and ctx.seq_parallel and S % tp_size(ctx) == 0
+    if want == ctx.seq_parallel:
+        yield
+        return
+    with use_ctx(dataclasses.replace(ctx, seq_parallel=want)):
+        yield
+
+
+def _norm(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+    """A norm of the residual stream: under ``seq_parallel`` on the
+    rank's positions, so its scale's gradient is summed over the TP axis
+    (``tp_copy``)."""
+    ctx = get_ctx()
+    if "scale" in p and seq_cut(ctx):
+        p = {"scale": tp_copy(ctx, p["scale"])}
+    return L.apply_norm(cfg, p, x)
 
 
 # ---------------------------------------------------------------------------
@@ -213,7 +257,7 @@ def lm_head(cfg: ModelConfig, params: Params, x: torch.Tensor
 def _mlp(cfg: ModelConfig, spec, lp: dict, x: torch.Tensor) -> torch.Tensor:
     if spec.mlp == NONE:
         return x
-    h = L.apply_norm(cfg, lp["norm2"], x)
+    h = _norm(cfg, lp["norm2"], x)
     if spec.mlp == MOE:
         return x + L.moe_forward(cfg, lp["mlp"], h)
     return x + L.mlp_forward(cfg, lp["mlp"], h)
@@ -232,7 +276,7 @@ def _unit_forward(cfg: ModelConfig, unit: dict, x: torch.Tensor,
                   impl: Optional[str]) -> torch.Tensor:
     for i, spec in enumerate(cfg.pattern):
         lp = unit[f"layer{i}"]
-        h = L.apply_norm(cfg, lp["norm1"], x)
+        h = _norm(cfg, lp["norm1"], x)
         if spec.mixer == MAMBA2:
             y, _ = L.mamba_forward(cfg, lp["mixer"], h, impl=impl)
         elif spec.mixer == CROSS_ATTN:
@@ -247,11 +291,37 @@ def _unit_forward(cfg: ModelConfig, unit: dict, x: torch.Tensor,
 
 
 def _unit_run(cfg: ModelConfig, unit: dict, i: int, x: torch.Tensor,
-              media: Optional[torch.Tensor], impl: Optional[str]
+              media: Optional[torch.Tensor], impl: Optional[str], ctx
               ) -> torch.Tensor:
-    """Unit ``i``'s forward, its FSDP slices gathered first."""
-    return _unit_forward(cfg, _gathered(cfg, unit, ("units", i)), x, media,
-                         impl)
+    """Unit ``i``'s forward under ``ctx``, its FSDP slices gathered
+    first.  ``ctx`` is the forward's: a remat backward recomputes the
+    unit after ``seq_layout`` has exited, in the layout it ran in."""
+    with use_ctx(ctx):
+        return _unit_forward(cfg, _gathered(cfg, unit, ("units", i)), x,
+                             media, impl)
+
+
+def _hidden(cfg: ModelConfig, params: Params, batch: dict,
+            impl: Optional[str]) -> torch.Tensor:
+    """The final normed residual stream (the rank's block of positions
+    under ``seq_parallel``)."""
+    ctx = get_ctx()
+    x = embed_inputs(cfg, params, batch)
+    media = _media(cfg, batch, x)
+    remat = cfg.remat and torch.is_grad_enabled()
+    for i, unit in enumerate(params["units"]):
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(
+                _unit_run, cfg, unit, i, x, media, impl, ctx,
+                use_reentrant=False)
+        else:
+            x = _unit_run(cfg, unit, i, x, media, impl, ctx)
+    return _norm(cfg, params["final_norm"], x)
+
+
+def _seq_len(cfg: ModelConfig, batch: dict) -> int:
+    key = "frames" if cfg.frontend == "audio_frames" else "tokens"
+    return batch[key].shape[1]
 
 
 def forward(cfg: ModelConfig, params: Params, batch: dict,
@@ -260,18 +330,8 @@ def forward(cfg: ModelConfig, params: Params, batch: dict,
     model's ``batch["frames"]``; a cross-attention model also reads
     ``batch["media"]``).  Under autograd with ``cfg.remat`` each
     unit keeps only its input and runs again in the backward pass."""
-    x = embed_inputs(cfg, params, batch)
-    media = _media(cfg, batch, x)
-    remat = cfg.remat and torch.is_grad_enabled()
-    for i, unit in enumerate(params["units"]):
-        if remat:
-            x = torch.utils.checkpoint.checkpoint(
-                _unit_run, cfg, unit, i, x, media, impl,
-                use_reentrant=False)
-        else:
-            x = _unit_run(cfg, unit, i, x, media, impl)
-    x = L.apply_norm(cfg, params["final_norm"], x)
-    return lm_head(cfg, params, x)
+    with seq_layout(_seq_len(cfg, batch)):
+        return lm_head(cfg, params, _hidden(cfg, params, batch, impl))
 
 
 def loss_fn(cfg: ModelConfig, params: Params, batch: dict,
@@ -282,19 +342,29 @@ def loss_fn(cfg: ModelConfig, params: Params, batch: dict,
     *global* token count ``total_tokens`` so that the sum of per-replica
     losses and gradients over data-parallel ranks is the global mean (the
     secure sync is then a plain modular sum), else by the local count.
-    ``impl`` as ``forward``'s."""
-    logits = forward(cfg, params, batch, impl=impl).float()
+    Under TP the logits stay cut on the vocabulary: each rank holds its
+    columns (B, S, Vp / tp) and ``runtime.context.vocab_ce`` reduces over
+    the cut (the padded columns found by their global index).  ``impl``
+    as ``forward``'s."""
+    ctx = get_ctx()
+    with seq_layout(_seq_len(cfg, batch)):
+        logits = _logits(cfg, params,
+                         _hidden(cfg, params, batch, impl)).float()
     labels = batch["labels"]
-    Vp, V = logits.shape[-1], cfg.vocab_size
-    if Vp != V:
+    V, v_loc = cfg.vocab_size, logits.shape[-1]
+    col0 = tp_index(ctx) * v_loc if tp_size(ctx) > 1 else 0
+    if col0 + v_loc > V:
         # in place on the float32 copy: the cast's backward keeps nothing
-        logits.masked_fill_(torch.arange(Vp, device=logits.device) >= V,
-                            -1e30)
-    lse = torch.logsumexp(logits, dim=-1)
+        logits.masked_fill_(torch.arange(col0, col0 + v_loc,
+                                         device=logits.device) >= V, -1e30)
     lbl = labels.clamp(0, V - 1).long()
-    picked = logits.gather(-1, lbl[..., None])[..., 0]
+    if tp_size(ctx) > 1:
+        ce = vocab_ce(ctx, logits, lbl)
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
+        ce = lse - logits.gather(-1, lbl[..., None])[..., 0]
     mask = (labels >= 0).float()
-    ce = (lse - picked) * mask
+    ce = ce * mask
     denom = total_tokens if total_tokens is not None else \
         mask.sum().clamp(min=1.0)
     return ce.sum() / denom
@@ -357,11 +427,11 @@ def init_cache(cfg: ModelConfig, B: int, max_seq: int, device,
 def _unit_prefill(cfg: ModelConfig, unit: dict, x: torch.Tensor,
                   media: Optional[torch.Tensor], *, max_seq: int,
                   impl: Optional[str]) -> tuple[torch.Tensor, dict]:
-    B, S, _ = x.shape
+    B = x.shape[0]
     caches = {}
     for i, spec in enumerate(cfg.pattern):
         lp = unit[f"layer{i}"]
-        h = L.apply_norm(cfg, lp["norm1"], x)
+        h = _norm(cfg, lp["norm1"], x)
         if spec.mixer == MAMBA2:
             y, st = L.mamba_forward(cfg, lp["mixer"], h, impl=impl)
             caches[f"layer{i}"] = st
@@ -375,6 +445,7 @@ def _unit_prefill(cfg: ModelConfig, unit: dict, x: torch.Tensor,
             y, k, v = L.self_attention(cfg, lp["mixer"], h, mixer=spec.mixer,
                                        impl=impl)
             window = cfg.attn_window if spec.mixer == ATTN_CHUNKED else 0
+            S = k.shape[1]      # the whole prompt, under seq_parallel too
             cache = _layer_cache(cfg, spec, B, max_seq, x.device)
             # ring buffer slot = pos % window: only the current (possibly
             # partial) chunk's tail belongs in the cache; S % window == 0
@@ -393,16 +464,24 @@ def prefill(cfg: ModelConfig, params: Params, batch: dict, max_seq: int,
     """Run the prompt (``batch["tokens"]``, with ``batch["media"]`` for a
     cross-attention model); returns (last-position logits (B, 1, Vp),
     cache sized for ``max_seq`` positions, a cross-attention layer's
-    holding the media's K / V)."""
-    x = embed_inputs(cfg, params, batch)
-    media = _media(cfg, batch, x)
-    caches = []
-    for i, unit in enumerate(params["units"]):
-        x, cache_u = _unit_prefill(cfg, _gathered(cfg, unit, ("units", i)),
-                                   x, media, max_seq=max_seq, impl=impl)
-        caches.append(cache_u)
-    x = L.apply_norm(cfg, params["final_norm"], x)
-    return lm_head(cfg, params, x[:, -1:]), caches
+    holding the media's K / V).  Under ``seq_parallel`` the last
+    position is the last TP rank's: each rank's last is gathered and the
+    head reads that one."""
+    with seq_layout(_seq_len(cfg, batch)):
+        ctx = get_ctx()
+        x = embed_inputs(cfg, params, batch)
+        media = _media(cfg, batch, x)
+        caches = []
+        for i, unit in enumerate(params["units"]):
+            x, cache_u = _unit_prefill(
+                cfg, _gathered(cfg, unit, ("units", i)), x, media,
+                max_seq=max_seq, impl=impl)
+            caches.append(cache_u)
+        x = _norm(cfg, params["final_norm"], x)[:, -1:]
+        if seq_cut(ctx):
+            x = tp_gather(ctx, x)[..., -x.shape[-1]:]
+    with seq_layout(1, cut=False):
+        return lm_head(cfg, params, x), caches
 
 
 # ---------------------------------------------------------------------------
@@ -435,12 +514,15 @@ def _unit_decode(cfg: ModelConfig, unit: dict, cache_u: dict,
 def decode_step(cfg: ModelConfig, params: Params, cache: Cache,
                 tokens: torch.Tensor, t: int) -> tuple[torch.Tensor, Cache]:
     """One token for every sequence. tokens: (B, 1) int; t: position.
-    Attention caches are written in place."""
-    x = embed_inputs(cfg, params, {"tokens": tokens})
-    new_cache = []
-    for i, (unit, cache_u) in enumerate(zip(params["units"], cache)):
-        x, cu = _unit_decode(cfg, _gathered(cfg, unit, ("units", i)),
-                             cache_u, x, int(t))
-        new_cache.append(cu)
-    x = L.apply_norm(cfg, params["final_norm"], x)
-    return lm_head(cfg, params, x), new_cache
+    Attention caches are written in place.  The one position is never
+    cut on the sequence (``seq_parallel`` leaves a decode step as it
+    is)."""
+    with seq_layout(1, cut=False):
+        x = embed_inputs(cfg, params, {"tokens": tokens})
+        new_cache = []
+        for i, (unit, cache_u) in enumerate(zip(params["units"], cache)):
+            x, cu = _unit_decode(cfg, _gathered(cfg, unit, ("units", i)),
+                                 cache_u, x, int(t))
+            new_cache.append(cu)
+        x = L.apply_norm(cfg, params["final_norm"], x)
+        return lm_head(cfg, params, x), new_cache

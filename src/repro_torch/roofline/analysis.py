@@ -19,7 +19,14 @@ of this rank's step, its backward included:
     op, so this is its own traffic, not an estimate of what a fusing
     compiler would leave;
   * collective bytes: the tally of ``runtime.context`` (every TP, EP and
-    FSDP collective and the step's gradient sums), by kind;
+    FSDP collective and the step's gradient sums), by kind: ``tp_sum``,
+    ``tp_cat``, ``tp_seq_gather`` / ``tp_seq_scatter`` (the sequence's
+    all-gathers and reduce-scatters under ``seq_parallel``),
+    ``tp_loss`` (the vocabulary-parallel loss's three float32 (B, S)
+    all-reduces), ``ep_exchange`` / ``ep_sum``, ``dp_pool`` (the GSPMD
+    step's expert dispatch pooling a data block's expert ids over the
+    pods),
+    ``fsdp_gather`` / ``fsdp_scatter`` and ``dp_sum``;
   * peak live bytes: a tensor's storage counted when an op makes it and
     released when it is freed, the highest total over the step (the
     counterpart of XLA's ``temp_size``: the step's arguments are not in

@@ -18,7 +18,43 @@ model layers here call them, Megatron-style, on the TP axis's group:
     row-parallel product's partial sums, whose result is replicated);
   * ``tp_gather``: the ranks' pieces concatenated along the last dim
     forward, this rank's piece of the gradient backward (the
-    vocab-parallel head's logits).
+    vocab-parallel head's last-position logits, which serving reads).
+
+Each mixer and MLP takes the residual stream in through ``tp_enter`` and
+hands its row-parallel partial sums out through ``tp_exit``; everything
+between works on the rank's slice, so every gradient there is this
+rank's part, and a replicated weight read there enters through
+``tp_copy`` (its gradient summed, whole on every rank).  Without
+sequence parallelism ``tp_enter`` is ``tp_copy`` and ``tp_exit`` is
+``tp_reduce``.  With it (``DistCtx.seq_parallel``, the reference's
+``seq_parallel``: its residual stream constrained to ``P(dp, "model",
+None)`` between the units) a rank holds its block of ``S / tp``
+positions of the residual stream: ``tp_enter`` all-gathers the sequence
+(its backward a reduce-scatter of the gradient) and ``tp_exit``
+reduce-scatters the partial sums onto the rank's positions (its backward
+an all-gather), the same sums as the all-reduce, split.
+
+``vocab_ce`` is the cross-entropy of logits cut on the vocabulary over
+the TP axis (the reference's loss over its logits left on ``"model"``):
+one all-reduce of the row max, one of the sum of exponentials and one of
+the label's logit, each a float32 (B, S); its backward is the rank's
+columns of ``softmax - onehot``, with no collective.
+
+In the reference's GSPMD step the expert exchange is a ``shard_map``
+manual over ``"data"`` alone (``in_specs`` ``P("data")``), while the batch
+lies over ``("pod", "data")``, pod-major: on a mesh of ``P`` pods and
+``D`` data ranks, rank (p, d) holds block ``j = p D + d`` of the global
+batch's ``P D`` blocks, and the body on data coordinate ``d`` (every
+pod's rank alike) dispatches rows ``[d B / D, (d + 1) B / D)``, blocks
+``d P .. d P + P - 1``, with the capacity of that many tokens: on the
+(2, 2, 1) mesh ranks (0, 0) and (1, 0) both dispatch blocks 0 and 1,
+those of ranks (0, 0) and (0, 1), and (0, 1) and (1, 1) blocks 2 and 3.
+Which of a block's pairs drop depends only on the expert ids of the
+whole set of blocks and on their count, so ``pool_ids`` all-gathers the
+(T, k) ids over the ``P`` ranks that hold a set (no activation moves, no
+backward): each rank ranks the pooled pairs with the set's capacity and
+dispatches its own rows at their slots, and each pod works only its own
+rows where the reference's pods repeat each other's.
 
 Fully sharded data parallelism (FSDP) over ``fsdp_axis``: a rank holds
 a slice of each FSDP leaf (``launch.sharding``), and ``fsdp_gather``
@@ -74,6 +110,9 @@ class DistCtx:
     # replicated-token test reads the global batch, which always splits
     sharded_batch: bool = False
     fsdp_axis: Optional[str] = None     # the axis FSDP slices lie on
+    # the residual stream cut on the sequence over the TP axis (a config's
+    # seq_parallel, where the sequence splits; never in a decode step)
+    seq_parallel: bool = False
 
 
 _CURRENT = DistCtx()
@@ -236,29 +275,49 @@ def all_reduce_sum(ctx: DistCtx, t: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _tp_sum(ctx: DistCtx, t: torch.Tensor, span: int) -> torch.Tensor:
-    """The sum of ``t`` over the TP group, in float32 on the wire where
-    ``t`` is a narrower float (gloo sums no bfloat16), cast back after."""
+def _tp_sum(ctx: DistCtx, t: torch.Tensor, span: int, op=dist.ReduceOp.SUM,
+            kind: str = "tp_sum") -> torch.Tensor:
+    """The sum (or ``op``) of ``t`` over the TP group, in float32 on the
+    wire where ``t`` is a narrower float (gloo sums no bfloat16), cast
+    back after."""
     group, _, _ = tp_group(ctx, span)
     wide = t.float() if t.dtype in (torch.bfloat16, torch.float16) else t
     h = _stage(wide, ctx.mesh)
     if h is t:
         h = t.clone()
-    tally("tp_sum", _nbytes(h))
-    dist.all_reduce(h, op=dist.ReduceOp.SUM, group=group)
+    tally(kind, _nbytes(h))
+    dist.all_reduce(h, op=op, group=group)
     return h.to(device=t.device, dtype=t.dtype)
 
 
-def _tp_cat(ctx: DistCtx, t: torch.Tensor) -> torch.Tensor:
-    """The TP ranks' ``t`` concatenated along the last dim, in rank
+def _gather(mesh, group, n: int, t: torch.Tensor, dim: int,
+            kind: str) -> torch.Tensor:
+    """The ``n`` ranks' ``t`` of ``group`` joined along ``dim``, in rank
     order (the bytes gathered: any dtype)."""
-    group, _, n = tp_group(ctx)
-    h = _stage(t, ctx.mesh)
+    h = _stage(t, mesh)
     parts = [torch.empty_like(h) for _ in range(n)]
-    tally("tp_cat", _nbytes(h))
+    tally(kind, _nbytes(h))
     dist.all_gather([_wire_view(p) for p in parts], _wire_view(h),
                     group=group)
-    return torch.cat(parts, dim=-1).to(t.device)
+    return torch.cat(parts, dim=dim).to(t.device)
+
+
+def _sum_block(mesh, group, n: int, t: torch.Tensor, dim: int,
+               kind: str) -> torch.Tensor:
+    """This rank's block along ``dim`` of the sum of ``t`` over the ``n``
+    ranks of ``group``, in float32 (gloo sums no bfloat16)."""
+    wide = t.float()
+    blocks = [_stage(b.contiguous(), mesh) for b in wide.chunk(n, dim)]
+    out = torch.empty_like(blocks[0])
+    tally(kind, _nbytes(wide))
+    dist.reduce_scatter(out, blocks, op=dist.ReduceOp.SUM, group=group)
+    return out.to(t.device)
+
+
+def _tp_cat(ctx: DistCtx, t: torch.Tensor) -> torch.Tensor:
+    """The TP ranks' ``t`` concatenated along the last dim."""
+    group, _, n = tp_group(ctx)
+    return _gather(ctx.mesh, group, n, t, -1, "tp_cat")
 
 
 class _TPCopy(torch.autograd.Function):
@@ -321,6 +380,153 @@ def tp_gather(ctx: DistCtx, t: torch.Tensor) -> torch.Tensor:
     return _TPGather.apply(t, ctx)
 
 
+def seq_cut(ctx: DistCtx) -> bool:
+    """Is the residual stream cut on the sequence over the TP axis?"""
+    return ctx.seq_parallel and tp_size(ctx) > 1
+
+
+def _seq_cat(ctx: DistCtx, t: torch.Tensor) -> torch.Tensor:
+    """The TP ranks' blocks of positions (B, S / tp, ...) joined into
+    (B, S, ...), in rank order."""
+    group, _, n = tp_group(ctx)
+    return _gather(ctx.mesh, group, n, t, 1, "tp_seq_gather")
+
+
+def _seq_sum_block(ctx: DistCtx, t: torch.Tensor) -> torch.Tensor:
+    """This rank's block of positions of the sum of ``t`` (B, S, ...)
+    over the TP axis, in ``t``'s dtype."""
+    group, _, n = tp_group(ctx)
+    return _sum_block(ctx.mesh, group, n, t, 1,
+                      "tp_seq_scatter").to(t.dtype)
+
+
+class _SeqGather(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, t, ctx):
+        fctx.ctx = ctx
+        return _seq_cat(ctx, t.contiguous())
+
+    @staticmethod
+    def backward(fctx, grad):
+        return _seq_sum_block(fctx.ctx, grad.contiguous()), None
+
+
+class _SeqScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, t, ctx):
+        fctx.ctx = ctx
+        return _seq_sum_block(ctx, t.contiguous())
+
+    @staticmethod
+    def backward(fctx, grad):
+        return _seq_cat(fctx.ctx, grad.contiguous()), None
+
+
+def tp_enter(ctx: DistCtx, x: torch.Tensor) -> torch.Tensor:
+    """The residual stream (B, S, D) where a mixer or an MLP takes it:
+    ``tp_copy`` of it, or under ``seq_cut`` the whole sequence gathered
+    from the ranks' blocks (the gradient reduce-scattered back)."""
+    if tp_size(ctx) == 1:
+        return x
+    if seq_cut(ctx):
+        return _SeqGather.apply(x, ctx)
+    return _TPCopy.apply(x, ctx, 0)
+
+
+def tp_exit(ctx: DistCtx, y: torch.Tensor) -> torch.Tensor:
+    """A row-parallel output's partial sums (B, S, D) back into the
+    residual stream: ``tp_reduce``, or under ``seq_cut`` the sum's block
+    of this rank's positions (the gradient all-gathered)."""
+    if tp_size(ctx) == 1:
+        return y
+    if seq_cut(ctx):
+        return _SeqScatter.apply(y, ctx)
+    return _TPReduce.apply(y, ctx)
+
+
+def seq_block(ctx: DistCtx, x: torch.Tensor) -> torch.Tensor:
+    """This rank's block of positions of a replicated (B, S, ...) input
+    under ``seq_cut`` (an audio model's frames), else ``x``."""
+    if not seq_cut(ctx):
+        return x
+    n, i = tp_size(ctx), tp_index(ctx)
+    return x.chunk(n, 1)[i]
+
+
+class _VocabCE(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, logits, labels, ctx):
+        v_loc = logits.shape[-1]
+        local = labels.long() - tp_index(ctx) * v_loc
+        mine = (local >= 0) & (local < v_loc)
+        local = torch.where(mine, local, torch.zeros_like(local))
+        m = _tp_sum(ctx, logits.amax(-1), 0, dist.ReduceOp.MAX, "tp_loss")
+        sumexp = _tp_sum(ctx, torch.exp(logits - m[..., None]).sum(-1), 0,
+                         kind="tp_loss")
+        lse = m + torch.log(sumexp)
+        picked = logits.gather(-1, local[..., None])[..., 0] * mine
+        picked = _tp_sum(ctx, picked, 0, kind="tp_loss")
+        fctx.save_for_backward(logits, lse, local, mine)
+        return lse - picked
+
+    @staticmethod
+    def backward(fctx, grad):
+        logits, lse, local, mine = fctx.saved_tensors
+        g = torch.exp(logits - lse[..., None])
+        g.scatter_add_(-1, local[..., None], -mine[..., None].to(g.dtype))
+        return g * grad[..., None], None, None
+
+
+def vocab_ce(ctx: DistCtx, logits: torch.Tensor, labels: torch.Tensor
+             ) -> torch.Tensor:
+    """Per position ``logsumexp(z) - z[label]`` of the float32 logits z
+    (B, S, V) whose columns ``[i V / tp, (i+1) V / tp)`` are this rank's
+    ``logits`` (the padded columns already at -1e30); ``labels`` (B, S)
+    are global column indices in ``[0, V)``."""
+    return _VocabCE.apply(logits, labels, ctx)
+
+
+# ---------------------------------------------------------------------------
+# The GSPMD step's expert dispatch over the dp axes' blocks of rows
+# ---------------------------------------------------------------------------
+
+
+def pooled(ctx: DistCtx) -> bool:
+    """Does the expert dispatch rank a set of blocks pooled from several
+    ranks (the GSPMD step, ``sharded_batch``, on a mesh whose dp axes
+    other than the expert axis have more than one rank)?"""
+    if not ctx.sharded_batch or ctx.mesh is None or ctx.ep_axis is None:
+        return False
+    return _pool_shape(ctx)[0] > 1
+
+
+def _pool_shape(ctx: DistCtx) -> tuple:
+    """(P, D, j): the dp extent off the expert axis, the expert axis's
+    extent, and this rank's block (its node id over the dp axes, the
+    expert axis minor)."""
+    mesh = ctx.mesh
+    if ctx.dp_axes[-1] != ctx.ep_axis:
+        raise ConfigError(f"the expert axis {ctx.ep_axis!r} must be the last "
+                          f"dp axis of {ctx.dp_axes}")
+    D = mesh.shape[ctx.ep_axis]
+    n = 1
+    j = 0
+    for a in ctx.dp_axes:
+        n *= mesh.shape[a]
+        j = j * mesh.shape[a] + mesh.coord(a)
+    return n // D, D, j
+
+
+def pool_ids(ctx: DistCtx, idx: torch.Tensor) -> tuple:
+    """(the expert ids (P T, k) of this rank's set of blocks ``s P .. s P
+    + P - 1``, ``s = j // P``, in block order; this rank's place ``j % P``
+    in it) from this rank's ids ``idx`` (T, k)."""
+    P, D, j = _pool_shape(ctx)
+    group, _ = subgroup(ctx.mesh, ctx.dp_axes,
+                        [tuple(range(s * P, (s + 1) * P)) for s in range(D)])
+    return _gather(ctx.mesh, group, P, idx, 0, "dp_pool"), j % P
+
+
 # ---------------------------------------------------------------------------
 # FSDP over ctx.fsdp_axis
 # ---------------------------------------------------------------------------
@@ -336,24 +542,14 @@ def fsdp_size(ctx: DistCtx) -> int:
 def _fsdp_cat(ctx: DistCtx, t: torch.Tensor, dim: int) -> torch.Tensor:
     """The axis's slices of ``t`` joined along ``dim``, in rank order."""
     group, _, n = axis_group(ctx.mesh, ctx.fsdp_axis)
-    h = _stage(t, ctx.mesh)
-    parts = [torch.empty_like(h) for _ in range(n)]
-    tally("fsdp_gather", _nbytes(h))
-    dist.all_gather([_wire_view(p) for p in parts], _wire_view(h),
-                    group=group)
-    return torch.cat(parts, dim=dim).to(t.device)
+    return _gather(ctx.mesh, group, n, t, dim, "fsdp_gather")
 
 
 def _fsdp_scatter(ctx: DistCtx, g: torch.Tensor, dim: int) -> torch.Tensor:
     """This rank's block along ``dim`` of the sum of ``g`` over the axis,
-    in float32 (gloo sums no bfloat16)."""
+    in float32."""
     group, _, n = axis_group(ctx.mesh, ctx.fsdp_axis)
-    wide = g.float()
-    blocks = [_stage(b.contiguous(), ctx.mesh) for b in wide.chunk(n, dim)]
-    out = torch.empty_like(blocks[0])
-    tally("fsdp_scatter", _nbytes(wide))
-    dist.reduce_scatter(out, blocks, op=dist.ReduceOp.SUM, group=group)
-    return out.to(g.device)
+    return _sum_block(ctx.mesh, group, n, g, dim, "fsdp_scatter")
 
 
 class _FSDPGather(torch.autograd.Function):

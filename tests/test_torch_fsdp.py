@@ -7,19 +7,23 @@ training and serving steps against the reference's GSPMD steps.
     production meshes, the local shape the reference's
     ``param_specs`` implies (each dimension divided by the extents of
     the axes its spec names; the KV leaves by whole KV heads, the port's
-    cut); llama4-maverick's 40 query heads at TP 16 raise.
+    cut; the query-head leaves by the rank's heads of the padded split:
+    llama4-maverick's 40 heads at TP 16 padded to 48, so its ``wq`` is
+    320 x 384 a rank, its ``wk`` one KV head).
   * ``unshard_tree(shard_tree(x, fsdp="data"))`` is ``x`` for every smoke
     config on (2, 2) and (2, 2, 2) meshes, and an FSDP leaf is a slice on
     its ``d_model`` side.
   * 2 ``train_loop`` steps of command-r-35b and qwen3-moe-235b-a22b at
     their smoke widths in float32 on a (2, 2) ("data", "model") mesh, and
     of qwen3-moe on a (2, 2, 1) ("pod", "data", "model") mesh (its
-    experts split over "data", synced over "pod"; at capacity factor 16,
-    where no token drops: the reference's GSPMD step dispatches the
-    tokens of a "data" block of rows across both pods together, its EP
-    ``shard_map`` being manual over "data" alone, while each rank of the
-    port dispatches its own rows, so where tokens drop the two keep
-    different ones), against the
+    experts split over "data", synced over "pod") at capacity factor 16,
+    where no token drops, and at 1.25, where tokens drop: the
+    reference's GSPMD step dispatches the rows of a "data" block, pooled
+    from two ranks, with the capacity of their tokens (its EP
+    ``shard_map`` is manual over "data" alone), and the port ranks those
+    rows' expert ids pooled so (``runtime.context.pool_ids``); a dispatch
+    that ranks each rank's own rows alone keeps other tokens at 1.25,
+    against the
     reference's ``build_train_step`` (GSPMD, FSDP on "data") on 4 host
     devices from the same weights: losses within 1e-5 relative, every
     parameter joined from the ranks' slices within 1e-5 (of its leaf's
@@ -57,7 +61,6 @@ from repro_torch.configs import get_smoke_config as p_smoke
 from repro_torch.convert import (model_config_from_fields,
                                  model_params_from_numpy)
 from repro_torch.core.engine import tree_flatten
-from repro_torch.core.schedules import ConfigError
 from repro_torch.data.pipeline import DataConfig, SyntheticStream
 from repro_torch.launch import sharding as SH
 from repro_torch.launch import steps as ST
@@ -72,12 +75,13 @@ PROD = {"16x16": ((16, 16), ("data", "model")),
 ROUND = {"2x2": ((2, 2), ("data", "model")),
          "2x2x2": ((2, 2, 2), ("pod", "data", "model"))}
 TRAIN = [("command-r-35b", "2x2"), ("qwen3-moe-235b-a22b", "2x2"),
-         ("qwen3-moe-235b-a22b", "pod")]
+         ("qwen3-moe-235b-a22b", "pod"), ("qwen3-moe-235b-a22b", "pod125")]
 TRAIN_MESH = {"2x2": ((2, 2), ("data", "model")),
-              "pod": ((2, 2, 1), ("pod", "data", "model"))}
+              "pod": ((2, 2, 1), ("pod", "data", "model")),
+              "pod125": ((2, 2, 1), ("pod", "data", "model"))}
 RESTART = {("command-r-35b", "2x2")}
-# the pod case's capacity factor (none drops)
-CAPACITY = {"pod": 16.0}
+# the pod cases' capacity factors: none drops at 16, pairs drop at 1.25
+CAPACITY = {"pod": 16.0, "pod125": 1.25}
 S, GB, STEPS = 16, 4, 2
 OPT = dict(lr=1e-3, eps=1e-3, warmup_steps=5, total_steps=100,
            grad_clip=1.0)
@@ -169,10 +173,6 @@ def test_fsdp_slices_have_the_reference_shapes(ref_units, arch, mesh):
     pmesh = SH.AbstractMesh(shape, axes)
     cfg = dataclasses.replace(p_config(arch), n_units=1)
     full = ST.abstract_params(cfg)
-    if arch == "llama4-maverick-400b-a17b":
-        with pytest.raises(ConfigError, match="40 query heads"):
-            SH.shard_tree(cfg, full, pmesh, rank=0, fsdp="data")
-        return
     jspecs = JSH.param_specs(get_config(arch), ref_units[arch],
                              JMesh(shape, axes))
     want = {}
@@ -196,7 +196,15 @@ def test_fsdp_slices_have_the_reference_shapes(ref_units, arch, mesh):
                 _, n_kv = PM.L.kv_block(cfg, 16, pmesh.coord("model", rank))
                 d = len(spec) - 1
                 local = local[:d] + (n_kv * cfg.hd,)
+            if path[-1] in SH.Q_LEAVES and "mixer" in path:
+                n_q = len(PM.L.q_heads(cfg, 16, pmesh.coord("model", rank)))
+                d = SH.Q_LEAVES[path[-1]] % leaf.dim()
+                local = local[:d] + (n_q * cfg.hd,) + local[d + 1:]
             assert tuple(leaf.shape) == local, (path, leaf.shape, local)
+            if arch == "llama4-maverick-400b-a17b" and path[-1] == "wq":
+                assert tuple(leaf.shape) == (5120 // 16, 384)
+            if arch == "llama4-maverick-400b-a17b" and path[-1] == "wk":
+                assert leaf.shape[-1] == cfg.hd
             if SH.fsdp_dim(cfg, path, leaf) is not None:
                 n_fsdp += 1
     assert (n_fsdp > 0) == (cfg.dp_mode == "fsdp"), n_fsdp
@@ -269,7 +277,8 @@ def run(tmp_path_factory):
     env = dict(os.environ)
     env["PYTHONPATH"] = SRC + os.pathsep + env.get("PYTHONPATH", "")
     env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
-    kw = {"2x2": dict(data=2, model=2), "pod": dict(pod=2, data=2, model=1)}
+    kw = {"2x2": dict(data=2, model=2), "pod": dict(pod=2, data=2, model=1),
+          "pod125": dict(pod=2, data=2, model=1)}
     refs = []
     for arch in sorted({a for a, _ in TRAIN}):
         meshes = [(m, kw[m], CAPACITY.get(m)) for a, m in TRAIN

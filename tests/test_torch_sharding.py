@@ -245,17 +245,38 @@ def test_kv_heads_fewer_than_tp_ranks_at_full_width():
 
 
 @pytest.mark.parametrize("arch,tp,names", [
-    ("llama4-maverick-400b-a17b", 16, "40 query heads"),
+    ("llama4-maverick-400b-a17b", 16, None),
     ("qwen3-1.7b", 3, "16 query heads"),
     ("mamba2-370m", 3, "32 SSD heads"),
 ], ids=["llama4-tp16", "qwen3-tp3", "mamba2-tp3"])
 def test_tp_that_does_not_split_raises(arch, tp, names):
+    """A TP extent that does not split a config raises, except for query
+    heads whose KV heads split: llama4-maverick's 40 heads at TP 16 are
+    padded (groups of 5 to 6), on meta tensors each rank's ``wq`` is
+    5,120 x 384 (3 heads), its ``wk`` one KV head, its ``wo`` 384 x
+    5,120, and the unpadded shapes come back from ``unshard_tree``."""
     cfg = p_config(arch)
+    am = SH.AbstractMesh((1, tp), ("data", "model"))
+    one = dataclasses.replace(cfg, n_units=1)
+    if names is None:
+        SH.check_tp(cfg, tp)
+        ST._check_mesh(cfg, am)
+        assert SH.pad_heads(cfg, tp) == 8
+        full = ST.abstract_params(one)
+        slices = [SH.shard_tree(one, full, am, rank=r) for r in range(tp)]
+        for r, sl in enumerate(slices):
+            mixer = sl["units"][0]["layer0"]["mixer"]
+            assert tuple(mixer["wq"].shape) == (cfg.d_model, 3 * cfg.hd)
+            assert tuple(mixer["wk"].shape) == (cfg.d_model, cfg.hd)
+            assert tuple(mixer["wo"].shape) == (3 * cfg.hd, cfg.d_model)
+            assert PM.L.kv_block(cfg, tp, r) == (r // 2, 1)
+        back = SH.unshard_tree(one, slices, am)
+        for a, b in zip(tree_flatten(back)[0], tree_flatten(full)[0]):
+            assert a.shape == b.shape
+        return
     with pytest.raises(ConfigError, match=names):
         SH.check_tp(cfg, tp)
-    am = SH.AbstractMesh((1, tp), ("data", "model"))
     with pytest.raises(ConfigError, match=f"the {tp} ranks of 'model'"):
-        SH.shard_tree(cfg, ST.abstract_params(
-            dataclasses.replace(cfg, n_units=1)), am, rank=0)
+        SH.shard_tree(cfg, ST.abstract_params(one), am, rank=0)
     with pytest.raises(ConfigError):
         ST._check_mesh(cfg, am)

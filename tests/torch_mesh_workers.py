@@ -637,12 +637,14 @@ def run_tp_serve(case, inputs, mesh) -> dict:
     (an encoder: its forward), then ``case["steps"]`` decode steps fed
     the tokens ``inputs[case["forced"]]`` (B, steps), each step's whole
     logits kept; with ``case["serve"]`` also ``serve`` (greedy tokens).
-    Also the digests of the router's ids and of the residual stream.
+    Also the digests of the router's ids and of the residual stream, and
+    the prefill's collective calls by kind (``prefill_calls_<kind>``).
     ``case["fsdp"]`` (``"data"``) cuts the FSDP leaves of the slice too."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch import serve as SV
     from repro_torch.launch import sharding as SH
     from repro_torch.launch import steps as ST
+    from repro_torch.runtime import context as C
     cfg = _cfg(case)
     B, PL, steps = case["batch"], case["prompt_len"], case["steps"]
     full = _full_params(case, inputs)
@@ -660,7 +662,10 @@ def run_tp_serve(case, inputs, mesh) -> dict:
         if not cfg.decoder:
             out["logits"] = pre(params, prompts).numpy()
             return {**out, **taps.close()}
+        C.reset_collective_counts()
         logits, cache = pre(params, prompts)
+        out.update({f"prefill_calls_{k}": np.int64(v["calls"])
+                    for k, v in C.collective_counts().items()})
         dec, _ = ST.build_decode_step(
             cfg, mesh, ShapeConfig("d", PL + steps, B, "decode"))
         got = [logits]
@@ -724,12 +729,44 @@ def run_tp_train(case, inputs, mesh) -> dict:
     return out
 
 
+def run_tp_grads(case, inputs, mesh) -> dict:
+    """One baseline step's loss and synced gradients (no update) on this
+    rank's slice and rows of the global batch ``inputs[case["batch"] +
+    "/..."]``, under the step's context; with the collective calls by
+    kind of that loss and backward (``calls_<kind>``)."""
+    from repro_torch.core.engine import flat_node_id, tree_flatten
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.mesh import dp_axes_of
+    from repro_torch.runtime import context as C
+    cfg = _cfg(case)
+    params = SH.shard_tree(cfg, _full_params(case, inputs), mesh)
+    full = {k[len(case["batch"]) + 1:]: v for k, v in inputs.items()
+            if k.startswith(case["batch"] + "/")}
+    gb, S = full["tokens"].shape
+    rows = gb // SH.dp_extent(mesh)
+    i = flat_node_id(mesh, dp_axes_of(mesh))
+    batch = {k: torch.from_numpy(v[i * rows:(i + 1) * rows].copy())
+             for k, v in full.items()}
+    C.reset_collective_counts()
+    with C.use_ctx(ST.dist_ctx(cfg, mesh, sharded_batch=True)):
+        loss, grads = ST.local_grads(cfg, params, batch, gb * S)
+    out = {f"calls_{k}": np.int64(v["calls"])
+           for k, v in C.collective_counts().items()}
+    ST.sync_grads_(cfg, loss, grads, mesh)
+    out["loss"] = loss.numpy()
+    out.update({f"g{j}": t.numpy()
+                for j, t in enumerate(tree_flatten(grads)[0])})
+    return out
+
+
 RUN = {"execute": run_execute, "tree": run_tree, "reorder": run_reorder,
        "host_mesh": run_host_mesh, "cluster_sum": run_cluster_sum,
        "facade": run_facade, "wrong_world": run_wrong_world,
        "stale_wire": run_stale_wire, "service": run_service,
        "funcs": run_funcs, "moe": run_moe, "train_moe": run_train_moe,
-       "tp_serve": run_tp_serve, "tp_train": run_tp_train}
+       "tp_serve": run_tp_serve, "tp_train": run_tp_train,
+       "tp_grads": run_tp_grads}
 
 
 def _regroup(job_dir: str, tag: str, rank: int, world: int) -> None:
