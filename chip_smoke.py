@@ -269,7 +269,16 @@ with a non-zero exit code:
            and 2 backward launches a rank; flash and its backward at
            that rank shape (window 8,192 and full mask) against their
            plain versions and timed beside SDPA, the SSD scan at (d)'s
-           mamba2 rank
+           mamba2 rank; (f) the same two layers' prefill of 1 x 10,240
+           seeded positions and 16 decode steps through the serving
+           path's unit prefill and decode, float32, on (1, 16), the KV
+           cache cut on its positions over "model" (the reference's
+           layout: every KV head, 1/16 of the positions a rank), against
+           one rank with the whole cache within LOGIT_TOL_F32 of the
+           largest entry, equal on every rank, a rank's cache bytes
+           1/16 of one rank's, the cut's collectives by kind.  Where the
+           mesh phase runs too, its 16 ranks run (e) and (f); where the
+           tp phase runs, its 2 ranks run (d)
   launch   (a) ``launch.serve_agg --transport mesh`` at --overlay-n 192:
            16 rank processes on the card, 64 additive sessions of 2^16 and
            16 medians on 1,024 steps in batches of 16, each beside the
@@ -2457,7 +2466,7 @@ def phase_mesh(dev, seed: int, shape: Optional[dict] = None,
     a gloo group, every wire staged through host memory, the kernels in
     every rank.  The parent computes the port's sim on the card first and
     hands the ranks its hashes.  With ``tp2_e_dir`` the ranks then run
-    tp2 (e) into it (``_mesh_then_tp2e_rank``)."""
+    tp2 (e) and (f) into it (``_mesh_then_tp2e_rank``)."""
     from repro_torch import SecureAggregator
     from repro_torch.core.byzantine import ByzantineSpec
     from repro_torch.core.masking import quantization_error_bound
@@ -4052,13 +4061,17 @@ def _tp_f32_check(params, prompts: dict, forced: torch.Tensor, prefill,
     return torch.cat(got, dim=1)
 
 
-def _tp_serve_rank(rank: int, seed: int, job_dir: str, shape: dict) -> None:
+def _tp_serve_rank(rank: int, seed: int, job_dir: str, shape: dict,
+                   d_dir: Optional[str] = None,
+                   d_shape: Optional[dict] = None) -> None:
     """One rank of tp (a) / (b): for each arch the full draw from the
     seed (every rank the same), ``serve`` on the (1, tp) mesh (this
     rank's slice cut by ``shard_tree``), its launches counted from 0
-    before it, its peak memory; then the float32 prefill and
-    teacher-forced decode steps at the cut depth, whose logits rank 0
-    writes beside ``tp{r}.json``."""
+    before it, its peak memory, its cache bytes; then the float32
+    prefill and teacher-forced decode steps at the cut depth, whose
+    logits rank 0 writes beside ``tp{r}.json``.  With ``d_dir`` the rank
+    then runs tp2 (d) at ``d_shape`` (default TP2_SHAPE) into it (one
+    spawn of 2 processes fewer)."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.kernels import backend
     from repro_torch.launch import serve as SV
@@ -4115,12 +4128,17 @@ def _tp_serve_rank(rank: int, seed: int, job_dir: str, shape: dict) -> None:
         out[arch] = {
             "prefill_s": res["t_prefill_s"], "decode_s": res["t_decode_s"],
             "decode_tok_per_s": res["tok_per_s"], "peak_mem_bytes": peak,
-            "weight_bytes": weight_bytes,
+            "weight_bytes": weight_bytes, "cache_bytes": res["cache_bytes"],
             "launches": {k: v for k, v in counts.items() if v},
             "launches_prefill": {k: v for k, v in
                                  res["launches"]["prefill"].items() if v},
             "launches_decode": sum(res["launches"]["decode"].values())}
     (pathlib.Path(job_dir) / f"tp{rank}.json").write_text(json.dumps(out))
+    if d_dir is not None:
+        if cuda:
+            torch.cuda.empty_cache()
+        _tp2_train_rank(rank, seed, d_dir, dict(d_shape or TP2_SHAPE,
+                                                device=shape["device"]))
 
 
 def _tp_train_cfg(shape: dict):
@@ -4265,7 +4283,8 @@ def _tp_kernels(rng, dev, errs: dict) -> dict:
     return out
 
 
-def phase_tp(dev, seed: int, errs: dict, shape: Optional[dict] = None
+def phase_tp(dev, seed: int, errs: dict, shape: Optional[dict] = None,
+             d_dir: Optional[str] = None, d_shape: Optional[dict] = None
              ) -> tuple[dict, dict]:
     """Tensor parallelism over "model" on gloo ranks of the one card:
     (a) / (b) ``serve`` on a (1, 2) mesh against the one-rank serve and
@@ -4273,7 +4292,8 @@ def phase_tp(dev, seed: int, errs: dict, shape: Optional[dict] = None
     one-rank secure step, and the kernels at the ranks' shapes.  Returns
     the line and, for the kernels line, the per-rank shapes and
     launches.  ``shape`` overrides TP_SHAPE (``smoke=True`` and small
-    serve shapes in a CPU rehearsal)."""
+    serve shapes in a CPU rehearsal).  With ``d_dir`` the serve's ranks
+    then run tp2 (d) at ``d_shape`` into it (``_tp_serve_rank``)."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.data.pipeline import DataConfig, SyntheticStream
     from repro_torch.launch import serve as SV
@@ -4298,7 +4318,8 @@ def phase_tp(dev, seed: int, errs: dict, shape: Optional[dict] = None
     try:
         # (a), (b): the serve on its ranks, then the one-rank references
         t0 = time.perf_counter()
-        spawn_nodes(_tp_serve_rank, shape["tp"], seed, str(job), shape)
+        spawn_nodes(_tp_serve_rank, shape["tp"], seed, str(job), shape,
+                    d_dir, d_shape)
         out["serve_spawn_s"] = time.perf_counter() - t0
         ranks = [json.loads((job / f"tp{r}.json").read_text())
                  for r in range(shape["tp"])]
@@ -4361,7 +4382,8 @@ def phase_tp(dev, seed: int, errs: dict, shape: Optional[dict] = None
                 "f32_logit_max_abs": float(ref.abs().max()),
                 "bf16_tokens_equal_one_rank_share": agree,
                 "one_rank_prefill_s": one["t_prefill_s"],
-                "one_rank_decode_tok_per_s": one["tok_per_s"]}
+                "one_rank_decode_tok_per_s": one["tok_per_s"],
+                "one_rank_cache_bytes": one["cache_bytes"]}
             for k, v in ranks[0][arch]["launches_prefill"].items():
                 per_rank.setdefault(k, {})[arch] = v
         # (c): the secure step on the (2, 2) mesh, then on one rank
@@ -4430,11 +4452,20 @@ def phase_tp(dev, seed: int, errs: dict, shape: Optional[dict] = None
 # 1,024, 8 / 4 heads, hd 128, causal) and at (e)'s (1 x 2,048, 3 / 1
 # heads, hd 128, with the window and with the full causal mask), the SSD
 # scan and its backward at mamba2's (1, 2) rank under seq_parallel (16
-# heads, the whole sequence).
+# heads, the whole sequence).  (f) the same two layers as the serving
+# path runs them (``models.model._unit_prefill`` / ``_unit_decode``: the
+# norm, the attention, the cache), float32, on the (1, 16) mesh, batch
+# "f_batch": the prefill of "f_prompt" seeded positions of the residual
+# stream, then "f_decode" steps, against one rank with the whole cache
+# within LOGIT_TOL_F32 of the largest entry; the cache cut on its
+# positions over "model" (the window's 8,192 slots in 512-slot blocks:
+# the tail of 2,048 spans four ranks' blocks), a rank's cache bytes 1/16
+# of one rank's.
 TP2_SHAPE = {"archs": ("qwen3-1.7b", "mamba2-370m"), "units": 2,
              "batch": 4, "seq": 1024,
              "e_arch": "llama4-maverick-400b-a17b", "e_tp": 16,
              "e_batch": 1, "e_seq": 2048, "e_heads": None, "smoke": False,
+             "f_batch": 1, "f_prompt": 10240, "f_decode": 16,
              # (B, Sq, Skv, H, K, hd, causal, window) and (B, S, H, P, N)
              # a rank
              "flash_cases": [(4, 1024, 1024, 8, 4, 128, True, 0),
@@ -4597,16 +4628,112 @@ def _tp2_attn_rank(rank: int, seed: int, job_dir: str, shape: dict
         "dx_sha": hashlib.sha256(dx.tobytes()).hexdigest()}))
 
 
+def _tp2_cache(cfg, shape: dict, seed: int, dev, mesh) -> dict:
+    """(f): the unit's two attention layers (the chunked one, then the
+    global one; no MLP) through the serving path's unit prefill and
+    decode on the seeded residual stream: the prefill's last position
+    and each step's output (float32, on the CPU), the cache's bytes, the
+    collective bytes by kind of the prefill and of the steps, the
+    launches and the seconds of each.  On a mesh, this rank's slice of
+    the seeded weights under the serving context (the cache cut on its
+    positions)."""
+    from repro_torch.configs.base import (ATTN, ATTN_CHUNKED, NONE,
+                                          LayerSpec, ShapeConfig)
+    from repro_torch.kernels import backend
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.runtime import context as C
+    cfg = dataclasses.replace(cfg, n_units=1, pattern=(
+        LayerSpec(ATTN_CHUNKED, NONE), LayerSpec(ATTN, NONE)))
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 3)
+    unit = {f"layer{i}": {"norm1": L.make_norm_params(cfg, g),
+                          "mixer": L.make_attn_params(cfg, g)}
+            for i in range(2)}
+    B, P, steps = shape["f_batch"], shape["f_prompt"], shape["f_decode"]
+    ctx = C.DistCtx()
+    if mesh is not None:
+        unit = SH.shard_tree(cfg, {"units": [unit]}, mesh)["units"][0]
+        ctx = ST.serve_ctx(cfg, mesh, ShapeConfig("f", P + steps, B,
+                                                  "decode"))[0]
+    rng = np.random.default_rng(seed + 4)
+    x = torch.from_numpy(rng.standard_normal((B, P, cfg.d_model),
+                                             np.float32)).to(dev)
+    xs = torch.from_numpy(rng.standard_normal((steps, B, 1, cfg.d_model),
+                                              np.float32)).to(dev)
+    out = {}
+    with C.use_ctx(ctx), torch.no_grad():
+        _sync(dev)
+        backend.reset_launch_counts()
+        C.reset_collective_counts()
+        t0 = time.perf_counter()
+        y, cache = M._unit_prefill(cfg, unit, x, None, max_seq=P + steps,
+                                   impl=None)
+        _sync(dev)
+        out["prefill_s"] = time.perf_counter() - t0
+        out["prefill_launches"] = {k: v for k, v in
+                                   backend.launch_counts().items() if v}
+        out["prefill_collective_bytes"] = {
+            k: v["bytes"] for k, v in C.collective_counts().items()}
+        ys = [y[:, -1:].cpu()]
+        del y
+        backend.reset_launch_counts()
+        C.reset_collective_counts()
+        t0 = time.perf_counter()
+        for i in range(steps):
+            yi, cache = M._unit_decode(cfg, unit, cache, xs[i], P + i)
+            ys.append(yi.cpu())
+        _sync(dev)
+        out["decode_s"] = time.perf_counter() - t0
+        out["decode_launches"] = sum(backend.launch_counts().values())
+        out["decode_collective_bytes"] = {
+            k: v["bytes"] for k, v in C.collective_counts().items()}
+    out["cache_bytes"] = sum(t.numel() * t.element_size()
+                             for layer in cache.values()
+                             for t in layer.values())
+    out["cache_shapes"] = {f"{name}/{k}": list(t.shape)
+                           for name, layer in cache.items()
+                           for k, t in layer.items()}
+    out["y"] = torch.cat(ys, dim=1)
+    return out
+
+
+def _tp2_cache_rank(rank: int, seed: int, job_dir: str, shape: dict
+                    ) -> None:
+    """One rank of tp2 (f) on the (1, e_tp) mesh: rank 0 writes the
+    outputs, every rank their digest and its figures."""
+    from repro_torch.launch.mesh import make_host_mesh
+    dev = torch.device(shape["device"])
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+        torch.cuda.empty_cache()
+    mesh = make_host_mesh(data=1, model=shape["e_tp"])
+    res = _tp2_cache(_tp2_attn_cfg(shape), shape, seed, dev, mesh)
+    y = res.pop("y").numpy()
+    if rank == 0:
+        np.save(pathlib.Path(job_dir) / "f_y.npy", y)
+    res.update(rank=rank, y_sha=hashlib.sha256(y.tobytes()).hexdigest())
+    (pathlib.Path(job_dir) / f"tp2f{rank}.json").write_text(json.dumps(res))
+
+
+def _tp2_ef_rank(rank: int, seed: int, job_dir: str, shape: dict) -> None:
+    """One rank of tp2 (e), then (f), in one process."""
+    _tp2_attn_rank(rank, seed, job_dir, shape)
+    _tp2_cache_rank(rank, seed, job_dir, shape)
+
+
 def _mesh_then_tp2e_rank(rank: int, seed: int, job_dir: str, shape: dict,
                          e_dir: str) -> None:
-    """A mesh phase rank, then tp2 (e) at TP2_SHAPE in the same process
-    and gloo group of N_MESH = e_tp ranks (one spawn of 16 processes
-    fewer): (e)'s files into ``e_dir``, read by ``phase_tp2``."""
+    """A mesh phase rank, then tp2 (e) and (f) at TP2_SHAPE in the same
+    process and gloo group of N_MESH = e_tp ranks (one spawn of 16
+    processes fewer): their files into ``e_dir``, read by
+    ``phase_tp2``."""
     _mesh_rank(rank, seed, job_dir, shape)
     if shape["device"].startswith("cuda"):
         torch.cuda.empty_cache()
-    _tp2_attn_rank(rank, seed, e_dir, dict(TP2_SHAPE,
-                                           device=shape["device"]))
+    _tp2_ef_rank(rank, seed, e_dir, dict(TP2_SHAPE, device=shape["device"]))
 
 
 def _tp2_kernels(rng, dev, errs: dict, shape: dict) -> dict:
@@ -4638,17 +4765,78 @@ def _tp2_kernels(rng, dev, errs: dict, shape: dict) -> dict:
     return out
 
 
+CUT_KINDS = ("tp_cache_a2a", "tp_decode_qkv", "tp_decode_combine")
+
+
+def _tp2_cache_check(cfg, shape: dict, seed: int, dev, f: list,
+                     fy: torch.Tensor) -> dict:
+    """tp2 (f) against one rank with the whole cache: every rank's
+    outputs equal, rank 0's within LOGIT_TOL_F32 of the largest entry
+    of one rank's, a rank's cache 1/e_tp of one rank's, the cut's
+    collectives made (one a layer in the prefill, three a layer a step),
+    the flash kernel launched once a layer in the prefill and nothing
+    in decode."""
+    tp = shape["e_tp"]
+    one = _tp2_cache(cfg, shape, seed, dev, None)
+    ref = one.pop("y")
+    err = max_abs_err(fy, ref)
+    scale = float(ref.abs().max())
+    for r in f:
+        check(r["y_sha"] == f[0]["y_sha"],
+              f"tp2 (f) rank {r['rank']}: outputs differ from rank 0's")
+        check(r["cache_bytes"] * tp == one["cache_bytes"],
+              f"tp2 (f) rank {r['rank']}: cache {r['cache_bytes']} bytes, "
+              f"one rank's {one['cache_bytes']} over {tp}")
+        got = {**r["prefill_collective_bytes"],
+               **r["decode_collective_bytes"]}
+        check(all(got.get(k, 0) > 0 for k in CUT_KINDS),
+              f"tp2 (f) rank {r['rank']}: collectives {got}")
+        if dev.type == "cuda":
+            check(r["prefill_launches"].get("flash_attention", 0) == 2
+                  and r["decode_launches"] == 0,
+                  f"tp2 (f) rank {r['rank']}: launches "
+                  f"{r['prefill_launches']}, {r['decode_launches']} in "
+                  "decode")
+    check(torch.isfinite(fy).all() and err <= LOGIT_TOL_F32 * scale,
+          f"tp2 (f): the cut cache's outputs differ from one rank's by "
+          f"{err} (largest entry {scale})")
+    return {"arch": cfg.name, "mesh": [1, tp], "batch": shape["f_batch"],
+            "prompt": shape["f_prompt"], "decode_steps": shape["f_decode"],
+            "max_err_vs_one_rank": err, "rel_err_vs_one_rank": err / scale,
+            "max_abs": scale,
+            "rank_cache_bytes": f[0]["cache_bytes"],
+            "one_rank_cache_bytes": one["cache_bytes"],
+            "rank_cache_shapes": f[0]["cache_shapes"],
+            "one_rank_cache_shapes": one["cache_shapes"],
+            "rank_cut_bytes": {k: {**f[0]["prefill_collective_bytes"],
+                                   **f[0]["decode_collective_bytes"]}.get(k)
+                               for k in CUT_KINDS},
+            "rank_prefill_collective_bytes":
+                f[0]["prefill_collective_bytes"],
+            "rank_decode_collective_bytes": f[0]["decode_collective_bytes"],
+            "rank_prefill_s": [r["prefill_s"] for r in f],
+            "rank_decode_s": [r["decode_s"] for r in f],
+            "one_rank_prefill_s": one["prefill_s"],
+            "one_rank_decode_s": one["decode_s"],
+            "rank_prefill_launches": f[0]["prefill_launches"],
+            "one_rank_prefill_launches": one["prefill_launches"]}
+
+
 def phase_tp2(dev, seed: int, errs: dict, shape: Optional[dict] = None,
-              e_dir: Optional[str] = None) -> tuple[dict, dict]:
+              e_dir: Optional[str] = None, d_dir: Optional[str] = None
+              ) -> tuple[dict, dict]:
     """seq_parallel, the vocabulary-parallel loss and the padded head
     split on gloo ranks of the one card: (d) a (1, 2) training step of
     qwen3-1.7b and mamba2-370m with and without seq_parallel against one
     rank's, (e) llama4-maverick's attention layers at TP 16 against the
-    unpadded layers on one rank, and the kernels at the ranks' shapes.
-    Returns the line and, for the kernels line, the per-rank shapes and
-    launches.  ``shape`` overrides TP2_SHAPE (``smoke=True`` and small
-    shapes in a CPU rehearsal).  With ``e_dir`` (e) has run in the mesh
-    phase's ranks at TP2_SHAPE, and its files are read from there."""
+    unpadded layers on one rank, (f) the same layers' prefill and decode
+    over the cache cut on its positions against one rank's whole cache,
+    and the kernels at the ranks' shapes.  Returns the line and, for the
+    kernels line, the per-rank shapes and launches.  ``shape`` overrides
+    TP2_SHAPE (``smoke=True`` and small shapes in a CPU rehearsal).  With
+    ``e_dir`` (e) and (f) have run in the mesh phase's ranks at
+    TP2_SHAPE, with ``d_dir`` (d) in the tp phase's ranks, and their
+    files are read from there."""
     from repro_torch.runtime.compat import spawn_nodes
     shape = dict(TP2_SHAPE, **(shape or {}), device=str(dev))
     cuda = dev.type == "cuda"
@@ -4662,11 +4850,15 @@ def phase_tp2(dev, seed: int, errs: dict, shape: Optional[dict] = None,
     job = pathlib.Path(tempfile.mkdtemp(prefix="tp2-phase-"))
     per_rank: dict = {}
     try:
-        # (d): the steps on the (1, 2) ranks, rank 0 also alone
-        t0 = time.perf_counter()
-        spawn_nodes(_tp2_train_rank, 2, seed, str(job), shape)
-        out["d_spawn_s"] = time.perf_counter() - t0
-        d = [json.loads((job / f"tp2d{r}.json").read_text())
+        # (d): the steps on the (1, 2) ranks, rank 0 also alone, spawned
+        # here unless the tp phase's ranks ran them
+        d_job = job if d_dir is None else pathlib.Path(d_dir)
+        if d_dir is None:
+            t0 = time.perf_counter()
+            spawn_nodes(_tp2_train_rank, 2, seed, str(job), shape)
+            out["d_spawn_s"] = time.perf_counter() - t0
+        out["d_in_tp_spawn"] = d_dir is not None
+        d = [json.loads((d_job / f"tp2d{r}.json").read_text())
              for r in range(2)]
         for arch in shape["archs"]:
             one = d[0][arch]["one_rank"]
@@ -4700,14 +4892,16 @@ def phase_tp2(dev, seed: int, errs: dict, shape: Optional[dict] = None,
         e_job = job if e_dir is None else pathlib.Path(e_dir)
         if e_dir is None:
             t0 = time.perf_counter()
-            spawn_nodes(_tp2_attn_rank, shape["e_tp"], seed, str(job),
-                        shape)
+            spawn_nodes(_tp2_ef_rank, shape["e_tp"], seed, str(job), shape)
             out["e_spawn_s"] = time.perf_counter() - t0
         out["e_in_mesh_spawn"] = e_dir is not None
         e = [json.loads((e_job / f"tp2e{r}.json").read_text())
              for r in range(shape["e_tp"])]
         y = torch.from_numpy(np.load(e_job / "e_y.npy"))
         dx = torch.from_numpy(np.load(e_job / "e_dx.npy"))
+        f = [json.loads((e_job / f"tp2f{r}.json").read_text())
+             for r in range(shape["e_tp"])]
+        fy = torch.from_numpy(np.load(e_job / "f_y.npy"))
     finally:
         shutil.rmtree(job, ignore_errors=True)
     for r in e:
@@ -4746,6 +4940,9 @@ def phase_tp2(dev, seed: int, errs: dict, shape: Optional[dict] = None,
     del y1, dx1
     for k, v in e[0]["launches"].items():
         per_rank.setdefault(k, {})["e_llama4_attn"] = v
+    out["f"] = _tp2_cache_check(cfg, shape, seed, dev, f, fy)
+    for k, v in f[0]["prefill_launches"].items():
+        per_rank.setdefault(k, {})["f_llama4_prefill"] = v
     info = _rank_info("tp2", kern, per_rank)
     return out, info
 
@@ -5649,8 +5846,8 @@ def main() -> int:
         line, funcs_launches = phase_funcs(dev, args.seed)
         emit(line)
     mesh_launches = None
-    # tp2 (e) needs as many ranks as the mesh phase spawns: where both
-    # phases run, the mesh phase's ranks run (e) after their own work
+    # tp2 (e) and (f) need as many ranks as the mesh phase spawns: where
+    # both phases run, the mesh phase's ranks run them after their own work
     tp2_e_dir = None
     if {"mesh", "tp2"} <= set(phases) and TP2_SHAPE["e_tp"] == N_MESH:
         tp2_e_dir = tempfile.mkdtemp(prefix="tp2-e-")
@@ -5677,13 +5874,20 @@ def main() -> int:
         launches[backend.SSD_BWD.name] = mamba_launches[backend.SSD_BWD.name]
         for line in lines:
             emit(line)
+    # tp2 (d) runs on 2 ranks, as tp's serve does: where both phases
+    # run, tp's ranks run (d) after their own work
+    tp2_d_dir = None
+    if {"tp", "tp2"} <= set(phases) and TP_SHAPE["tp"] == 2:
+        tp2_d_dir = tempfile.mkdtemp(prefix="tp2-d-")
+        atexit.register(shutil.rmtree, tp2_d_dir, True)
     tp_info = {}
     if "tp" in phases:
-        line, tp_info = phase_tp(dev, args.seed, errs)
+        line, tp_info = phase_tp(dev, args.seed, errs, d_dir=tp2_d_dir)
         emit(line)
     tp2_info = {}
     if "tp2" in phases:
-        line, tp2_info = phase_tp2(dev, args.seed, errs, e_dir=tp2_e_dir)
+        line, tp2_info = phase_tp2(dev, args.seed, errs, e_dir=tp2_e_dir,
+                                   d_dir=tp2_d_dir)
         emit(line)
     launch_launches = None
     if "launch" in phases:

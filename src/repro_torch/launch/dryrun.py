@@ -140,7 +140,9 @@ def sync_cost(cfg, grads, mesh, agg: AggConfig) -> dict:
 def build_cell(cfg, shape, mesh, secure: bool = False,
                agg: Optional[AggConfig] = None):
     """(step, args, extra): rank 0's step of the cell and its meta
-    arguments; ``extra`` holds the secure sync's cost.  Raises
+    arguments; ``extra`` holds the secure sync's cost, or a decode
+    cell's cache bytes (the rank's block of the KV cache and its Mamba2
+    states).  Raises
     ``ConfigError`` where the port refuses the cell."""
     extra: dict = {}
     if shape.kind == "train":
@@ -181,9 +183,10 @@ def build_cell(cfg, shape, mesh, secure: bool = False,
     params = SH.shard_tree(cfg, ST.abstract_params(cfg), mesh,
                            fsdp=ST.fsdp_axis(cfg, mesh))
     tokens = _rows(ST.input_specs(cfg, shape), shape, mesh)["tokens"]
-    with use_ctx(ST.dist_ctx(cfg, mesh)):
+    with use_ctx(ST.serve_ctx(cfg, mesh, shape)[0]):
         cache = M.init_cache(cfg, tokens.shape[0], shape.seq_len,
                              ST.META, media_len=cfg.n_media_tokens)
+    extra["cache_bytes"] = _bytes(cache)
     return step, (params, cache, tokens, shape.seq_len - 1), extra
 
 
@@ -205,14 +208,14 @@ def trace(cfg, shape, mesh, secure: bool = False,
     alias = sum(t.numel() * t.element_size() for t in outs
                 if t.untyped_storage()._cdata in arg_storages)
     out_bytes = sum(t.numel() * t.element_size() for t in outs) - alias
+    memory = {"argument_bytes": arg_bytes, "output_bytes": out_bytes,
+              "temp_bytes": counted["peak_live_bytes"], "alias_bytes": alias,
+              "fits_hbm_est": (arg_bytes + counted["peak_live_bytes"])
+              < hw.HBM_BYTES}
+    if "cache_bytes" in extra:
+        memory["cache_bytes"] = extra["cache_bytes"]
     return {"counted": counted, "t_trace_s": time.time() - t0,
-            "memory": {"argument_bytes": arg_bytes,
-                       "output_bytes": out_bytes,
-                       "temp_bytes": counted["peak_live_bytes"],
-                       "alias_bytes": alias,
-                       "fits_hbm_est": (arg_bytes
-                                        + counted["peak_live_bytes"])
-                       < hw.HBM_BYTES}}
+            "memory": memory}
 
 
 def run_cell(arch: str, shape_name: str, multi_pod: bool,

@@ -18,9 +18,11 @@ weights (cut from the full tree by ``sharding.shard_tree``, a ``dp_mode="fsdp"``
 over ``"data"`` too) through the
 step builders of ``launch/steps.py``: tensor-parallel over ``"model"``,
 the batch split over the dp ranks where it splits (else every dp rank
-serves all of it), and every rank returns the tokens gathered over the
-dp ranks.  ``main``'s ``--data`` / ``--model`` spawn that many gloo
-ranks on the device (``compat.spawn_nodes``).  ``device=None`` is the
+serves all of it), the KV cache cut on its positions over ``"model"``
+(over ``("data", "model")`` where the batch does not split;
+``max_seq`` rounded up to split), and every rank returns the tokens
+gathered over the dp ranks.  ``main``'s ``--data`` / ``--model`` spawn
+that many gloo ranks on the device (``compat.spawn_nodes``).  ``device=None`` is the
 card and raises without one.  Every registered decoder serves, the MoE
 ones included: a decode step sends its B tokens through the MoE with the
 capacity of B tokens (at least 8 slots an expert), as the reference's; a
@@ -45,6 +47,7 @@ import torch.distributed as dist
 
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.configs.base import ShapeConfig
+from repro_torch.core.engine import tree_flatten
 from repro_torch.data.pipeline import DataConfig, SyntheticStream
 from repro_torch.kernels.backend import (check_impl, launch_counts,
                                         resolve_device)
@@ -128,12 +131,14 @@ def serve(cfg, mesh=None, *, batch: int, prompt_len: int, gen: int,
     ``seed`` on the device, cast as it is drawn.  Returns the
     tokens (numpy (batch, gen), gathered over the dp ranks), the prefill
     and decode seconds (host clock, ending in a device synchronise), the
-    decode rate, and this rank's CUDA kernel launches of each phase."""
+    decode rate, this rank's cache bytes and its CUDA kernel launches of
+    each phase."""
     check_impl(kernel_impl)
     dev = resolve_device(device)
     if not cfg.decoder:
         raise ValueError(f"{cfg.name} is encoder-only (no decode)")
-    max_seq = max_seq or (prompt_len + gen)
+    # the cache's positions split over the cut's ranks
+    max_seq = ST.cache_len(max_seq or (prompt_len + gen), batch, mesh)
     prefill_fn, _ = ST.build_prefill_step(
         cfg, mesh, ShapeConfig("serve_pre", prompt_len, batch, "prefill"),
         max_seq=max_seq, impl=kernel_impl)
@@ -162,8 +167,11 @@ def serve(cfg, mesh=None, *, batch: int, prompt_len: int, gen: int,
     t_decode = time.perf_counter() - t0
     end = launch_counts()
     toks = _gather_rows(toks, batch, mesh).numpy()
+    cache_bytes = sum(t.numel() * t.element_size()
+                      for t in tree_flatten(cache)[0])
     return {"tokens": toks, "t_prefill_s": t_prefill, "t_decode_s": t_decode,
             "tok_per_s": batch * (gen - 1) / max(t_decode, 1e-9),
+            "cache_bytes": cache_bytes,
             "launches": {"prefill": _launch_delta(before, after_prefill),
                          "decode": _launch_delta(after_prefill, end)}}
 

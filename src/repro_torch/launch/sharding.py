@@ -48,12 +48,11 @@ A KV head count that neither divides nor is divided by the TP extent,
 or the SSD heads that do not split raise ``ConfigError``
 (``check_tp``): nothing runs unsharded in its place.
 
-``cache_specs`` says where the port's caches lie, which is not where the
-reference's do: the reference shards the KV cache over the sequence on
-``"model"``, the port's cache holds a rank's KV heads at every position
-(its attention is local to its heads), so the K / V entries put
-``"model"`` on the heads.  The Mamba2 states follow the reference's
-rules.
+``cache_specs`` is the reference's: a K / V leaf holds every KV head,
+its positions cut over ``"model"`` where the batch splits over the dp
+ranks and over ``("data", "model")`` where it does not (``cache_axes``);
+the Mamba2 states lie on their heads and channels.  A rank's cache is
+its block (``models.model.init_cache`` under the serving context).
 """
 from __future__ import annotations
 
@@ -225,18 +224,30 @@ def batch_specs(cfg: ModelConfig, shape: ShapeConfig, mesh) -> dict:
     return out
 
 
+def cache_axes(global_batch: int, mesh) -> tuple:
+    """The axes the KV cache's positions are cut over, major to minor:
+    ``"model"`` where the batch splits over the dp ranks, else
+    ``("data", "model")`` (the long-context cells at batch 1); ``"pod"``
+    replicates."""
+    return ("model",) if batch_splits(global_batch, mesh) \
+        else ("data", "model")
+
+
 def cache_specs(cfg: ModelConfig, cache: Any, shape: ShapeConfig,
                 mesh) -> Any:
-    """Where the port's cache leaves lie: the batch over dp where it
-    splits, a KV leaf's heads (the reference: its sequence) and the
-    Mamba2 heads / ``d_inner`` channels on ``"model"``, the small
-    ``conv_B`` / ``conv_C`` states replicated."""
+    """The reference's rule, leaf for leaf: the batch over dp where it
+    splits; a K / V leaf's sequence over ``cache_axes`` (``"model"``, or
+    ``("data", "model")`` where the batch does not split), its heads
+    whole; the Mamba2 SSD heads and ``conv_x``'s ``d_inner`` channels on
+    ``"model"``; the small ``conv_B`` / ``conv_C`` states replicated."""
     b = (DP,) if batch_splits(shape.global_batch, mesh) else (None,)
+    seq = cache_axes(shape.global_batch, mesh)
+    seq = seq[0] if len(seq) == 1 else seq
 
     def one(path, leaf):
         name = path[-1]
         if name in ("k", "v"):
-            spec = b + (None, "model", None)
+            spec = b + (seq, None, None)
         elif name == "ssd":
             spec = b + ("model", None, None)
         elif name == "conv_x":

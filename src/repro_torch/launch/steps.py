@@ -56,7 +56,9 @@ head that ``tp / K`` ranks hold once).
 ``abstract_cache`` give meta tensors of the shapes and dtypes the
 reference's ``eval_shape`` gives (the unit leaves one a unit, in a
 list).  ``build_prefill_step`` / ``build_decode_step`` return a
-callable on this rank's shards and its specs.
+callable on this rank's shards and its specs; a rank's KV cache is its
+block of positions of every KV head (``sharding.cache_specs``), whose
+length ``cache_len`` rounds up to split.
 """
 from __future__ import annotations
 
@@ -384,27 +386,43 @@ def abstract_cache(cfg: ModelConfig, shape: ShapeConfig):
 # ---------------------------------------------------------------------------
 
 
-def _serve_ctx(cfg: ModelConfig, mesh, shape: ShapeConfig):
+def serve_ctx(cfg: ModelConfig, mesh, shape: ShapeConfig):
     """(context, the mesh the specs read): the batch split over the dp
     ranks where it splits (``sharding.batch_specs``), else every dp rank
-    holding it all, as the reference's GSPMD serve tests it."""
+    holding it all, as the reference's GSPMD serve tests it; the KV
+    cache cut on its positions over ``sharding.cache_axes``."""
     _check_mesh(cfg, mesh)
     spec_mesh = mesh if mesh is not None else SH.AbstractMesh(
         (1, 1), ("data", TP_AXIS))
     split = SH.batch_splits(shape.global_batch, spec_mesh)
-    return dist_ctx(cfg, mesh, sharded_batch=split), spec_mesh
+    ctx = dataclasses.replace(
+        dist_ctx(cfg, mesh, sharded_batch=split),
+        cache_axes=SH.cache_axes(shape.global_batch, spec_mesh))
+    return ctx, spec_mesh
+
+
+def cache_len(max_seq: int, global_batch: int, mesh) -> int:
+    """``max_seq`` rounded up to a multiple of the blocks the KV cache is
+    cut into on ``mesh`` at ``global_batch`` (the extra positions are
+    never valid, so never read)."""
+    if mesh is None:
+        return max_seq
+    n = math.prod(mesh.shape[a] for a in SH.cache_axes(global_batch, mesh)
+                  if a in mesh.axis_names)
+    return -(-max_seq // n) * n
 
 
 def build_prefill_step(cfg: ModelConfig, mesh, shape: ShapeConfig,
                        max_seq: int = 0, impl: Optional[str] = None):
     """Returns (step, (param specs, batch specs, cache specs)):
     ``step(params, batch)`` on this rank's parameter slice and batch rows
-    -> (last-position logits (B_loc, 1, Vp), this rank's cache sized at
-    ``max_seq`` positions, default the prompt's); an encoder-only model's
+    -> (last-position logits (B_loc, 1, Vp), this rank's block of the
+    cache of ``max_seq`` positions, default the prompt's; a length the
+    cut does not divide raises ``ConfigError``); an encoder-only model's
     step is its inference forward -> logits (B_loc, S, Vp), and its
     cache specs are None.  The logits are whole (gathered over
     ``"model"``) on every rank."""
-    ctx, spec_mesh = _serve_ctx(cfg, mesh, shape)
+    ctx, spec_mesh = serve_ctx(cfg, mesh, shape)
     pspecs = SH.param_specs(cfg, abstract_params(cfg), spec_mesh)
     bspecs = SH.batch_specs(cfg, shape, spec_mesh)
     if not cfg.decoder:
@@ -427,8 +445,9 @@ def build_decode_step(cfg: ModelConfig, mesh, shape: ShapeConfig):
     """Returns (step, (param specs, cache specs, token spec)):
     ``step(params, cache, tokens, t)`` -> (logits (B_loc, 1, Vp), cache)
     for one new token a sequence at position ``t`` against this rank's
-    cache of ``shape.seq_len`` positions (written in place)."""
-    ctx, spec_mesh = _serve_ctx(cfg, mesh, shape)
+    block of the cache of ``shape.seq_len`` positions (written in place
+    by the rank that holds ``t``'s slot)."""
+    ctx, spec_mesh = serve_ctx(cfg, mesh, shape)
     pspecs = SH.param_specs(cfg, abstract_params(cfg), spec_mesh)
     cspecs = SH.cache_specs(cfg, abstract_cache(cfg, shape), shape,
                             spec_mesh)

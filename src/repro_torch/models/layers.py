@@ -24,8 +24,10 @@ them every gradient is the rank's part, and a replicated weight read
 there enters through ``tp_copy``, so its gradient is summed and whole on
 every rank: attention on the rank's query heads and the KV heads they
 read (``kv_block``; where the heads do not split, each KV group padded
-with zero heads, ``q_group`` / ``q_heads``), the flash kernel and
-``decode_attention`` at the local H / K, ``wo`` row-parallel; the MLP
+with zero heads, ``q_group`` / ``q_heads``), the flash kernel at the
+local H / K, ``wo`` row-parallel, and in decode every head over the
+rank's block of the cache's positions, the softmax combined over the
+cut (``decode_attention_cut``); the MLP
 column- then row-parallel; the MoE's router replicated (every rank
 routes alike; its weights through ``tp_copy``), its expert stacks and
 shared expert cut on ``f_e``, summed in float32 after the combine; the
@@ -61,10 +63,11 @@ from repro_torch.configs.base import ATTN_CHUNKED, CROSS_ATTN, ModelConfig
 from repro_torch.kernels.flash_attention import flash_attention as _flash
 from repro_torch.kernels.ssd import ssd_chunked
 from repro_torch.runtime.context import (all_reduce_sum, all_to_all,
+                                         cache_cut, cut_gather,
                                          ep_group, get_ctx, pool_ids,
                                          pooled, tp_copy, tp_enter,
-                                         tp_exit, tp_index, tp_reduce,
-                                         tp_size)
+                                         tp_exit, tp_heads, tp_index,
+                                         tp_reduce, tp_size)
 
 NEG_INF = -1e30
 
@@ -203,6 +206,23 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return _flash(q, k, v, causal=causal, window=window, impl=impl)
 
 
+def _query_groups(q: torch.Tensor, K: int) -> torch.Tensor:
+    """The token's scaled q (B, 1, H, hd) as (B, K, H / K, hd)."""
+    B, _, H, hd = q.shape
+    scale = 1.0 / math.sqrt(hd)
+    return (q[:, 0] * scale).reshape(B, K, H // K, hd)
+
+
+def _masked(s: torch.Tensor, t: int, lo: int, softcap: float
+            ) -> torch.Tensor:
+    """Float32 scores (..., S) of positions ``[lo, lo + S)``: soft-capped,
+    then those after ``t`` masked to ``NEG_INF``."""
+    valid = torch.arange(lo, lo + s.shape[-1], device=s.device) <= t
+    if softcap > 0.0:
+        s = torch.tanh(s / softcap) * softcap
+    return s.masked_fill(~valid, NEG_INF)
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, t: int, *,
                      softcap: float = 0.0) -> torch.Tensor:
@@ -215,18 +235,49 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     the mask.
     """
     B, _, H, hd = q.shape
-    _, S, K, _ = k_cache.shape
-    G = H // K
-    scale = 1.0 / math.sqrt(hd)
-    qg = (q[:, 0] * scale).reshape(B, K, G, hd)
-    valid = torch.arange(S, device=q.device) <= t
-    s = torch.einsum("bkgh,bskh->bkgs", qg.float(), k_cache.float())
-    if softcap > 0.0:
-        s = torch.tanh(s / softcap) * softcap
-    s = s.masked_fill(~valid, NEG_INF)
-    p = torch.softmax(s, dim=-1)
+    K = k_cache.shape[2]
+    s = torch.einsum("bkgh,bskh->bkgs", _query_groups(q, K).float(),
+                     k_cache.float())
+    p = torch.softmax(_masked(s, t, 0, softcap), dim=-1)
     o = torch.einsum("bkgs,bskh->bkgh", p.to(v_cache.dtype).float(),
                      v_cache.float())
+    return o.reshape(B, 1, H, hd).to(q.dtype)
+
+
+def _f32_heads_major(t: torch.Tensor) -> torch.Tensor:
+    """A cache block (B, S, K, hd) as float32 (B, K, S, hd), contiguous:
+    one copy, which the products then read in place."""
+    return t.transpose(1, 2).to(torch.float32, copy=True,
+                                 memory_format=torch.contiguous_format)
+
+
+def decode_attention_cut(q: torch.Tensor, k_block: torch.Tensor,
+                         v_block: torch.Tensor, t: int, *, lo: int,
+                         softcap: float = 0.0) -> torch.Tensor:
+    """``decode_attention`` over a cache cut on its positions: this
+    rank's block (B, S_b, K, hd) holds positions ``[lo, lo + S_b)`` of
+    every head, q (B, 1, H, hd) every query head.  Each rank's scores
+    are masked at their global positions; its partial softmax (each
+    row's max m_j, the sum l_j of ``exp(s - m_j)`` and their product o_j
+    with V) is gathered over the cut's ranks in one collective and
+    combined exactly: ``sum_j w_j o_j / sum_j w_j l_j``, ``w_j = exp(m_j
+    - max_j m_j)``.  A block with no valid position adds exactly zero
+    (its scores are the finite ``NEG_INF``, so its weight underflows to
+    0).  Returns every head's output, the same on every rank of the
+    cut."""
+    B, _, H, hd = q.shape
+    K = k_block.shape[2]
+    s = torch.matmul(_query_groups(q, K).float(),
+                     _f32_heads_major(k_block).transpose(-1, -2))
+    s = _masked(s, t, lo, softcap)
+    m = s.amax(-1, keepdim=True)
+    p = s.sub_(m).exp_()
+    parts = cut_gather(get_ctx(), torch.cat(
+        [torch.matmul(p, _f32_heads_major(v_block)),
+         p.sum(-1, keepdim=True), m], dim=-1))
+    w = torch.exp(parts[..., -1:] - parts[..., -1:].amax(0))
+    ol = (parts[..., :-1] * w).sum(0)
+    o = ol[..., :hd] / ol[..., hd:]
     return o.reshape(B, 1, H, hd).to(q.dtype)
 
 
@@ -343,6 +394,41 @@ def cross_attention(cfg: ModelConfig, p: dict, x: torch.Tensor,
     return _attn_out(p, out, x.dtype), k, v
 
 
+def _kv_source(cfg: ModelConfig, tp: int) -> list:
+    """For each KV head: (the first TP rank that holds it, its index
+    among that rank's KV heads)."""
+    src = []
+    for h in range(cfg.n_kv_heads):
+        for r in range(tp):
+            lo, n = kv_block(cfg, tp, r)
+            if lo <= h < lo + n:
+                src.append((r, h - lo))
+                break
+    return src
+
+
+def _all_heads(cfg: ModelConfig, q: torch.Tensor, kv: tuple) -> tuple:
+    """Every query head of the token (B, 1, H_pad, hd; the padded
+    order of ``q_heads`` where the heads do not split) and, given the
+    rank's ``kv`` = (k, v) (or ``()``), every KV head's k and v (B, 1,
+    K, hd): one gather of the TP ranks' heads (``tp_heads``); as they
+    are without TP."""
+    ctx = get_ctx()
+    tp = tp_size(ctx)
+    if tp == 1:
+        return (q,) + tuple(kv)
+    B, _, Hl, hd = q.shape
+    parts = tp_heads(ctx, torch.cat((q,) + tuple(kv), dim=2))
+    out = (parts[:, :, :, :Hl].permute(1, 2, 0, 3, 4)
+           .reshape(B, 1, tp * Hl, hd),)
+    if not kv:
+        return out
+    Kl = kv[0].shape[2]
+    src = _kv_source(cfg, tp)
+    return out + tuple(torch.stack([parts[r, :, :, off + i] for r, i in src],
+                                   dim=2) for off in (Hl, Hl + Kl))
+
+
 def attn_decode(cfg: ModelConfig, p: dict, x: torch.Tensor, cache: dict,
                 t: int, *, mixer: str, slot: Optional[int] = None
                 ) -> tuple[torch.Tensor, dict]:
@@ -355,24 +441,44 @@ def attn_decode(cfg: ModelConfig, p: dict, x: torch.Tensor, cache: dict,
     cross-attention layer's cache holds the media's K / V (B, M, K, hd)
     from the prefill: the token's q attends to all of it, and the cache
     is returned unchanged.
+
+    Where the cache is cut on its positions (``runtime.context.
+    cache_cut``: n blocks, this rank's block j of S_b positions of every
+    KV head) the token's q, k and v heads are gathered over the TP axis
+    (``_all_heads``), the rank that holds ``slot`` writes k and v, every
+    rank attends over its block (``decode_attention_cut``, a cross layer
+    over its block of the media with ``t = M - 1``), and the rank keeps
+    its own query heads for its rows of ``wo``.
     """
     dtype = x.dtype
+    ctx = get_ctx()
+    n, j = cache_cut(ctx)
+    Sb = cache["k"].shape[1]
+    lo = j * Sb
     if mixer == CROSS_ATTN:
         q, _, _ = _qkv(cfg, p, x, x[:, :1], dtype)       # only q matters
-        M = cache["k"].shape[1]
-        out = decode_attention(q, cache["k"], cache["v"], M - 1,
+        kv, last = (), n * Sb - 1
+    else:
+        if slot is None:
+            slot = t
+        q, k, v = _qkv(cfg, p, x, x, dtype)
+        pos = torch.tensor([t], dtype=torch.int32, device=x.device)
+        q = rope(q, pos, cfg.rope_theta)
+        kv, last = (rope(k, pos, cfg.rope_theta), v), slot
+    Hl = q.shape[2]
+    if n > 1:
+        q, *kv = _all_heads(cfg, q, kv)
+    if kv and lo <= slot < lo + Sb:
+        cache["k"][:, slot - lo:slot - lo + 1] = kv[0].to(cache["k"].dtype)
+        cache["v"][:, slot - lo:slot - lo + 1] = kv[1].to(cache["v"].dtype)
+    if n == 1:
+        out = decode_attention(q, cache["k"], cache["v"], last,
                                softcap=cfg.logit_softcap)
-        return _attn_out(p, out, dtype), cache
-    if slot is None:
-        slot = t
-    q, k, v = _qkv(cfg, p, x, x, dtype)
-    pos = torch.tensor([t], dtype=torch.int32, device=x.device)
-    q = rope(q, pos, cfg.rope_theta)
-    k = rope(k, pos, cfg.rope_theta)
-    cache["k"][:, slot:slot + 1] = k.to(cache["k"].dtype)
-    cache["v"][:, slot:slot + 1] = v.to(cache["v"].dtype)
-    out = decode_attention(q, cache["k"], cache["v"], slot,
-                           softcap=cfg.logit_softcap)
+    else:
+        i = tp_index(ctx)
+        out = decode_attention_cut(q, cache["k"], cache["v"], last, lo=lo,
+                                   softcap=cfg.logit_softcap
+                                   )[:, :, i * Hl:(i + 1) * Hl]
     return _attn_out(p, out, dtype), cache
 
 

@@ -20,9 +20,14 @@ rank holds its block of ``S / tp`` positions of the stream between the
 mixers and MLPs (the norms and residual adds run there; each mixer and
 MLP sees the whole sequence), where ``S`` splits over the ranks and
 never in a decode step (``seq_layout``).  ``init_cache`` under
-such a context is the rank's: its KV heads, its SSD heads and
-``d_inner`` channels.  Under an FSDP context (``fsdp_axis``) a rank's
-FSDP leaves are slices on their ``d_model`` side: each unit's are
+such a context is the rank's: a K / V leaf every KV head at the rank's
+block of positions (the reference's ``cache_specs``: cut over
+``"model"``, or ``("data", "model")`` where the batch does not split;
+``runtime.context.cache_cut``), its SSD heads and ``d_inner`` channels;
+the prefill hands each rank its block of the prompt's K / V in one
+all-to-all a layer (``_relayout``).  Under an FSDP context
+(``fsdp_axis``) a rank's FSDP leaves are slices on their ``d_model``
+side: each unit's are
 gathered where the unit runs (``_gathered``: in the forward loop inside
 the unit's checkpoint, so a remat backward gathers them again; in the
 prefill and each decode step), the untied head's in ``lm_head``, so a
@@ -47,8 +52,10 @@ import torch.utils.checkpoint
 
 from repro_torch.configs.base import (ATTN_CHUNKED, CROSS_ATTN, DENSE, MAMBA2,
                                       MOE, NONE, ModelConfig)
+from repro_torch.core.schedules import ConfigError
 from repro_torch.models import layers as L
-from repro_torch.runtime.context import (fsdp_gather, fsdp_size, get_ctx,
+from repro_torch.runtime.context import (cache_cut, cache_exchange,
+                                         fsdp_gather, fsdp_size, get_ctx,
                                          seq_block, seq_cut, tp_copy,
                                          tp_enter, tp_exit, tp_gather,
                                          tp_index, tp_size, use_ctx,
@@ -375,12 +382,27 @@ def loss_fn(cfg: ModelConfig, params: Params, batch: dict,
 # ---------------------------------------------------------------------------
 
 
+def _cache_block(cfg: ModelConfig, S: int, what: str) -> int:
+    """The positions of one block of a K / V leaf of ``S`` positions
+    under the context's cut (``S`` where nothing cuts); a length the cut
+    does not divide raises ``ConfigError`` (the reference's sharding
+    refuses it too)."""
+    ctx = get_ctx()
+    n, _ = cache_cut(ctx)
+    if S % n:
+        raise ConfigError(
+            f"{cfg.name}: a KV cache of {S} {what} does not split into the "
+            f"{n} blocks of its cut over {ctx.cache_axes}")
+    return S // n
+
+
 def _layer_cache(cfg: ModelConfig, spec, B: int, max_seq: int,
                  device, media_len: int = 0) -> dict:
-    """One layer's zero cache: this rank's KV heads or SSD heads under a
-    TP context, all of them otherwise."""
+    """One layer's zero cache: a K / V leaf holds every KV head at the
+    rank's block of positions (all of them where nothing cuts), a Mamba2
+    layer's states the rank's SSD heads and ``d_inner`` channels under a
+    TP context."""
     tp = tp_size(get_ctx())
-    K = L.kv_block(cfg, tp, tp_index(get_ctx()))[1]
     hd = cfg.hd
     dtype = compute_dtype(cfg)
     if spec.mixer == MAMBA2:
@@ -398,11 +420,12 @@ def _layer_cache(cfg: ModelConfig, spec, B: int, max_seq: int,
                                dtype=torch.float32, device=device),
         }
     if spec.mixer == CROSS_ATTN:
-        S = media_len
+        S = _cache_block(cfg, media_len, "media tokens")
     elif spec.mixer == ATTN_CHUNKED:
-        S = min(max_seq, cfg.attn_window)
+        S = _cache_block(cfg, min(max_seq, cfg.attn_window), "window slots")
     else:
-        S = max_seq
+        S = _cache_block(cfg, max_seq, "positions")
+    K = cfg.n_kv_heads
     return {"k": torch.zeros((B, S, K, hd), dtype=dtype, device=device),
             "v": torch.zeros((B, S, K, hd), dtype=dtype, device=device)}
 
@@ -412,7 +435,8 @@ def init_cache(cfg: ModelConfig, B: int, max_seq: int, device,
     """Zero caches: an attention layer's K / V at ``max_seq`` positions
     (a chunked layer's at its window), a cross-attention layer's at
     ``media_len`` media tokens, a Mamba2 layer's conv and SSD states;
-    under a TP context, this rank's."""
+    under a mesh's context, this rank's (its block of positions, its SSD
+    heads)."""
     return [{f"layer{i}": _layer_cache(cfg, spec, B, max_seq, device,
                                        media_len)
              for i, spec in enumerate(cfg.pattern)}
@@ -424,10 +448,53 @@ def init_cache(cfg: ModelConfig, B: int, max_seq: int, device,
 # ---------------------------------------------------------------------------
 
 
+def _relayout(cfg: ModelConfig, k: torch.Tensor, v: torch.Tensor, Sc: int,
+              take: int, what: str) -> dict:
+    """This rank's block of a K / V cache of ``Sc`` slots, every KV head,
+    from the prompt's k and v (B, S, K_loc, hd) of the rank's own heads:
+    slot ``s < take`` holds position ``S - take + s``, the rest are zero
+    (a ring buffer's tail at slot 0, as the reference places it).  Rank
+    (d, m) of the cut holds block ``j = d tp + m``: each TP rank sends
+    each TP peer of its data slice the peer's block of its own heads, in
+    one all-to-all (``cache_exchange``); a KV head held by ``span = tp /
+    K`` ranks is sent by one of them, the one whose TP index is the
+    peer's modulo ``span``.  No rank holds more than its own heads'
+    blocks for its slice's peers; at TP 1 the block is a local slice."""
+    ctx = get_ctx()
+    n, j = cache_cut(ctx)
+    Sb = _cache_block(cfg, Sc, what)
+    B, S, Kl, hd = k.shape
+    tp, m = tp_size(ctx), tp_index(ctx)
+    span = max(tp // cfg.n_kv_heads, 1)
+
+    def block(jj: int) -> torch.Tensor:
+        out = k.new_zeros((2, B, Sb, Kl, hd))
+        a, b = jj * Sb, min((jj + 1) * Sb, take)
+        if a < b:
+            out[0, :, :b - a] = k[:, S - take + a:S - take + b]
+            out[1, :, :b - a] = v[:, S - take + a:S - take + b]
+        return out
+
+    if tp == 1:
+        kv = block(j)
+    else:
+        first = j - m       # block of TP rank 0 of this data slice
+        sends = [block(first + p) if p % span == m % span else k[:0]
+                 for p in range(tp)]
+        nbytes = 2 * B * Sb * Kl * hd * k.element_size()
+        got = cache_exchange(ctx, sends, [nbytes if p % span == m % span
+                                          else 0 for p in range(tp)])
+        kv = torch.cat([g.view(k.dtype).reshape(2, B, Sb, Kl, hd)
+                        for p, g in enumerate(got) if p % span == m % span],
+                       dim=3)
+    return {"k": kv[0], "v": kv[1]}
+
+
 def _unit_prefill(cfg: ModelConfig, unit: dict, x: torch.Tensor,
                   media: Optional[torch.Tensor], *, max_seq: int,
                   impl: Optional[str]) -> tuple[torch.Tensor, dict]:
     B = x.shape[0]
+    cut = cache_cut(get_ctx())[0] > 1
     caches = {}
     for i, spec in enumerate(cfg.pattern):
         lp = unit[f"layer{i}"]
@@ -440,21 +507,29 @@ def _unit_prefill(cfg: ModelConfig, unit: dict, x: torch.Tensor,
             # decode cache (the reference projects them twice)
             med = L.apply_norm(cfg, lp["media_norm"], media)
             y, k, v = L.cross_attention(cfg, lp["mixer"], h, med, impl=impl)
-            caches[f"layer{i}"] = {"k": k, "v": v}
+            M = k.shape[1]
+            caches[f"layer{i}"] = _relayout(cfg, k, v, M, M, "media tokens") \
+                if cut else {"k": k, "v": v}
         else:
             y, k, v = L.self_attention(cfg, lp["mixer"], h, mixer=spec.mixer,
                                        impl=impl)
             window = cfg.attn_window if spec.mixer == ATTN_CHUNKED else 0
             S = k.shape[1]      # the whole prompt, under seq_parallel too
-            cache = _layer_cache(cfg, spec, B, max_seq, x.device)
+            Sc = min(max_seq, window) if window else max_seq
             # ring buffer slot = pos % window: only the current (possibly
             # partial) chunk's tail belongs in the cache; S % window == 0
             # means decode starts a fresh chunk
-            take = S % window if window else min(S, cache["k"].shape[1])
-            if take:
-                cache["k"][:, :take] = k[:, -take:]
-                cache["v"][:, :take] = v[:, -take:]
-            caches[f"layer{i}"] = cache
+            take = S % window if window else min(S, Sc)
+            if cut:
+                caches[f"layer{i}"] = _relayout(
+                    cfg, k, v, Sc, take,
+                    "window slots" if window else "positions")
+            else:
+                cache = _layer_cache(cfg, spec, B, max_seq, x.device)
+                if take:
+                    cache["k"][:, :take] = k[:, -take:]
+                    cache["v"][:, :take] = v[:, -take:]
+                caches[f"layer{i}"] = cache
         x = _mlp(cfg, spec, lp, x + y)
     return x, caches
 
@@ -464,7 +539,8 @@ def prefill(cfg: ModelConfig, params: Params, batch: dict, max_seq: int,
     """Run the prompt (``batch["tokens"]``, with ``batch["media"]`` for a
     cross-attention model); returns (last-position logits (B, 1, Vp),
     cache sized for ``max_seq`` positions, a cross-attention layer's
-    holding the media's K / V).  Under ``seq_parallel`` the last
+    holding the media's K / V; under a cut, this rank's block of
+    positions of every KV head).  Under ``seq_parallel`` the last
     position is the last TP rank's: each rank's last is gathered and the
     head reads that one."""
     with seq_layout(_seq_len(cfg, batch)):

@@ -64,6 +64,18 @@ the axis).  It gathers the compute-dtype copy: a cast commutes with a
 gather, so a bfloat16 gather sends half the bytes for the same result;
 the gradient is summed in float32 and returned in the master's dtype.
 
+A served KV cache lies as the reference's ``cache_specs`` put it: each
+K / V leaf holds every KV head, its positions cut into ``n`` equal
+blocks over ``cache_axes`` (``"model"`` where the batch splits over the
+dp axes, ``("data", "model")`` where it does not; ``cache_cut`` gives
+``n`` and the rank's block).  The prefill hands each TP rank its block
+of positions of every head with one all-to-all over the TP group
+(``cache_exchange``); a decode step gathers the token's q, k and v
+heads over the TP group (``tp_heads``), each rank attends over its
+block of positions, and the partial softmaxes (float32: each row's max,
+its exponentials' sum and their product with V) are gathered over the
+cut (``cut_gather``) and combined exactly on every rank.
+
 Every collective here, and the step's gradient sums
 (``launch.steps.axes_sum_``), adds its call and the bytes of its operand
 (what this rank hands the collective: the shard of a gather, the whole
@@ -90,13 +102,14 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 from typing import Optional
 
 import torch
 import torch.distributed as dist
 
 from repro_torch.core.schedules import ConfigError
-from repro_torch.runtime.compat import subgroup
+from repro_torch.runtime.compat import flat_node_id, subgroup
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,6 +126,11 @@ class DistCtx:
     # the residual stream cut on the sequence over the TP axis (a config's
     # seq_parallel, where the sequence splits; never in a decode step)
     seq_parallel: bool = False
+    # the axes a KV cache's positions are cut over, major to minor (the
+    # reference's cache_specs: "model" where the batch splits over the dp
+    # axes, ("data", "model") where it does not); an axis the mesh lacks,
+    # or of one rank, drops out
+    cache_axes: tuple[str, ...] = ("model",)
 
 
 _CURRENT = DistCtx()
@@ -484,6 +502,64 @@ def vocab_ce(ctx: DistCtx, logits: torch.Tensor, labels: torch.Tensor
     ``logits`` (the padded columns already at -1e30); ``labels`` (B, S)
     are global column indices in ``[0, V)``."""
     return _VocabCE.apply(logits, labels, ctx)
+
+
+# ---------------------------------------------------------------------------
+# The KV cache cut on its positions over ctx.cache_axes (serving only: no
+# gradient flows through these)
+# ---------------------------------------------------------------------------
+
+
+def _cut_axes(ctx: DistCtx) -> tuple:
+    if ctx.mesh is None:
+        return ()
+    return tuple(a for a in ctx.cache_axes
+                 if a in ctx.mesh.axis_names and ctx.mesh.shape[a] > 1)
+
+
+def cache_cut(ctx: DistCtx) -> tuple[int, int]:
+    """(n, j): the blocks a KV cache's positions are cut into, and this
+    rank's block, its index row-major over the cut's axes in the spec's
+    order (``data_coord * tp + model_coord`` over ("data", "model"));
+    (1, 0) where nothing cuts."""
+    axes = _cut_axes(ctx)
+    if not axes:
+        return 1, 0
+    return (math.prod(ctx.mesh.shape[a] for a in axes),
+            flat_node_id(ctx.mesh, axes))
+
+
+def cut_gather(ctx: DistCtx, t: torch.Tensor) -> torch.Tensor:
+    """The cut's ranks' ``t`` stacked on a new first dimension, in block
+    order (a decode step's partial softmaxes)."""
+    axes = _cut_axes(ctx)
+    n = math.prod(ctx.mesh.shape[a] for a in axes)
+    # the mesh's own group where the cut spans it: a second gloo group of
+    # the same ranks can abort its process at exit
+    group = ctx.mesh.group if n == ctx.mesh.size else subgroup(
+        ctx.mesh, axes, [tuple(range(n))])[0]
+    return _gather(ctx.mesh, group, n, t[None], 0, "tp_decode_combine")
+
+
+def tp_heads(ctx: DistCtx, t: torch.Tensor) -> torch.Tensor:
+    """The TP ranks' ``t`` stacked on a new first dimension, in rank
+    order (a decode step's q, k, v heads; any dtype, as bytes)."""
+    group, _, n = tp_group(ctx)
+    return _gather(ctx.mesh, group, n, t[None], 0, "tp_decode_qkv")
+
+
+def cache_exchange(ctx: DistCtx, sends: list, recv_bytes: list) -> list:
+    """One all-to-all over the TP group: ``sends[p]`` (any dtype) goes to
+    TP rank p, and the bytes from rank p come back as a uint8 tensor of
+    ``recv_bytes[p]`` (a prefill's cache blocks; a part may be empty)."""
+    group, _, _ = tp_group(ctx)
+    send = torch.cat([_wire_view(s.contiguous()) for s in sends])
+    h = _stage(send, ctx.mesh)
+    out = torch.empty(sum(recv_bytes), dtype=torch.uint8, device=h.device)
+    tally("tp_cache_a2a", _nbytes(h))
+    dist.all_to_all_single(out, h, list(recv_bytes),
+                           [_nbytes(s) for s in sends], group=group)
+    return list(out.to(send.device).split(list(recv_bytes)))
 
 
 # ---------------------------------------------------------------------------

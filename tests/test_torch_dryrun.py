@@ -10,11 +10,17 @@ its report, on fake process groups in a subprocess (one process is rank
     (parameters, AdamW moments and batch rows) equal the bytes the
     reference's ``param_specs`` / ``opt_specs`` / ``batch_specs`` imply
     for one device (where the KV heads split evenly, as the port and
-    GSPMD then cut alike).
+    GSPMD then cut alike); for every smoke decoder's decode cell (16
+    positions) at global batch 8 and at batch 1 the rank's cache bytes
+    equal what the reference's ``cache_specs`` imply (the sequence over
+    ``"model"``, at batch 1 over ``("data", "model")``; Mamba2's
+    ``conv_B`` / ``conv_C``, which the reference replicates whole, a
+    rank's rows), and its decode step runs on the meta tensors.
   * A tensor-parallel prefill's collective bytes equal the analytic
     count: one float32 sum of the (B, S, D) activations for the
     embedding and for each layer's attention and MLP, one gather of the
-    last position's vocabulary slice.
+    last position's vocabulary slice, one all-to-all of the K / V
+    cache's blocks a layer.
   * A secure cell's sync bytes equal the plan's executed account
     (``AggPlan.wire_bytes`` over the gradient's chunks).
   * llama4-maverick's prefill at TP 16 traces (its 40 query heads padded
@@ -67,7 +73,7 @@ from repro_torch.runtime import compat
 
 out_dir, S, GB, prefill = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), \
     json.loads(sys.argv[4])
-res = {"meshes": {}, "train": {}}
+res = {"meshes": {}, "train": {}, "decode": {}}
 for world, mp in ((256, False), (512, True)):
     DR.ensure_fake_group(world)
     m = make_production_mesh(multi_pod=mp)
@@ -91,6 +97,16 @@ for name, (dims, axes) in {"2x2": ((2, 2), ("data", "model")),
             "t_lower_s": round(t["t_trace_s"], 1), "memory": t["memory"],
             "counted": t["counted"], "useful_flops_ratio": None,
             "terms": DR.RA.roofline_terms(t["counted"])})
+        if not cfg.decoder:
+            continue
+        for gb in (GB, 1):
+            # a decode step at a batch that splits and at batch 1: the
+            # rank's cache bytes, and the step run on the meta tensors
+            step, args, _ = DR.build_cell(
+                cfg, ShapeConfig("d", S, gb, "decode"), mesh, False, None)
+            res["decode"][f"{arch}/{name}/{gb}"] = DR._bytes([args[1]])
+            logits, _ = step(*args)
+            assert logits.shape[-1] % 256 == 0
 DR.ensure_fake_group(4)
 mesh = compat.make_mesh((2, 2), ("data", "model"))
 agg = AggConfig(n_nodes=2, cluster_size=1, redundancy=1, chunk_elems=4096)
@@ -187,6 +203,21 @@ def test_argument_bytes_equal_the_reference_specs(run, arch, mesh):
             + _implied(JST.input_specs(cfg, shape),
                        JSH.batch_specs(cfg, shape, jmesh), mshape))
     assert res["train"][f"{arch}/{mesh}"] == want
+    if not cfg.decoder:
+        return
+    for gb in (GB, 1):
+        dshape = JShape("d", S, gb, "decode")
+        cache = JST.abstract_cache(cfg, dshape)
+        specs = JSH.cache_specs(cfg, cache, dshape, jmesh)
+        # the reference replicates Mamba2's small conv_B / conv_C states
+        # whole, over the batch too; a rank of the port holds its rows
+        rows = JSH.batch_specs(cfg, dshape, jmesh)["tokens"][0]
+        specs = jax.tree_util.tree_map_with_path(
+            lambda kp, sp: jax.sharding.PartitionSpec(None, rows, None, None)
+            if kp[-1].key in ("conv_B", "conv_C") else sp, specs,
+            is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))
+        assert res["decode"][f"{arch}/{mesh}/{gb}"] == _implied(
+            cache, specs, mshape), gb
 
 
 def test_tp_prefill_collectives_are_the_analytic_count(run):
@@ -198,10 +229,14 @@ def test_tp_prefill_collectives_are_the_analytic_count(run):
     layers = cfg.n_units * len(cfg.pattern)
     es = 2 if cfg.dtype == "bfloat16" else 4
     assert res["prefill"]["calls"] == {"tp_sum": 1 + 2 * layers,
-                                       "tp_cat": 1}
+                                       "tp_cat": 1, "tp_cache_a2a": layers}
+    # the relayout: each rank sends its K / 2 heads' K and V, a block of
+    # PL / 2 positions to each of the 2 ranks
     assert res["prefill"]["bytes"] == {
         "tp_sum": (1 + 2 * layers) * 4 * B * PL * cfg.d_model,
-        "tp_cat": B * (padded_vocab(cfg) // 2) * es}
+        "tp_cat": B * (padded_vocab(cfg) // 2) * es,
+        "tp_cache_a2a": layers * 2 * B * PL * (cfg.n_kv_heads // 2)
+        * cfg.hd * es}
     assert res["prefill"]["kernels"]["flash_attention"]["calls"] == layers
 
 

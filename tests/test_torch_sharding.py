@@ -8,9 +8,11 @@ reference's, with no process group and no device.
     and the port's ``sharding.AbstractMesh`` serve); a unit leaf of the
     port has no stacked units dimension, so its spec is the reference's
     after that dimension's ``None``.
-  * ``cache_specs``: the Mamba2 states as the reference's; the K / V
-    leaves on their heads (the reference: on the sequence), as the
-    port's cache holds a rank's KV heads at every position.
+  * ``cache_specs`` leaf for leaf equal to the reference's for every
+    decoder config at decode_32k and long_500k on (16, 16) and (2, 16,
+    16): the K / V sequence over ``"model"``, or over ``("data",
+    "model")`` where the batch does not split; the Mamba2 states on
+    their heads and channels.
   * ``input_specs`` / ``abstract_params`` / ``abstract_opt_state`` /
     ``abstract_cache``: shapes and dtypes equal to the reference's
     ``eval_shape`` in all 32 cells of ``supported_shapes``.
@@ -117,25 +119,35 @@ def test_specs_equal_the_reference(abstract, arch, mesh):
             {k: tuple(v) for k, v in jb.items()}, gb
 
 
-@pytest.mark.parametrize("arch", ["mamba2-370m", "jamba-v0.1-52b",
-                                  "qwen3-1.7b"])
+DECODERS = [a for a in ARCHS if get_config(a).decoder]
+
+
+@pytest.mark.parametrize("arch", DECODERS)
 def test_cache_specs_where_the_port_holds_them(arch):
+    """The port's ``cache_specs`` leaf for leaf the reference's, at
+    decode_32k and, where the config has it, long_500k (batch 1: the
+    K / V sequence over ("data", "model")), on (16, 16) and (2, 16,
+    16)."""
     jcfg, pcfg = get_config(arch), p_config(arch)
-    shape = SHAPES["decode_32k"]
-    jmesh = JMesh((16, 16), ("data", "model"))
-    pmesh = SH.AbstractMesh((16, 16), ("data", "model"))
-    want = dict((_ref_keys(p), s) for p, s in _spec_leaves(JSH.cache_specs(
-        jcfg, JST.abstract_cache(jcfg, shape), shape, jmesh)))
-    cache = ST.abstract_cache(pcfg, shape)
-    for path, spec in SH._leaves_with_paths(SH.cache_specs(
-            pcfg, cache, shape, pmesh), specs=True):
-        ref = want[path[1:]][1:]
-        if path[-1] in ("k", "v"):
-            # the batch as the reference's; the heads on "model" where
-            # the reference puts the sequence
-            assert spec == (ref[0], None, "model", None), (path, ref)
-        else:
-            assert spec == ref, (path, spec, ref)
+    cells = [c for c in ("decode_32k", "long_500k")
+             if c in supported_shapes(jcfg)]
+    assert "decode_32k" in cells
+    for cell in cells:
+        shape = SHAPES[cell]
+        jcache = JST.abstract_cache(jcfg, shape)
+        cache = ST.abstract_cache(pcfg, shape)
+        for mesh in ("16x16", "2x16x16"):
+            dims, axes = MESHES[mesh]
+            want = dict((_ref_keys(p), s) for p, s in _spec_leaves(
+                JSH.cache_specs(jcfg, jcache, shape, JMesh(dims, axes))))
+            got = SH._leaves_with_paths(SH.cache_specs(
+                pcfg, cache, shape, SH.AbstractMesh(dims, axes)),
+                specs=True)
+            assert len(got) == len(want) * pcfg.n_units
+            for path, spec in got:
+                ref = want[path[1:]]
+                assert ref[0] is None, (path, ref)
+                assert spec == ref[1:], (cell, mesh, path, spec, ref)
 
 
 def _same(got, want, where) -> None:

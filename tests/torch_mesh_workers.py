@@ -637,8 +637,11 @@ def run_tp_serve(case, inputs, mesh) -> dict:
     (an encoder: its forward), then ``case["steps"]`` decode steps fed
     the tokens ``inputs[case["forced"]]`` (B, steps), each step's whole
     logits kept; with ``case["serve"]`` also ``serve`` (greedy tokens).
-    Also the digests of the router's ids and of the residual stream, and
-    the prefill's collective calls by kind (``prefill_calls_<kind>``).
+    Also the digests of the router's ids and of the residual stream, the
+    prefill's and the decode steps' collective calls by kind
+    (``prefill_calls_<kind>``, ``decode_calls_<kind>``) and the shapes
+    of the rank's cache leaves (``cache_shapes``, JSON: a unit's
+    ``layer/leaf`` -> shape).
     ``case["fsdp"]`` (``"data"``) cuts the FSDP leaves of the slice too."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch import serve as SV
@@ -656,9 +659,10 @@ def run_tp_serve(case, inputs, mesh) -> dict:
     out = {}
     taps = _Taps()
     try:
+        # the cache's length rounded up to split over the cut, as serve's
+        max_seq = ST.cache_len(PL + steps, B, mesh)
         pre, _ = ST.build_prefill_step(
-            cfg, mesh, ShapeConfig("p", PL, B, "prefill"),
-            max_seq=PL + steps)
+            cfg, mesh, ShapeConfig("p", PL, B, "prefill"), max_seq=max_seq)
         if not cfg.decoder:
             out["logits"] = pre(params, prompts).numpy()
             return {**out, **taps.close()}
@@ -667,12 +671,18 @@ def run_tp_serve(case, inputs, mesh) -> dict:
         out.update({f"prefill_calls_{k}": np.int64(v["calls"])
                     for k, v in C.collective_counts().items()})
         dec, _ = ST.build_decode_step(
-            cfg, mesh, ShapeConfig("d", PL + steps, B, "decode"))
+            cfg, mesh, ShapeConfig("d", max_seq, B, "decode"))
+        out["cache_shapes"] = np.array(json.dumps(
+            [{f"{name}/{k}": list(t.shape) for name, layer in u.items()
+              for k, t in layer.items()} for u in cache]))
         got = [logits]
         forced = torch.from_numpy(inputs[case["forced"]][rows].copy())
+        C.reset_collective_counts()
         for i in range(steps):
             logits, cache = dec(params, cache, forced[:, i:i + 1], PL + i)
             got.append(logits)
+        out.update({f"decode_calls_{k}": np.int64(v["calls"])
+                    for k, v in C.collective_counts().items()})
         out["logits"] = torch.cat(got, dim=1).numpy()
     finally:
         out.update(taps.close())
