@@ -557,7 +557,7 @@ TRAIN_MOE_CHECK_BATCH = 2     # train (i): the batch of its plain check
 # first and last unit, my chip run 7).  A wrong dQ, dK or dV moves a
 # leaf by its own scale.
 TRAIN_LEAF_TOL = 2e-2
-BYZ_RANKS, BYZ_STEPS = 8, 8
+BYZ_RANKS, BYZ_STEPS = 8, 4
 RESTART_RTOL = 1e-5
 # Tolerances of the float kernels against their plain versions on the
 # card (max |a - b| <= atol + rtol |b|).  Flash attention: 1e-5 in float32
@@ -4061,6 +4061,56 @@ def _tp_f32_check(params, prompts: dict, forced: torch.Tensor, prefill,
     return torch.cat(got, dim=1)
 
 
+# tp (a)'s bf16 cut decode against the one-rank decode on the same cache
+BF16_R_GATE, BF16_EQ_GATE = 0.05, 0.99
+
+
+def _bf16_cut_decode(cfg, params, mesh, shape: dict, seed: int, dev
+                     ) -> dict:
+    """tp (a)'s check of the cut decode in bfloat16, on one rank of the
+    serve's mesh: the first attention layer's bf16 cache as the serve
+    builds it (``_unit_prefill`` of the rank's first unit on a seeded
+    residual stream of the serve's batch and prompt, the cache at the
+    serve's length, cut on its positions), one seeded token's q of every
+    head at the prompt's last position; ``decode_attention_cut`` on the
+    rank's block against ``decode_attention`` on the blocks gathered.  r
+    is rms(cut - one) / rms(one - one in float32 on the same bf16
+    values), eq the share of outputs bit-equal to the one-rank decode."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.runtime import context as C
+    B, PL = shape["batch"], shape["prompt"]
+    max_seq = ST.cache_len(PL + shape["gen"], B, mesh)
+    ctx, _ = ST.serve_ctx(cfg, mesh,
+                          ShapeConfig("tp_bf16", max_seq, B, "decode"))
+    rng = np.random.default_rng(seed + 5)
+    x = torch.from_numpy(rng.standard_normal(
+        (B, PL, cfg.d_model), np.float32)).to(dev, torch.bfloat16)
+    q = torch.from_numpy(rng.standard_normal(
+        (B, 1, cfg.n_heads, cfg.hd), np.float32)).to(dev, torch.bfloat16)
+    t = PL - 1
+    with C.use_ctx(ctx), torch.no_grad():
+        _, cache = M._unit_prefill(cfg, params["units"][0], x, None,
+                                   max_seq=max_seq, impl=None)
+        kb, vb = cache["layer0"]["k"], cache["layer0"]["v"]
+        n, j = C.cache_cut(ctx)
+        got = L.decode_attention_cut(q, kb, vb, t, lo=j * kb.shape[1])
+        k, v = (torch.cat(list(C.cut_gather(ctx, c)), dim=1)
+                for c in (kb, vb))
+        one = L.decode_attention(q, k, v, t)
+        one32 = L.decode_attention(q.float(), k.float(), v.float(), t)
+    got, one = got.float(), one.float()
+    r = float(torch.sqrt(torch.mean((got - one) ** 2))
+              / torch.sqrt(torch.mean((one - one32) ** 2)))
+    return {"r": r, "equal_share": float((got == one).float().mean()),
+            "dtype": str(kb.dtype), "blocks": n, "cache_len": max_seq,
+            "block_shape": list(kb.shape), "t": t,
+            "heads": [cfg.n_heads, cfg.n_kv_heads], "hd": cfg.hd,
+            "r_gate": BF16_R_GATE, "equal_share_gate": BF16_EQ_GATE}
+
+
 def _tp_serve_rank(rank: int, seed: int, job_dir: str, shape: dict,
                    d_dir: Optional[str] = None,
                    d_shape: Optional[dict] = None) -> None:
@@ -4104,6 +4154,8 @@ def _tp_serve_rank(rank: int, seed: int, job_dir: str, shape: dict,
                        seed=seed, params=cast, device=dev)
         counts = backend.launch_counts()
         peak = torch.cuda.max_memory_allocated() if cuda else 0
+        bf16_cut = (_bf16_cut_decode(cfg, cast, mesh, shape, seed, dev)
+                    if cfg.pattern[0].mixer == "attn" else None)
         del cast
         np.save(pathlib.Path(job_dir) / f"tokens-{arch}-{rank}.npy",
                 res["tokens"])
@@ -4132,7 +4184,8 @@ def _tp_serve_rank(rank: int, seed: int, job_dir: str, shape: dict,
             "launches": {k: v for k, v in counts.items() if v},
             "launches_prefill": {k: v for k, v in
                                  res["launches"]["prefill"].items() if v},
-            "launches_decode": sum(res["launches"]["decode"].values())}
+            "launches_decode": sum(res["launches"]["decode"].values()),
+            "bf16_cut_decode": bf16_cut}
     (pathlib.Path(job_dir) / f"tp{rank}.json").write_text(json.dumps(out))
     if d_dir is not None:
         if cuda:
@@ -4336,6 +4389,12 @@ def phase_tp(dev, seed: int, errs: dict, shape: Optional[dict] = None,
                       and np.array_equal(logits[r], logits[0]),
                       f"tp {arch}: rank {r}'s tokens or logits differ from "
                       "rank 0's")
+                cut = rk[arch]["bf16_cut_decode"]
+                check(cut is None or (cut["r"] <= BF16_R_GATE
+                                      and cut["equal_share"]
+                                      >= BF16_EQ_GATE),
+                      f"tp {arch} rank {r}: the bf16 cut decode against "
+                      f"the one-rank decode {cut}")
                 if cuda:
                     check(rk[arch]["launches_prefill"] == want
                           and rk[arch]["launches_decode"] == 0,
@@ -4381,6 +4440,7 @@ def phase_tp(dev, seed: int, errs: dict, shape: Optional[dict] = None,
                 "f32_decode_logit_max_err_vs_one_rank": dec_err,
                 "f32_logit_max_abs": float(ref.abs().max()),
                 "bf16_tokens_equal_one_rank_share": agree,
+                "bf16_cut_decode": ranks[0][arch]["bf16_cut_decode"],
                 "one_rank_prefill_s": one["t_prefill_s"],
                 "one_rank_decode_tok_per_s": one["tok_per_s"],
                 "one_rank_cache_bytes": one["cache_bytes"]}

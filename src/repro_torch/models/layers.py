@@ -53,6 +53,7 @@ kernels on the card).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional
 
@@ -70,6 +71,19 @@ from repro_torch.runtime.context import (all_reduce_sum, all_to_all,
                                          tp_reduce, tp_size)
 
 NEG_INF = -1e30
+
+
+@functools.lru_cache(maxsize=None)
+def weak_scalar(c: float, dtype: torch.dtype) -> float:
+    """The Python scalar ``c`` as it meets a tensor of ``dtype`` in the
+    reference: JAX's weak typing first rounds it to that dtype (a
+    bfloat16 tensor times ``1 / sqrt(128)`` is times 0.08837890625),
+    where torch keeps it at full precision and rounds only the product.
+    Multiplying by the rounded value gives the reference's bits: the
+    product of two bfloat16 values is exact in torch's float32
+    arithmetic, then rounded once, and a float32 tensor's scalar is
+    rounded to float32 by torch as well."""
+    return torch.tensor(c, dtype=dtype).item()
 
 
 def _w(p: dict, name: str, dtype: torch.dtype) -> torch.Tensor:
@@ -207,9 +221,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def _query_groups(q: torch.Tensor, K: int) -> torch.Tensor:
-    """The token's scaled q (B, 1, H, hd) as (B, K, H / K, hd)."""
+    """The token's scaled q (B, 1, H, hd) as (B, K, H / K, hd), in q's
+    dtype: the scale ``1 / sqrt(hd)`` rounded to that dtype first, as
+    the reference's ``q * scale`` rounds it (``weak_scalar``)."""
     B, _, H, hd = q.shape
-    scale = 1.0 / math.sqrt(hd)
+    scale = weak_scalar(1.0 / math.sqrt(hd), q.dtype)
     return (q[:, 0] * scale).reshape(B, K, H // K, hd)
 
 
@@ -257,27 +273,44 @@ def decode_attention_cut(q: torch.Tensor, k_block: torch.Tensor,
     """``decode_attention`` over a cache cut on its positions: this
     rank's block (B, S_b, K, hd) holds positions ``[lo, lo + S_b)`` of
     every head, q (B, 1, H, hd) every query head.  Each rank's scores
-    are masked at their global positions; its partial softmax (each
-    row's max m_j, the sum l_j of ``exp(s - m_j)`` and their product o_j
-    with V) is gathered over the cut's ranks in one collective and
-    combined exactly: ``sum_j w_j o_j / sum_j w_j l_j``, ``w_j = exp(m_j
-    - max_j m_j)``.  A block with no valid position adds exactly zero
-    (its scores are the finite ``NEG_INF``, so its weight underflows to
-    0).  Returns every head's output, the same on every rank of the
-    cut."""
+    are masked at their global positions, and each row's max m_j and sum
+    l_j of ``exp(s - m_j)`` over the block give the whole row's max M and
+    sum L = ``sum_j l_j exp(m_j - M)``.
+
+    The reference rounds the normalized p to the cache's dtype before
+    its product with V, over the whole row.  So in a narrower dtype one
+    gather of (m_j, l_j) (``tp_decode_stats``) comes first; then each
+    rank's ``p = exp(s - M) / L``, rounded, times its V in float32 is
+    gathered (``tp_decode_combine``) and summed in block order.  In
+    float32 the rounding is the identity, and one gather of each block's
+    unnormalized product with V beside (l_j, m_j) is combined exactly:
+    ``sum_j w_j o_j / sum_j w_j l_j``, ``w_j = exp(m_j - M)``.  A block
+    with no valid position adds exactly zero (its scores are the finite
+    ``NEG_INF``, so its weight and its p underflow to 0).  Returns every
+    head's output, the same on every rank of the cut."""
     B, _, H, hd = q.shape
     K = k_block.shape[2]
+    ctx = get_ctx()
     s = torch.matmul(_query_groups(q, K).float(),
                      _f32_heads_major(k_block).transpose(-1, -2))
     s = _masked(s, t, lo, softcap)
     m = s.amax(-1, keepdim=True)
-    p = s.sub_(m).exp_()
-    parts = cut_gather(get_ctx(), torch.cat(
-        [torch.matmul(p, _f32_heads_major(v_block)),
-         p.sum(-1, keepdim=True), m], dim=-1))
-    w = torch.exp(parts[..., -1:] - parts[..., -1:].amax(0))
-    ol = (parts[..., :-1] * w).sum(0)
-    o = ol[..., :hd] / ol[..., hd:]
+    v = _f32_heads_major(v_block)
+    if v_block.dtype == torch.float32:
+        p = s.sub_(m).exp_()
+        parts = cut_gather(ctx, torch.cat(
+            [torch.matmul(p, v), p.sum(-1, keepdim=True), m], dim=-1))
+        w = torch.exp(parts[..., -1:] - parts[..., -1:].amax(0))
+        ol = (parts[..., :-1] * w).sum(0)
+        o = ol[..., :hd] / ol[..., hd:]
+    else:
+        ml = cut_gather(ctx, torch.cat(
+            [m, torch.exp(s - m).sum(-1, keepdim=True)], dim=-1),
+            kind="tp_decode_stats")
+        top = ml[..., :1].amax(0)
+        total = (ml[..., 1:] * torch.exp(ml[..., :1] - top)).sum(0)
+        p = (s.sub_(top).exp_() / total).to(v_block.dtype)
+        o = cut_gather(ctx, torch.matmul(p.float(), v)).sum(0)
     return o.reshape(B, 1, H, hd).to(q.dtype)
 
 

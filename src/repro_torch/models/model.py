@@ -204,7 +204,7 @@ def embed_inputs(cfg: ModelConfig, params: Params, batch: dict
         x = table[local.clamp(0, v_loc - 1)].to(compute_dtype(cfg))
         x = tp_exit(ctx, x * mine[..., None].to(x.dtype))
     if cfg.embedding_multiplier != 1.0:
-        x = x * cfg.embedding_multiplier
+        x = x * L.weak_scalar(cfg.embedding_multiplier, x.dtype)
     return x
 
 

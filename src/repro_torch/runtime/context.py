@@ -72,9 +72,12 @@ dp axes, ``("data", "model")`` where it does not; ``cache_cut`` gives
 of positions of every head with one all-to-all over the TP group
 (``cache_exchange``); a decode step gathers the token's q, k and v
 heads over the TP group (``tp_heads``), each rank attends over its
-block of positions, and the partial softmaxes (float32: each row's max,
-its exponentials' sum and their product with V) are gathered over the
-cut (``cut_gather``) and combined exactly on every rank.
+block of positions, and the partial softmaxes are gathered over the
+cut (``cut_gather``) and combined on every rank: in float32 each row's
+max, its exponentials' sum and their product with V in one gather; in
+a narrower cache dtype the rows' maxes and sums first, then each
+block's normalized p, rounded to that dtype as the reference rounds it,
+times V (``models.layers.decode_attention_cut``).
 
 Every collective here, and the step's gradient sums
 (``launch.steps.axes_sum_``), adds its call and the bytes of its operand
@@ -529,16 +532,19 @@ def cache_cut(ctx: DistCtx) -> tuple[int, int]:
             flat_node_id(ctx.mesh, axes))
 
 
-def cut_gather(ctx: DistCtx, t: torch.Tensor) -> torch.Tensor:
+def cut_gather(ctx: DistCtx, t: torch.Tensor,
+               kind: str = "tp_decode_combine") -> torch.Tensor:
     """The cut's ranks' ``t`` stacked on a new first dimension, in block
-    order (a decode step's partial softmaxes)."""
+    order (a decode step's partial softmaxes: their row statistics under
+    ``kind="tp_decode_stats"``, their products with V under the
+    default), tallied under ``kind``."""
     axes = _cut_axes(ctx)
     n = math.prod(ctx.mesh.shape[a] for a in axes)
     # the mesh's own group where the cut spans it: a second gloo group of
     # the same ranks can abort its process at exit
     group = ctx.mesh.group if n == ctx.mesh.size else subgroup(
         ctx.mesh, axes, [tuple(range(n))])[0]
-    return _gather(ctx.mesh, group, n, t[None], 0, "tp_decode_combine")
+    return _gather(ctx.mesh, group, n, t[None], 0, kind)
 
 
 def tp_heads(ctx: DistCtx, t: torch.Tensor) -> torch.Tensor:

@@ -683,7 +683,8 @@ def run_tp_serve(case, inputs, mesh) -> dict:
             got.append(logits)
         out.update({f"decode_calls_{k}": np.int64(v["calls"])
                     for k, v in C.collective_counts().items()})
-        out["logits"] = torch.cat(got, dim=1).numpy()
+        # a bfloat16 model's logits widened (exactly) for numpy
+        out["logits"] = torch.cat(got, dim=1).float().numpy()
     finally:
         out.update(taps.close())
     if case["serve"]:
