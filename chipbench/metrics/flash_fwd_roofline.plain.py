@@ -1,0 +1,2 @@
+"""The flash forward's share of its roofline in the plain training cells."""
+from chipbench.readers import flash_fwd_roofline as read  # noqa: F401
